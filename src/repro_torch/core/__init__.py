@@ -1,0 +1,17 @@
+"""Core library of the port: encoders, straggler delay models and the
+encoded data-parallel problem (counterpart of ``repro.core``)."""
+from .encoding import (LinearEncoder, Encoder, DenseEncoder, as_dense,
+                       make_encoder, register_encoder, available_encoders,
+                       gaussian_encoder, hadamard_encoder, haar_encoder,
+                       paley_etf_encoder, steiner_etf_encoder,
+                       replication_encoder, identity_encoder, partition_rows,
+                       pad_rows, brip_constant, subset_spectrum,
+                       hadamard_matrix, hadamard_ensemble)
+from .operators import FastHadamardEncoder, BlockDiagonalEncoder
+from .straggler import (bimodal_delays, power_law_delays, exponential_delays,
+                        multimodal_delays, constant_delays, fastest_k,
+                        active_mask, adversarial_sets, simulate_run, WallClock,
+                        adaptive_k)
+from .data_parallel import (EncodedProblem, make_encoded_problem,
+                            encoded_gradients, masked_gradient, gd_step,
+                            prox_l1, prox_step, original_objective)

@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Each ``.cu`` file is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a`` into an object; the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library is named by a hash of the sources and flags and lives in
+``kernels/build/`` (ignored by git), so an unchanged tree builds once.  A
+failed build raises: nothing falls back to the plain PyTorch versions.
+
+``launches`` counts, per kernel wrapper, the calls that launched a kernel
+on the card (never the plain CPU path); ``chip_smoke.py`` clears it before
+driving the main path and reads it after.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["launches", "load_library", "library_path", "check", "stream_of",
+           "NVCC_FLAGS"]
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD = _HERE / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launches: collections.Counter = collections.Counter()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(is the CUDA toolkit installed?)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags is built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD / f"librepro_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _compile(lib: Path) -> str:
+    """Compile every source in parallel, link, and move the library into
+    place atomically (concurrent builders each write their own temp dir).
+    Returns the compilers' output (the ``-Xptxas -v`` register report)."""
+    nvcc = _nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                 "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", *map(str, objs), "-o",
+             str(tmp_lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        if link.returncode:
+            raise RuntimeError(f"linking {lib.name} failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    (BUILD / (lib.stem + ".log")).write_text(log)
+    return log
+
+
+_SIGNATURES = {
+    "repro_fwht": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "repro_srht_encode": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_void_p],
+    "repro_fused_masked_gradient": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first use."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        _compile(lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel '{kernel}' failed to launch "
+                           f"(cudaError {err})")
+
+
+def stream_of(tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as a raw handle."""
+    import torch
+    return torch.cuda.current_stream(tensor.device).cuda_stream

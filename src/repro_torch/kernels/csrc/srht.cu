@@ -1,0 +1,89 @@
+// Matrix-free SRHT encode (paper §4.2.2):  rows [lo, hi) of
+//     S X = H_N[:, cols] diag(signs) X / sqrt(n)
+// for data X (n, p), computed one data column at a time as
+//     out[c, :] = FWHT_N(scatter(xt[c, :] * signs, cols))[lo:hi] * scale
+// with xt = X^T (p, n), float32.
+//
+// Replaces the TPU kernel src/repro/kernels/encode.py (_srht_body, launched
+// by srht_encode_call) together with the XLA scatter in front of it
+// (src/repro/kernels/ops.py srht_encode): sign-flip, all log2(N) butterfly
+// stages and the row window in one pass.
+//
+// Bound on the H100: memory.  Per data column it reads n values plus the
+// shared (cols, signs) and writes hi - lo values, against 0.5 N log2(N)
+// add/sub pairs - below the card's operations-per-byte line.  Design: one
+// block per data column with the whole N-point row in shared memory
+// (N <= 32768, 128 KB).  The scatter is folded into the load: the row is
+// zero-filled on chip and each live value lands in its slot, so the
+// zero-padded (p, N) intermediate of the TPU path never exists in device
+// memory.  The butterfly runs as in fwht.cu (hadamard.cuh), and only the
+// window is scaled and written, coalesced.
+#include "hadamard.cuh"
+
+namespace {
+
+template <int R>
+__global__ void srht_kernel(const float* __restrict__ xt,
+                            const int* __restrict__ cols,
+                            const float* __restrict__ signs,
+                            float* __restrict__ out, int n_in, int N, int lo,
+                            int hi, float scale) {
+  extern __shared__ float s[];
+  const int nt = blockDim.x, t = threadIdx.x;
+  const size_t row = blockIdx.x;
+  for (int i = t; i < N; i += nt) s[i] = 0.f;
+  __syncthreads();
+  const float* xr = xt + row * n_in;
+  for (int j = t; j < n_in; j += nt) s[cols[j]] = xr[j] * signs[j];
+  __syncthreads();
+  float v[R];
+  // thread t reads exactly the slots it writes back first in butterfly(),
+  // so no barrier is needed between this read and that write
+#pragma unroll
+  for (int j = 0; j < R; ++j) v[j] = s[j * nt + t];
+  repro::butterfly<R>(v, s);
+  const int w = hi - lo;
+  float* orow = out + row * w;
+  for (int i = t; i < w; i += nt) orow[i] = s[lo + i] * scale;
+}
+
+template <int R>
+cudaError_t launch(const float* xt, const int* cols, const float* signs,
+                   float* out, int rows, int n_in, int N, int lo, int hi,
+                   float scale, cudaStream_t stream) {
+  const int threads = N / R;
+  const size_t smem = static_cast<size_t>(N) * sizeof(float);
+  cudaError_t err =
+      repro::set_smem(reinterpret_cast<const void*>(&srht_kernel<R>), smem);
+  if (err != cudaSuccess) return err;
+  srht_kernel<R><<<rows, threads, smem, stream>>>(xt, cols, signs, out, n_in,
+                                                  N, lo, hi, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int repro_srht_encode(const void* xt, const void* cols,
+                                 const void* signs, void* out, int rows,
+                                 int n_in, int N, int lo, int hi, float scale,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || N <= 0 || (N & (N - 1)) || N > 32768 || n_in > N ||
+      lo < 0 || hi > N || lo >= hi)
+    return cudaErrorInvalidValue;
+  const float* x = static_cast<const float*>(xt);
+  const int* c = static_cast<const int*>(cols);
+  const float* sg = static_cast<const float*>(signs);
+  float* o = static_cast<float*>(out);
+  switch (N / repro::butterfly_threads(N)) {
+    case 1: return launch<1>(x, c, sg, o, rows, n_in, N, lo, hi, scale, st);
+    case 2: return launch<2>(x, c, sg, o, rows, n_in, N, lo, hi, scale, st);
+    case 4: return launch<4>(x, c, sg, o, rows, n_in, N, lo, hi, scale, st);
+    case 8: return launch<8>(x, c, sg, o, rows, n_in, N, lo, hi, scale, st);
+    case 16: return launch<16>(x, c, sg, o, rows, n_in, N, lo, hi, scale, st);
+    case 32: return launch<32>(x, c, sg, o, rows, n_in, N, lo, hi, scale, st);
+    case 64: return launch<64>(x, c, sg, o, rows, n_in, N, lo, hi, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,40 @@
+"""repro_torch.runtime — the straggler cluster runtime of the port.
+
+  * ``engine``     — discrete-event cluster simulator (host numpy, bit for
+                     bit the reference's): delay sampling, active-set
+                     policies, barrier wall-clock accounting;
+  * ``faults``     — crash / blackout / zone / corruption injection and the
+                     sub-k degrade policies;
+  * ``runners``    — the device loops of encoded GD and ISTA, single and
+                     batched over realizations;
+  * ``strategies`` — ``coded-gd``, ``coded-prox``, ``uncoded`` and
+                     ``replication`` behind one ``Strategy`` registry.
+"""
+from .engine import (DELAY_MODELS, POLICIES, ActiveSetPolicy, AdaptiveK,
+                     AdversarialRotation, AsyncBatch, AsyncTrace,
+                     ClusterEngine, Deadline, FastestK, IterationEvent,
+                     Schedule, ScheduleBatch, make_delay_model, make_policy)
+from .faults import (FAULT_KINDS, BlackoutFault, CorruptionFault, CrashFault,
+                     DegradePolicy, FaultEvent, FaultModel, ZoneFault,
+                     make_degrade, make_fault_model)
+from .runners import (batched_scan_gd, batched_scan_prox, scan_gd, scan_prox,
+                      sharded_scan_gd, sharded_scan_prox, trials_device_count)
+from .strategies import (ProblemSpec, RunResult, Strategy, TrialsResult,
+                         available_strategies, check_trials, get_strategy,
+                         register_strategy, resolve_eval_every,
+                         summary_stats)
+
+__all__ = [
+    "DELAY_MODELS", "POLICIES", "ActiveSetPolicy", "AdaptiveK",
+    "AdversarialRotation", "AsyncBatch", "AsyncTrace", "ClusterEngine",
+    "Deadline", "FastestK", "IterationEvent", "Schedule", "ScheduleBatch",
+    "make_delay_model", "make_policy", "scan_gd", "scan_prox",
+    "batched_scan_gd", "batched_scan_prox", "sharded_scan_gd",
+    "sharded_scan_prox", "trials_device_count", "ProblemSpec", "RunResult",
+    "Strategy", "TrialsResult", "available_strategies", "check_trials",
+    "get_strategy", "register_strategy", "resolve_eval_every",
+    "summary_stats",
+    "FAULT_KINDS", "BlackoutFault", "CorruptionFault", "CrashFault",
+    "DegradePolicy", "FaultEvent", "FaultModel", "ZoneFault", "make_degrade",
+    "make_fault_model",
+]

@@ -2,6 +2,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skipped "
+                   "by a fixture where none is present")
+
+
 def pytest_collection_modifyitems(config, items):
     """Per-test wall-clock ceiling (a hung chaos/fault test must fail, not
     wedge the suite).  Applied only when pytest-timeout is installed (CI
