@@ -19,14 +19,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
              n = 4096, p = 6000, m = 32, k = 24, beta = 2, bimodal delays)
              through the strategy entry points: coded-gd ``run`` and
              ``run_batched(trials=4, eval_every=10)`` with the fast-Hadamard
-             encoder, coded-prox on the l1 problem, and decode_t(encode(x))
-             plus one aligned worker block.  Launch counts are cleared just
-             before and read just after; the objective must be finite and
-             fall, and the card's trace must match the port's own CPU run on
-             the same encoded problem;
+             encoder, coded-prox on the l1 problem, one encode, decode_t and
+             one aligned worker block.  Launch counts are cleared just before
+             each of these paths and read just after, and each path must
+             launch exactly its own kernels (one fused launch a step); the
+             objective must be finite and fall, and the card's trace must
+             match the port's own CPU run on the same encoded problem;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
-             same function; step and encode times; peak device memory.
+             same function; step times (CUDA events around a 100-step loop,
+             five repetitions after a warm-up, every sample printed) and
+             encode times (host clock, three repetitions); peak device
+             memory.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -63,6 +67,34 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def samples_ms(fn, reps: int, warmup: int = 1) -> list[float]:
+    """Device-clock time of each of ``reps`` calls of ``fn`` (CUDA events
+    around each call, after warm-up).  The events sit on the stream, so a
+    call's host launch gaps count, as they do for the user."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def spread(xs: list[float], unit: str, digits: int = 4) -> str:
+    """'median (min-max; all samples)' of a list of times."""
+    s = sorted(xs)
+    return (f"{s[len(s) // 2]:.{digits}f} {unit} (min {s[0]:.{digits}f}, "
+            f"max {s[-1]:.{digits}f}; samples "
+            f"{', '.join(f'{x:.{digits}f}' for x in xs)})")
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -257,27 +289,43 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    _build.launches.clear()
+    counts: dict[str, int] = {}
+    by_path: dict[str, dict[str, int]] = {}
+
+    def drive(label, fn, expect):
+        """Run one main-path entry with the launch counts cleared just
+        before and read just after; it must launch exactly ``expect``."""
+        _build.launches.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {kn: v for kn, v in _build.launches.items() if v}
+        require(got == expect, f"{label}: launches {got} != {expect}")
+        by_path[label] = got
+        for kn, v in got.items():
+            counts[kn] = counts.get(kn, 0) + v
+        return out
+
+    fused, srht, fwht = "fused_masked_gradient", "srht_encode", "fwht"
     t0 = time.perf_counter()
-    res = get_strategy("coded-gd").run(spec, engine, steps=steps, **run_kw)
-    bat = get_strategy("coded-gd").run_batched(
-        spec, engine, steps=steps, trials=trials, eval_every=10, **run_kw)
-    prox = get_strategy("coded-prox").run(l1spec, engine, steps=prox_steps,
-                                          **run_kw)
+    res = drive("coded-gd run", lambda: get_strategy("coded-gd").run(
+        spec, engine, steps=steps, **run_kw), {fused: steps, srht: 1})
+    bat = drive("coded-gd run_batched", lambda: get_strategy(
+        "coded-gd").run_batched(spec, engine, steps=steps, trials=trials,
+                                eval_every=10, **run_kw),
+        {fused: steps, srht: 1})
+    prox = drive("coded-prox run", lambda: get_strategy("coded-prox").run(
+        l1spec, engine, steps=prox_steps, **run_kw),
+        {fused: prox_steps, srht: 1})
     enc = FastHadamardEncoder(n, cfg.beta, seed=0).with_workers(m)
-    E = enc.encode(Xy)
-    D = enc.decode_t(E)
-    B5 = enc.worker_block(5, Xy)
-    torch.cuda.synchronize()
+    E = drive("encode", lambda: enc.encode(Xy), {srht: 1})
+    D = drive("decode_t", lambda: enc.decode_t(E), {fwht: 1})
+    B5 = drive("worker_block", lambda: enc.worker_block(5, Xy), {fwht: 1})
     t_main = time.perf_counter() - t0
-    counts = dict(_build.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    print(f"main path: {t_main:.2f} s host clock; launches {counts}; peak "
-          f"device memory {peak_gb:.2f} GB")
-    expect = {"fused_masked_gradient": 2 * steps + prox_steps,
-              "srht_encode": 4, "fwht": 2}
-    require(counts == expect, f"launch counts {counts} != {expect}")
+    print(f"main path: {t_main:.2f} s host clock; peak device memory "
+          f"{peak_gb:.2f} GB")
+    print(f"launches by path: {json.dumps(by_path)}")
     for label, tr in (("coded-gd run", res.objective),
                       ("coded-gd run_batched", bat.objective),
                       ("coded-prox run", prox.objective)):
@@ -317,25 +365,26 @@ def main() -> int:
     masks_run = torch.as_tensor(res.schedule.masks, device=dev)
     masks_bat = torch.as_tensor(bat.schedules.masks, device=dev)
     w0 = torch.zeros(p, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scan_gd(prob, masks_run, step, w0)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-    t0 = time.perf_counter()
-    batched_scan_gd(prob, masks_bat, step, w0[None].repeat(trials, 1),
-                    eval_every=10)
-    torch.cuda.synchronize()
-    bstep_ms = (time.perf_counter() - t0) / steps * 1e3
-    t0 = time.perf_counter()
-    make_encoded_problem(spec.X, spec.y,
-                         FastHadamardEncoder(n, cfg.beta, seed=0), m,
-                         lam=spec.lam, device=dev)
-    torch.cuda.synchronize()
-    encode_s = time.perf_counter() - t0
-    print(f"step: {step_ms:.3f} ms (R=1, objective every step), "
-          f"{bstep_ms:.3f} ms (R=4, objective every 10 steps); encode "
-          f"(make_encoded_problem, host prep included): {encode_s:.3f} s")
+    W0 = w0[None].repeat(trials, 1)
+    step1 = [t / steps for t in samples_ms(
+        lambda: scan_gd(prob, masks_run, step, w0), 5)]
+    step4 = [t / steps for t in samples_ms(
+        lambda: batched_scan_gd(prob, masks_bat, step, W0, eval_every=10),
+        5)]
+    encode_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_encoded_problem(spec.X, spec.y,
+                             FastHadamardEncoder(n, cfg.beta, seed=0), m,
+                             lam=spec.lam, device=dev)
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t0)
+    print(f"step R=1 (objective every step): {spread(step1, 'ms')}  [{smi}]")
+    print(f"step R=4 (objective every 10 steps): {spread(step4, 'ms')}  "
+          f"[{smi}]")
+    print(f"encode (make_encoded_problem, host prep included, host clock): "
+          f"{spread(encode_s, 's')}  [{smi}]")
     device_breakdown(lambda: scan_gd(prob, masks_run[:20], step, w0),
                      "20 steps R=1")
     device_breakdown(lambda: batched_scan_gd(
@@ -383,8 +432,10 @@ def main() -> int:
     act4 = int((masks4.sum(0) > 0).sum())
     b4_ms = time_ms(lambda: fused_masked_gradient(SX, Sy, W4, masks4, **fkw),
                     20)
+    # each realization reads only its own active workers' rows: the union
+    # is read once at best, the flops are counted per realization
     b4_bound, _ = bound_ms((act4 * r * (p + 1) + 8 * p + 4 * m) * 4,
-                           4 * 4 * act * r * p)
+                           4 * int(masks4.sum()) * r * p)
     print(f"fused batched R=4: {b4_ms:.4f} ms, bound {b4_bound:.4f} ms "
           f"({act4} workers active in some realization)")
 

@@ -8,10 +8,11 @@ Encoded:     f~(w) = 1/(2 n beta) ||S (X w - y)||^2 + lam * h(w)
 Worker i stores (S_i X, S_i y); at iteration t the master combines the
 gradients of the fastest ``k`` workers (erasure mask), rescaled by 1/eta.
 Everything here works on worker-stacked tensors ``(m, rows_per_worker, p)``
-on one device.  Float32 matrix products run in full float32: this module
-sets ``torch.backends.cuda.matmul.allow_tf32 = False`` on import, since a
-TF32 product keeps about three decimal digits and the objective trace is
-compared with the reference to float32 rounding.
+on one device.  Float32 matrix products run in full float32: the functions
+that take one turn ``torch.backends.cuda.matmul.allow_tf32`` off for their
+own duration (``full_f32_matmul``), since a TF32 product keeps about three
+decimal digits and the objective trace is compared with the reference to
+float32 rounding.  The caller's setting is left as it was.
 """
 from __future__ import annotations
 
@@ -20,12 +21,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import full_f32_matmul, resolve_device
 
 from .encoding import LinearEncoder
 from .operators import FastHadamardEncoder
-
-torch.backends.cuda.matmul.allow_tf32 = False
 
 __all__ = [
     "EncodedProblem", "make_encoded_problem", "encoded_gradients",
@@ -101,6 +100,7 @@ def make_encoded_problem(X: np.ndarray, y: np.ndarray, enc: LinearEncoder,
         lam=float(lam), beta=float(enc.beta), n=X.shape[0])
 
 
+@full_f32_matmul
 def original_objective(prob: EncodedProblem, w: torch.Tensor,
                        h: str = "l2") -> torch.Tensor:
     """f(w) on the ORIGINAL (uncoded) problem — convergence is measured here.
@@ -118,6 +118,7 @@ def original_objective(prob: EncodedProblem, w: torch.Tensor,
     return loss + prob.lam * reg
 
 
+@full_f32_matmul
 def encoded_gradients(prob: EncodedProblem, w: torch.Tensor) -> torch.Tensor:
     """Per-worker gradients of the smooth part, (m, p).
 
@@ -127,6 +128,7 @@ def encoded_gradients(prob: EncodedProblem, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mrp,mr->mp", prob.SX, r) / (prob.n * prob.beta)
 
 
+@full_f32_matmul
 def masked_gradient(prob: EncodedProblem, w: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Fastest-k aggregation of per-worker encoded gradients:

@@ -1,9 +1,32 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and the
+float32 product precision its plain products run at."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "full_f32_matmul"]
+
+
+def full_f32_matmul(fn):
+    """Decorate ``fn`` to run its float32 matrix products in full float32
+    (TF32 off), restoring the caller's setting on return.  A TF32 product
+    keeps about three decimal digits, and the objective trace is compared
+    with the reference to float32 rounding.  With TF32 already off (the
+    PyTorch default) the wrapper only reads the setting: it sits on the
+    step loop's host path."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        matmul = torch.backends.cuda.matmul
+        if not matmul.allow_tf32:
+            return fn(*args, **kwargs)
+        matmul.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            matmul.allow_tf32 = True
+    return run
 
 
 def resolve_device(device=None) -> torch.device:

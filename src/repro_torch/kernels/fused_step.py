@@ -17,23 +17,27 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import full_f32_matmul
+
 from ._build import check, launches, load_library, stream_of
 
 __all__ = ["fused_masked_gradient", "fused_masked_gradient_plain",
            "pick_fused_block_rows", "MAX_COLS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BLOCK_ROWS = 64
+_BLOCK_ROWS_CAP = 16
 # the kernel keeps a thread's share of a row in registers (64 of them at
 # 256 threads); wider rows need the multi-pass form, not ported yet
 MAX_COLS = 16384
 
 
-def pick_fused_block_rows(r: int, cap: int = 16) -> int:
-    """Largest divisor of the per-worker row count ``r`` not above ``cap``:
-    the rows one block of the kernel's first stage reduces.  A divisor means
-    no ragged block; the choice depends on r alone, never on R."""
-    return max(d for d in range(1, min(r, cap) + 1) if r % d == 0)
+def pick_fused_block_rows(r: int) -> int:
+    """Largest divisor of the per-worker row count ``r`` not above 16: the
+    rows one block of the kernel's first stage reduces.  A divisor means no
+    ragged block; the choice depends on r alone, never on R, so every
+    reduction order of the kernel is fixed by the problem's shape."""
+    return max(d for d in range(1, min(r, _BLOCK_ROWS_CAP) + 1)
+               if r % d == 0)
 
 
 def _decode_weights(masks: torch.Tensor, m: int, n: int,
@@ -42,6 +46,7 @@ def _decode_weights(masks: torch.Tensor, m: int, n: int,
     return (masks * (m / k) / (n * beta)).float()
 
 
+@full_f32_matmul
 def fused_masked_gradient_plain(SX, Sy, W, masks, *, n: int,
                                 beta: float) -> torch.Tensor:
     """Plain PyTorch version of the batched fused gradient: (R, p) in W's
@@ -59,8 +64,7 @@ def fused_masked_gradient_plain(SX, Sy, W, masks, *, n: int,
 
 def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
                           w: torch.Tensor, mask: torch.Tensor, *, n: int,
-                          beta: float,
-                          block_rows: int | None = None) -> torch.Tensor:
+                          beta: float) -> torch.Tensor:
     """The fused (1/eta)-scaled masked gradient.
 
     SX (m, r, p) / Sy (m, r) are the worker-stacked encoded blocks.  Single
@@ -70,7 +74,7 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
     """
     if w.dim() == 1:
         return fused_masked_gradient(SX, Sy, w[None], mask[None], n=n,
-                                     beta=beta, block_rows=block_rows)[0]
+                                     beta=beta)[0]
     if SX.dim() != 3 or w.dim() != 2 or mask.dim() != 2:
         raise ValueError("expected SX (m, r, p), w (R, p), mask (R, m)")
     m, r, p = SX.shape
@@ -79,10 +83,6 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
         raise ValueError(f"shape mismatch: SX {tuple(SX.shape)}, Sy "
                          f"{tuple(Sy.shape)}, w {tuple(w.shape)}, mask "
                          f"{tuple(mask.shape)}")
-    br = block_rows or pick_fused_block_rows(r)
-    if r % br or br > _MAX_BLOCK_ROWS:
-        raise ValueError(f"block_rows {br} must divide r={r} and be <= "
-                         f"{_MAX_BLOCK_ROWS}")
     if SX.device.type == "cpu":
         return fused_masked_gradient_plain(SX, Sy, w, mask, n=n, beta=beta)
     if SX.device.type != "cuda":
@@ -103,6 +103,7 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
             raise ValueError(f"fused kernel needs a contiguous {name}")
     if not SX.is_contiguous():
         raise ValueError("fused kernel needs a contiguous SX")
+    br = pick_fused_block_rows(r)
     out = torch.empty((R, p), dtype=w.dtype, device=w.device)
     scratch = torch.empty((R, m * (r // br), p), dtype=torch.float32,
                           device=w.device)

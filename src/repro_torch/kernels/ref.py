@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import full_f32_matmul
+
 
 def fwht_ref(x: torch.Tensor) -> torch.Tensor:
     """Recursive FWHT along the last axis (no normalization), float32."""
@@ -20,6 +22,7 @@ def fwht_ref(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+@full_f32_matmul
 def fwht_matrix_ref(x: torch.Tensor) -> torch.Tensor:
     """Dense H @ x oracle (independent of the butterfly formulation)."""
     n = x.shape[-1]
@@ -29,6 +32,7 @@ def fwht_matrix_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nm,...m->...n", H, x.float())
 
 
+@full_f32_matmul
 def fused_masked_gradient_ref(SX, Sy, w, mask, *, n: int,
                               beta: float) -> torch.Tensor:
     """Dense einsum oracle of the single fused gradient (p,)."""

@@ -103,12 +103,12 @@ def test_fused_kernel_batched_and_single(cuda, m, r, p):
         assert torch.equal(out[q], single)
 
 
-@pytest.mark.parametrize("br", [1, 3, 4, 12])
-def test_fused_kernel_block_rows(cuda, br):
-    SX, Sy, W, masks = _fused(cuda, 4, 12, 40, R=2, seed=3)
-    out = fused_masked_gradient(SX, Sy, W, masks, n=24, beta=2.0,
-                                block_rows=br)
-    _close(out, fused_masked_gradient_plain(SX, Sy, W, masks, n=24,
+@pytest.mark.parametrize("r", [1, 7, 12, 34])
+def test_fused_kernel_row_counts(cuda, r):
+    """Row counts whose stage-1 row blocks differ (r, 7, 12, 2 rows)."""
+    SX, Sy, W, masks = _fused(cuda, 4, r, 40, R=2, seed=3)
+    out = fused_masked_gradient(SX, Sy, W, masks, n=2 * r, beta=2.0)
+    _close(out, fused_masked_gradient_plain(SX, Sy, W, masks, n=2 * r,
                                             beta=2.0), 1e-4)
 
 

@@ -17,6 +17,9 @@ from repro.kernels import ops as jops
 from repro.kernels.encode import srht_encode_call as j_srht
 from repro.kernels.fused_step import fused_masked_gradient as j_fused
 from repro.kernels.fwht import fwht_kernel_call as j_fwht
+from repro_torch.core import (EncodedProblem, masked_gradient,
+                              original_objective)
+from repro_torch.device import full_f32_matmul
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import launches
 from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
@@ -240,30 +243,51 @@ def test_fused_batched_matches_pallas_rows_and_single_bitwise():
         assert torch.equal(out[q], single)
 
 
-@pytest.mark.parametrize("br", [1, 2, 3, 4, 6, 12])
-def test_fused_block_rows_accepted_and_result_unchanged(br):
-    SX, Sy, w, mask = _fused_operands(4, 12, 40)
-    full = fused_masked_gradient(*_t(SX, Sy, w, mask), n=24, beta=2.0)
-    out = fused_masked_gradient(*_t(SX, Sy, w, mask), n=24, beta=2.0,
-                                block_rows=br)
-    assert torch.equal(out, full)
+@pytest.mark.parametrize("r", [1, 7, 34, 96])
+def test_fused_matches_pallas_row_counts(r):
+    """Per-worker row counts whose stage-1 row blocks differ (r, 7, 2, 16)."""
+    SX, Sy, w, mask = _fused_operands(4, r, 24, seed=r)
+    n = 2 * r
+    ref = j_fused(*_j(SX, Sy, w, mask), n=n, beta=2.0, interpret=True)
+    out = fused_masked_gradient(*_t(SX, Sy, w, mask), n=n, beta=2.0)
+    _close(out.numpy(), np.asarray(ref), F32_TOL)
+
+
+@pytest.mark.parametrize("prev", [True, False])
+def test_products_leave_tf32_setting_as_found(prev):
+    """The plain products run in full float32 and restore the caller's
+    TF32 setting, whatever it was."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = prev
+    try:
+        inside = full_f32_matmul(lambda: matmul.allow_tf32)()
+        assert inside is False and matmul.allow_tf32 is prev
+        SX, Sy, w, mask = _t(*_fused_operands(4, 8, 16))
+        prob = EncodedProblem(SX=SX, Sy=Sy, X=SX[0], y=Sy[0], lam=0.1,
+                              beta=2.0, n=8)
+        original_objective(prob, w)
+        masked_gradient(prob, w, mask)
+        fused_masked_gradient_plain(SX, Sy, w[None], mask[None], n=16,
+                                    beta=2.0)
+        fused_masked_gradient_ref(SX, Sy, w, mask, n=16, beta=2.0)
+        assert matmul.allow_tf32 is prev
+    finally:
+        matmul.allow_tf32 = saved
 
 
 def test_fused_rejects_bad_shapes_and_block_rows():
     SX, Sy, w, mask = _t(*_fused_operands(4, 12, 40))
-    with pytest.raises(ValueError):
-        fused_masked_gradient(SX, Sy, w, mask, n=24, beta=2.0, block_rows=5)
     with pytest.raises(ValueError):
         fused_masked_gradient(SX, Sy[:, :-1], w, mask, n=24, beta=2.0)
     with pytest.raises(ValueError):
         fused_masked_gradient(SX, Sy, w[:-1], mask, n=24, beta=2.0)
 
 
-@pytest.mark.parametrize("r,cap,want", [(256, 16, 16), (12, 16, 12),
-                                        (7, 16, 7), (96, 16, 16),
-                                        (34, 16, 2), (4096, 64, 64)])
-def test_pick_fused_block_rows(r, cap, want):
-    br = pick_fused_block_rows(r, cap)
+@pytest.mark.parametrize("r,want", [(256, 16), (12, 12), (7, 7), (96, 16),
+                                    (34, 2), (4096, 16)])
+def test_pick_fused_block_rows(r, want):
+    br = pick_fused_block_rows(r)
     assert br == want and r % br == 0
 
 
