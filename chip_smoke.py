@@ -14,23 +14,35 @@ Phases, each of which ends the run with a non-zero exit on failure:
              card at the main path's shapes (FWHT (6001, 8192); SRHT full
              frame and one worker window of the (4096, 6001) data; fused
              gradient at (32, 256, 6000), single, batched R = 4, all
-             masked, and batched row r == single call r bit for bit);
+             masked, and batched row r == single call r bit for bit; coded
+             combine at (32, 6000) in float32 and bfloat16 and at the odd
+             width (8, 6001), (m,) and (m, 1) weights bit for bit, all
+             masked);
 4. main    - the paper's ridge problem at its published size (PAPER_RIDGE:
              n = 4096, p = 6000, m = 32, k = 24, beta = 2, bimodal delays)
              through the strategy entry points: coded-gd ``run`` and
              ``run_batched(trials=4, eval_every=10)`` with the fast-Hadamard
              encoder, coded-prox on the l1 problem, one encode, decode_t and
-             one aligned worker block.  Launch counts are cleared just before
-             each of these paths and read just after, and each path must
-             launch exactly its own kernels (one fused launch a step); the
-             objective must be finite and fall, and the card's trace must
-             match the port's own CPU run on the same encoded problem;
+             one aligned worker block; then the paper's own algorithm for
+             this configuration, coded-lbfgs ``run`` (50 steps, memory 10)
+             and ``run_batched(trials=2)``, one coded-bcd run on the lifted
+             (feature-encoded) problem and one async run.  Launch counts
+             are cleared just before each of these paths and read just
+             after, and each path must launch exactly its own kernels (one
+             fused launch a GD / ISTA step, one combine an L-BFGS step, none
+             for async); the objectives must be finite and fall, and the
+             card's coded-gd trace and the first 20 steps of its coded-lbfgs
+             trace must match the port's own CPU run on the same encoded
+             problem and masks;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
-             same function; step times (CUDA events around a 100-step loop,
-             five repetitions after a warm-up, every sample printed) and
-             encode times (host clock, three repetitions); peak device
-             memory.
+             same function (the combine also at (32, 4194304), the coded-SGD
+             flat gradient's width); step times (CUDA events around a
+             100-step GD loop, a 50-step L-BFGS loop, the 20-step BCD loop
+             and the 320-update async loop, five repetitions after a
+             warm-up, every sample printed) and encode times (host clock,
+             three repetitions); the profiler's breakdown of each step;
+             peak device memory.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -115,6 +127,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the profiler's device time of
+    every kernel and copy that ``reps`` calls launch, over ``reps``.  Host
+    launch gaps are excluded, so for a launch-bound call this is the card's
+    share and ``time_ms`` the caller's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0.0)
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
+
+
 def device_breakdown(fn, label: str) -> None:
     """Print where the device time of ``fn`` goes, kernel by kernel, from
     ``torch.profiler``, and the device's idle share of the wall time."""
@@ -162,15 +194,20 @@ def main() -> int:
     from repro_torch.configs import PAPER_RIDGE as cfg
     from repro_torch.core import (EncodedProblem, FastHadamardEncoder,
                                   bimodal_delays, hadamard_ensemble,
-                                  hadamard_matrix, make_encoded_problem)
+                                  hadamard_matrix, make_encoded_problem,
+                                  make_encoder, make_lifted_problem,
+                                  phi_quadratic, run_encoded_lbfgs)
     from repro_torch.kernels import _build
+    from repro_torch.kernels.coded_reduce import (coded_combine_call,
+                                                  coded_combine_plain)
     from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
     from repro_torch.kernels.fused_step import (fused_masked_gradient,
                                                 fused_masked_gradient_plain)
     from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
     from repro_torch.kernels.ref import fused_masked_gradient_ref
     from repro_torch.runtime import (ClusterEngine, FastestK, ProblemSpec,
-                                     batched_scan_gd, get_strategy, scan_gd)
+                                     batched_scan_gd, get_strategy,
+                                     scan_async, scan_bcd, scan_gd)
 
     # 1. device --------------------------------------------------------------
     dev = torch.device("cuda")
@@ -271,6 +308,28 @@ def main() -> int:
           f"batched[r] == single(r) bitwise; all-masked == 0")
     table["fused_masked_gradient"] = {"max_abs_err": max(err1, err4)}
 
+    # coded combine at the L-BFGS step's (m, p), an odd width, bfloat16
+    comb_err = 0.0
+    for (cm, cp), dt, tol in (((m, p), torch.float32, 1e-5),
+                              ((8, p + 1), torch.float32, 1e-5),
+                              ((m, p), torch.bfloat16, 2.0 ** -7)):
+        g = torch.randn((cm, cp), device=dev, generator=gen).to(dt)
+        c = torch.rand(cm, device=dev, generator=gen)
+        out = coded_combine_call(g, c)
+        err, rel = rel_err(out, coded_combine_plain(g, c))
+        # f32 sums of m terms in another order; bf16 one output ulp
+        require(rel <= tol, f"combine {(cm, cp)} {dt}: max|d| {err:.3e} = "
+                            f"{rel:.2e} max|ref|")
+        require(torch.equal(out, coded_combine_call(g, c[:, None])),
+                f"combine {(cm, cp)} {dt}: (m,) != (m, 1) weights")
+        require(torch.count_nonzero(coded_combine_call(
+            g, torch.zeros_like(c))) == 0, "combine: all-masked != 0")
+        print(f"check coded_combine {(cm, cp)} {str(dt)[6:]}: max|d| "
+              f"{err:.3e} ({rel:.2e} of max|ref|, tol {tol:.1e}); (m,) == "
+              f"(m, 1) bitwise; all-masked == 0")
+        comb_err = max(comb_err, err)
+    table["coded_combine"] = {"max_abs_err": comb_err}
+
     # 4. main path -----------------------------------------------------------
     spec = ProblemSpec.synthetic(n, p, noise=0.5, lam=cfg.lam, seed=0)
     # the reference's step rule 1 / (1.3 L + lam), L = max eig(X^T X / n),
@@ -320,6 +379,26 @@ def main() -> int:
     E = drive("encode", lambda: enc.encode(Xy), {srht: 1})
     D = drive("decode_t", lambda: enc.decode_t(E), {fwht: 1})
     B5 = drive("worker_block", lambda: enc.worker_block(5, Xy), {fwht: 1})
+    # the paper's algorithm for PAPER_RIDGE (algorithm="lbfgs"), then
+    # coded BCD on the feature-encoded (lifted) problem and the async
+    # baseline, on the same data
+    comb = "coded_combine"
+    lb_steps, lb_trials, bcd_steps, async_steps = 50, 2, 20, 10
+    lb_kw = dict(policy=FastestK(k), encoder="fast-hadamard", memory=10)
+    lb = drive("coded-lbfgs run", lambda: get_strategy("coded-lbfgs").run(
+        spec, engine, steps=lb_steps, **lb_kw), {comb: lb_steps, srht: 1})
+    lbb = drive("coded-lbfgs run_batched", lambda: get_strategy(
+        "coded-lbfgs").run_batched(spec, engine, steps=lb_steps,
+                                   trials=lb_trials, **lb_kw),
+        {comb: lb_steps * lb_trials, srht: 1})
+    # the lifted quadratic's Hessian has norm <= beta L (the strategy's
+    # own rule, with L from the card instead of a host eigensolve)
+    bcd = drive("coded-bcd run", lambda: get_strategy("coded-bcd").run(
+        spec, engine, steps=bcd_steps, policy=FastestK(k),
+        encoder="fast-hadamard", step_size=0.9 / (L * cfg.beta)),
+        {srht: 1})
+    asy = drive("async run", lambda: get_strategy("async").run(
+        spec, engine, steps=async_steps, step_size=step), {})
     t_main = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -328,7 +407,11 @@ def main() -> int:
     print(f"launches by path: {json.dumps(by_path)}")
     for label, tr in (("coded-gd run", res.objective),
                       ("coded-gd run_batched", bat.objective),
-                      ("coded-prox run", prox.objective)):
+                      ("coded-prox run", prox.objective),
+                      ("coded-lbfgs run", lb.objective),
+                      ("coded-lbfgs run_batched", lbb.objective),
+                      ("coded-bcd run", bcd.objective),
+                      ("async run", asy.objective)):
         tr = np.asarray(tr)
         require(np.isfinite(tr).all(), f"{label}: non-finite objective")
         require((tr[..., -1] < tr[..., 0]).all(),
@@ -339,6 +422,12 @@ def main() -> int:
     # encode: its strided trace equals run()'s, bit for bit
     require(np.array_equal(bat.objective[0], res.objective[9::10]),
             "run_batched realization 0 != run at the same steps")
+    require(np.array_equal(lbb.objective[0], lb.objective),
+            "coded-lbfgs run_batched realization 0 != run")
+    print(f"coded-bcd: lifted blocks (m, n, N/m) = ({m}, {n}, "
+          f"{bcd.w.shape[-1]}); async: {asy.meta['updates']} updates, "
+          f"max staleness {asy.meta['max_staleness']}, dropped "
+          f"{asy.meta['dropped']}")
     dec_rel = float((D - cfg.beta * Xy).norm() / (cfg.beta * Xy).norm())
     blk_rel = float((B5 - E[5 * r:6 * r]).norm() / E[5 * r:6 * r].norm())
     require(dec_rel <= 1e-5, f"decode_t(encode(x)) != beta x: {dec_rel:.2e}")
@@ -360,6 +449,18 @@ def main() -> int:
     require(dev_rel <= 1e-4, f"card trace vs CPU trace: rel {dev_rel:.2e}")
     print(f"card trace vs the port's CPU run: max rel diff {dev_rel:.2e} "
           f"(tol 1e-4)")
+    # the first 20 L-BFGS steps through the port on the CPU, same masks
+    lb_cmp = 20
+    _, lb_cpu = run_encoded_lbfgs(cpu, lb.schedule.masks[:lb_cmp], memory=10)
+    lb_cpu = lb_cpu.numpy()
+    lb_rel = float(np.max(np.abs(lb.objective[:lb_cmp] - lb_cpu) /
+                          np.abs(lb_cpu)))
+    # f32 sums in another order, magnified by the two-loop recursion's and
+    # the line search's divisions by inner products of differences
+    require(lb_rel <= 1e-3, f"coded-lbfgs card trace vs CPU trace: rel "
+                            f"{lb_rel:.2e}")
+    print(f"coded-lbfgs card trace vs the port's CPU run ({lb_cmp} steps): "
+          f"max rel diff {lb_rel:.2e} (tol 1e-3)")
 
     # 5. times ---------------------------------------------------------------
     masks_run = torch.as_tensor(res.schedule.masks, device=dev)
@@ -390,6 +491,46 @@ def main() -> int:
     device_breakdown(lambda: batched_scan_gd(
         prob, masks_bat[:, :20], step, w0[None].repeat(trials, 1),
         eval_every=10), "20 steps R=4")
+    masks_lb = lb.schedule.masks
+    step_lb = [t / lb_steps for t in samples_ms(
+        lambda: run_encoded_lbfgs(prob, masks_lb, memory=10), 5)]
+    print(f"coded-lbfgs step (memory 10, objective every step): "
+          f"{spread(step_lb, 'ms')}  [{smi}]")
+    device_breakdown(lambda: run_encoded_lbfgs(prob, masks_lb[:20],
+                                               memory=10),
+                     "20 coded-lbfgs steps")
+    # coded-bcd and async on the problems their strategies built (the same
+    # encoders and seeds, rebuilt here), with their runs' masks and events
+    lifted = make_lifted_problem(spec.X, FastHadamardEncoder(p, cfg.beta,
+                                                             seed=0), m,
+                                 *phi_quadratic(spec.y, device=dev),
+                                 device=dev)
+    v0 = torch.zeros((m, lifted.XS.shape[-1]), device=dev)
+    masks_bcd = bcd.schedule.masks
+    step_bcd = [t / bcd_steps for t in samples_ms(
+        lambda: scan_bcd(lifted, masks_bcd, bcd.meta["step_size"], v0), 5)]
+    print(f"coded-bcd step (objective every step): "
+          f"{spread(step_bcd, 'ms')}  [{smi}]")
+    device_breakdown(lambda: scan_bcd(lifted, masks_bcd, bcd.meta["step_size"],
+                                      v0), f"{bcd_steps} coded-bcd steps")
+    del lifted
+    aprob = make_encoded_problem(spec.X, spec.y,
+                                 make_encoder("uncoded", n, beta=1.0), m,
+                                 lam=spec.lam, device=dev)
+    ev = asy.schedule
+    bound = asy.meta["staleness_bound"]
+    upd = [t / ev.updates for t in samples_ms(
+        lambda: scan_async(aprob, ev.workers, ev.staleness,
+                           asy.meta["step_size"], w0,
+                           buffer_size=bound + 1), 5)]
+    print(f"async update (objective every update): {spread(upd, 'ms')}  "
+          f"[{smi}]")
+    device_breakdown(lambda: scan_async(aprob, ev.workers[:64],
+                                        ev.staleness[:64],
+                                        asy.meta["step_size"], w0,
+                                        buffer_size=bound + 1),
+                     "64 async updates")
+    del aprob
 
     # FWHT: one read and one write of the (p + 1, N) frame; the library
     # yardstick is the dense product with the Sylvester matrix
@@ -439,7 +580,40 @@ def main() -> int:
     print(f"fused batched R=4: {b4_ms:.4f} ms, bound {b4_bound:.4f} ms "
           f"({act4} workers active in some realization)")
 
+    # coded combine at the L-BFGS step's (m, p) (the gradient block it
+    # combines was just written, so it is found in L2, as on the main
+    # path) and at the coded-SGD flat gradient's (32, 4194304) (512 MB,
+    # from device memory): read g and c once, write out once; the
+    # yardstick is one torch.matmul(c, g)
+    co = table["coded_combine"]
+    for cp in (p, 4194304):
+        g = torch.randn((m, cp), device=dev, generator=gen)
+        c = torch.rand(m, device=dev, generator=gen)
+        reps = 200 if cp == p else 20
+        row = {"ms": time_ms(lambda: coded_combine_call(g, c), reps),
+               "plain_ms": time_ms(lambda: coded_combine_plain(g, c), reps),
+               "library_ms": time_ms(lambda: torch.matmul(c, g), reps)}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (m * cp + m + cp) * 4, 2 * m * cp)
+        if cp == p:
+            co.update(row)
+            dev_us = [1e3 * device_ms(f, 50) for f in (
+                lambda: coded_combine_call(g, c),
+                lambda: coded_combine_plain(g, c),
+                lambda: torch.matmul(c, g))]
+            print(f"coded_combine (32, {cp}) device time a call (profiler, "
+                  f"host gaps excluded): kernel {dev_us[0]:.2f} us, plain "
+                  f"{dev_us[1]:.2f} us, library {dev_us[2]:.2f} us  [{smi}]")
+        else:
+            print(f"coded_combine (32, {cp}): {row['ms']:.4f} ms; bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
+                  f"{row['plain_ms']:.4f} ms; library {row['library_ms']:.4f}"
+                  f" ms  [{smi}]")
+        del g
+
     meta = {
+        "coded_combine": ("src/repro_torch/kernels/csrc/coded_reduce.cu",
+                          "src/repro/kernels/coded_reduce.py:47"),
         "fwht": ("src/repro_torch/kernels/csrc/fwht.cu",
                  "src/repro/kernels/fwht.py:62"),
         "srht_encode": ("src/repro_torch/kernels/csrc/srht.cu",
@@ -449,7 +623,8 @@ def main() -> int:
                                   "src/repro/kernels/fused_step.py:65"),
     }
     kernels = []
-    for kname in ("fused_masked_gradient", "srht_encode", "fwht"):
+    for kname in ("fused_masked_gradient", "srht_encode", "fwht",
+                  "coded_combine"):
         row = table[kname]
         print(f"time {kname}: {row['ms']:.4f} ms; bound {row['bound_ms']:.4f}"
               f" ms ({row['bound_by']}); plain {row['plain_ms']:.4f} ms; "

@@ -1,5 +1,6 @@
-"""Core library of the port: encoders, straggler delay models and the
-encoded data-parallel problem (counterpart of ``repro.core``)."""
+"""Core library of the port: encoders, straggler delay models, the encoded
+data-parallel problem, encoded L-BFGS and the lifted (model-parallel)
+problem (counterpart of ``repro.core``)."""
 from .encoding import (LinearEncoder, Encoder, DenseEncoder, as_dense,
                        make_encoder, register_encoder, available_encoders,
                        gaussian_encoder, hadamard_encoder, haar_encoder,
@@ -15,3 +16,6 @@ from .straggler import (bimodal_delays, power_law_delays, exponential_delays,
 from .data_parallel import (EncodedProblem, make_encoded_problem,
                             encoded_gradients, masked_gradient, gd_step,
                             prox_l1, prox_step, original_objective)
+from .lbfgs import LBFGSState, lbfgs_direction, run_encoded_lbfgs
+from .model_parallel import (LiftedProblem, make_lifted_problem, phi_quadratic,
+                             phi_logistic, run_encoded_bcd)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import full_f32_matmul, resolve_device
+from repro_torch.kernels.ops import coded_combine
 
 from .encoding import LinearEncoder
 from .operators import FastHadamardEncoder
@@ -128,15 +129,20 @@ def encoded_gradients(prob: EncodedProblem, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mrp,mr->mp", prob.SX, r) / (prob.n * prob.beta)
 
 
-@full_f32_matmul
+def _masked_mean(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(1/eta) sum_{i in A} g_i with eta = k/m, over an (m, p) gradient
+    block: the combine kernel (``kernels/coded_reduce.py``) on the card,
+    its plain einsum on the CPU; the tensor's device decides.  The weights
+    stay on the device, so no step waits on the host."""
+    k = mask.sum().clamp_min(1.0)
+    return coded_combine(g, mask[:, None] * (g.shape[0] / k))
+
+
 def masked_gradient(prob: EncodedProblem, w: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
-    """Fastest-k aggregation of per-worker encoded gradients:
-    (1/eta) sum_{i in A} g_i with eta = k/m (the dense path; the runners
-    use the fused kernel)."""
-    g = encoded_gradients(prob, w)
-    k = mask.sum().clamp_min(1.0)
-    return torch.einsum("m,mp->p", mask * (g.shape[0] / k), g)
+    """Fastest-k aggregation of per-worker encoded gradients (the unfused
+    path; the GD / ISTA runners use the fused kernel)."""
+    return _masked_mean(encoded_gradients(prob, w), mask)
 
 
 def gd_step(prob: EncodedProblem, w: torch.Tensor, mask: torch.Tensor,

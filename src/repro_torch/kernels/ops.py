@@ -13,11 +13,13 @@ import math
 import numpy as np
 import torch
 
+from .coded_reduce import coded_combine_call
 from .encode import srht_encode_call
 from .fused_step import fused_masked_gradient
 from .fwht import fwht_kernel_call
 
-__all__ = ["fwht", "srht_encode", "hadamard_encode", "fused_masked_gradient"]
+__all__ = ["fwht", "srht_encode", "hadamard_encode", "fused_masked_gradient",
+           "coded_combine"]
 
 
 def fwht(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -58,3 +60,9 @@ def hadamard_encode(X: torch.Tensor, cols: np.ndarray, signs: np.ndarray,
     n, p = X.shape
     N = N or 1 << (2 * n - 1).bit_length()  # default beta ~= 2 padding
     return srht_encode(X, cols, signs, N)
+
+
+# Fused coded gradient combine: sum_i c_i g_i for (m, P) gradients and (m,)
+# or (m, 1) weights, summed in float32, in g's dtype.  The kernel's own
+# wrapper needs no layout work around it, so the op is that wrapper.
+coded_combine = coded_combine_call

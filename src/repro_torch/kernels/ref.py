@@ -40,3 +40,12 @@ def fused_masked_gradient_ref(SX, Sy, w, mask, *, n: int,
     c = mask * (SX.shape[0] / k) / (n * beta)
     u = torch.einsum("mrp,p->mr", SX, w) - Sy
     return torch.einsum("m,mrp,mr->p", c, SX, u).to(w.dtype)
+
+
+@full_f32_matmul
+def coded_combine_plain(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Plain version of the coded combine (the reference's
+    ``coded_combine_ref``): ``sum_i c_i g_i`` as one float32 einsum, cast
+    back to g's dtype; c may be (m,) or (m, 1)."""
+    return torch.einsum("m,mp->p", c.reshape(-1).float(),
+                        g.float()).to(g.dtype)

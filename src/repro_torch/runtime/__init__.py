@@ -5,10 +5,12 @@
                      policies, barrier wall-clock accounting;
   * ``faults``     — crash / blackout / zone / corruption injection and the
                      sub-k degrade policies;
-  * ``runners``    — the device loops of encoded GD and ISTA, single and
-                     batched over realizations;
-  * ``strategies`` — ``coded-gd``, ``coded-prox``, ``uncoded`` and
-                     ``replication`` behind one ``Strategy`` registry.
+  * ``runners``    — the device loops of encoded GD, ISTA and BCD and of
+                     async stale-gradient SGD, single and batched over
+                     realizations;
+  * ``strategies`` — ``coded-gd``, ``coded-prox``, ``coded-lbfgs``,
+                     ``coded-bcd``, ``uncoded``, ``replication`` and
+                     ``async`` behind one ``Strategy`` registry.
 """
 from .engine import (DELAY_MODELS, POLICIES, ActiveSetPolicy, AdaptiveK,
                      AdversarialRotation, AsyncBatch, AsyncTrace,
@@ -17,8 +19,10 @@ from .engine import (DELAY_MODELS, POLICIES, ActiveSetPolicy, AdaptiveK,
 from .faults import (FAULT_KINDS, BlackoutFault, CorruptionFault, CrashFault,
                      DegradePolicy, FaultEvent, FaultModel, ZoneFault,
                      make_degrade, make_fault_model)
-from .runners import (batched_scan_gd, batched_scan_prox, scan_gd, scan_prox,
-                      sharded_scan_gd, sharded_scan_prox, trials_device_count)
+from .runners import (batched_scan_async, batched_scan_bcd, batched_scan_gd,
+                      batched_scan_prox, scan_async, scan_bcd, scan_gd,
+                      scan_prox, sharded_scan_async, sharded_scan_gd,
+                      sharded_scan_prox, trials_device_count)
 from .strategies import (ProblemSpec, RunResult, Strategy, TrialsResult,
                          available_strategies, check_trials, get_strategy,
                          register_strategy, resolve_eval_every,
@@ -28,9 +32,10 @@ __all__ = [
     "DELAY_MODELS", "POLICIES", "ActiveSetPolicy", "AdaptiveK",
     "AdversarialRotation", "AsyncBatch", "AsyncTrace", "ClusterEngine",
     "Deadline", "FastestK", "IterationEvent", "Schedule", "ScheduleBatch",
-    "make_delay_model", "make_policy", "scan_gd", "scan_prox",
-    "batched_scan_gd", "batched_scan_prox", "sharded_scan_gd",
-    "sharded_scan_prox", "trials_device_count", "ProblemSpec", "RunResult",
+    "make_delay_model", "make_policy", "scan_gd", "scan_prox", "scan_bcd",
+    "scan_async", "batched_scan_gd", "batched_scan_prox", "batched_scan_bcd",
+    "batched_scan_async", "sharded_scan_gd", "sharded_scan_prox",
+    "sharded_scan_async", "trials_device_count", "ProblemSpec", "RunResult",
     "Strategy", "TrialsResult", "available_strategies", "check_trials",
     "get_strategy", "register_strategy", "resolve_eval_every",
     "summary_stats",

@@ -1,6 +1,7 @@
-"""Device-resident iteration loops for encoded GD and ISTA.
+"""Device-resident iteration loops: encoded GD and ISTA, encoded BCD and
+asynchronous stale-gradient SGD.
 
-Port of the gd / prox runners of ``src/repro/runtime/runners.py``.  The
+Port of ``src/repro/runtime/runners.py``.  The
 reference's ``lax.scan`` becomes a Python loop over T steps on the device:
 the (R, T, m) mask stack is loaded once, the objective trace is
 preallocated on the device, and nothing inside the loop reads a value back
@@ -19,19 +20,31 @@ per-realization objective depend on the batch, realization r of a
 batched (or cell-batched) run equals the same realization run alone.
 ``eval_every=s`` records f after steps s, 2s, ... (every s-th entry of the
 dense trace), as the reference does.
+
+The BCD and async runners make plain products (``torch.einsum`` /
+``torch.matmul`` in full float32), as the reference leaves them to XLA; no
+kernel of the port is on their path.  Their batched forms run each
+realization's products on its own, one realization after the other within
+a step, so a realization never depends on the batch around it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.data_parallel import (EncodedProblem,
                                             original_objective, prox_l1)
+from repro_torch.core.model_parallel import LiftedProblem
+from repro_torch.device import full_f32_matmul
 from repro_torch.kernels.fused_step import fused_masked_gradient
 from repro_torch.obs.trace import current_recorder as _obs_recorder
 
 __all__ = [
-    "scan_gd", "scan_prox", "batched_scan_gd", "batched_scan_prox",
-    "sharded_scan_gd", "sharded_scan_prox", "trials_device_count",
+    "scan_gd", "scan_prox", "scan_bcd", "scan_async",
+    "batched_scan_gd", "batched_scan_prox", "batched_scan_bcd",
+    "batched_scan_async",
+    "sharded_scan_gd", "sharded_scan_prox", "sharded_scan_async",
+    "trials_device_count",
 ]
 
 
@@ -187,6 +200,169 @@ def batched_scan_prox(prob: EncodedProblem, masks, step_size, w0,
                         degrade=_degrade_tuple(degrade))
 
 
+# ---------------------------------------------------------------------------
+# Encoded BCD (model parallelism)
+# ---------------------------------------------------------------------------
+
+def _activations(XS, v):
+    """z = sum_i u_i, u_i = X S_i^T v_i: one product batched over the
+    workers, then the sum over them in order."""
+    return torch.einsum("mnb,mb->mn", XS, v).sum(dim=0)
+
+
+def _bcd_step(XS, v, mask, step_size, phi_grad):
+    """Every worker's step from the current activations z; only the workers
+    in the mask commit it.  Returns (v_next, z)."""
+    z = _activations(XS, v)
+    # (n,) @ (m, n, b) is batched over the workers and reads XS where it
+    # lies; einsum("mnb,n->mb") would first copy XS into (m, b, n) order
+    d = -step_size * torch.matmul(phi_grad(z), XS)
+    return v + mask[:, None] * d, z
+
+
+@full_f32_matmul
+def _scan_bcd(prob: LiftedProblem, masks, step_size, v0):
+    dev = prob.device
+    masks = torch.as_tensor(masks, dtype=torch.float32, device=dev)
+    v = torch.as_tensor(v0, dtype=torch.float32, device=dev)
+    T = masks.shape[0]
+    trace = torch.empty(T + 1, dtype=torch.float32, device=dev)
+    for t in range(T):
+        v, z = _bcd_step(prob.XS, v, masks[t], step_size, prob.phi_grad)
+        trace[t] = prob.phi_val(z)
+    trace[T] = prob.phi_val(_activations(prob.XS, v))
+    return v, trace
+
+
+def scan_bcd(prob: LiftedProblem, masks, step_size, v0):
+    """Encoded BCD (model parallelism) over a (T, m) mask schedule.
+
+    Trace convention of the reference's legacy loop: trace[t] = phi(z_t)
+    BEFORE the t-th commit, with the final objective appended (length
+    T + 1).
+    """
+    return _traced_call("runner:bcd", _scan_bcd, prob, masks, step_size, v0)
+
+
+@full_f32_matmul
+def _batched_bcd(prob: LiftedProblem, masks, step_size, v0, eval_every):
+    dev = prob.device
+    masks = torch.as_tensor(masks, dtype=torch.float32, device=dev)
+    V = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone()
+    R, T, _ = masks.shape
+    if eval_every < 1 or T % eval_every:
+        raise ValueError(f"eval_every={eval_every} must be a positive "
+                         f"divisor of the {T}-step schedule")
+    trace = torch.empty((R, T // eval_every), dtype=torch.float32,
+                        device=dev)
+    for t in range(T):
+        for q in range(R):
+            V[q] = _bcd_step(prob.XS, V[q], masks[q, t], step_size,
+                             prob.phi_grad)[0]
+        if (t + 1) % eval_every == 0:
+            for q in range(R):
+                trace[q, (t + 1) // eval_every - 1] = prob.phi_val(
+                    _activations(prob.XS, V[q]))
+    return V, trace
+
+
+def batched_scan_bcd(prob: LiftedProblem, masks, step_size, v0,
+                     eval_every: int = 1):
+    """R realizations of encoded BCD in one device loop.
+
+    masks: (R, T, m); v0: (R, m, b).  Unlike ``scan_bcd``'s pre-commit
+    trace, the batched trace is POST-commit: trace[r, j] = phi(z after
+    commit (j+1)*eval_every).  Both evaluate phi on the same activations,
+    so at eval_every=1 realization r equals ``scan_bcd``'s trace[1:] on
+    its masks bit for bit.
+    """
+    name = "runner:bcd" if len(masks) == 1 else "runner:batched_bcd"
+    return _traced_call(name, _batched_bcd, prob, masks, step_size, v0,
+                        eval_every)
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous stale-gradient SGD
+# ---------------------------------------------------------------------------
+
+@full_f32_matmul
+def _async_run(prob: EncodedProblem, workers, staleness, step_size, w0,
+               buffer_size: int, h: str, eval_every: int):
+    """One realization's event stream.  The ring buffer of the last
+    ``buffer_size`` iterates lives on the device; update u reads slot
+    (u - tau_u) mod B, the iterate worker i_u last read (head == u before
+    update u).  Worker ids and staleness come from the host engine, so the
+    slots are host integers and nothing in the loop reads the device."""
+    dev = prob.device
+    workers = np.asarray(torch.as_tensor(workers).cpu(), dtype=np.int64)
+    staleness = np.asarray(torch.as_tensor(staleness).cpu(), dtype=np.int64)
+    U = workers.shape[0]
+    if eval_every < 1 or U % eval_every:
+        raise ValueError(f"eval_every={eval_every} must be a positive "
+                         f"divisor of the {U}-update stream")
+    m = prob.SX.shape[0]
+    scale = m / (prob.n * prob.beta)
+    w = torch.as_tensor(w0, dtype=torch.float32, device=dev)
+    buf = w[None].repeat(buffer_size, 1)
+    trace = torch.empty(U // eval_every, dtype=torch.float32, device=dev)
+    for u in range(U):
+        i = int(workers[u])
+        w_stale = buf[(u - int(staleness[u])) % buffer_size]
+        SXi = prob.SX[i]                       # (r, p) block of worker i
+        r = torch.matmul(SXi, w_stale) - prob.Sy[i]
+        g = torch.matmul(SXi.T, r) * scale
+        if h == "l2":
+            g = g + prob.lam * w_stale
+        w = w - step_size * g
+        buf[(u + 1) % buffer_size] = w
+        if (u + 1) % eval_every == 0:
+            trace[(u + 1) // eval_every - 1] = original_objective(prob, w,
+                                                                  h=h)
+    return w, trace
+
+
+def scan_async(prob: EncodedProblem, workers, staleness, step_size, w0,
+               buffer_size: int, h: str = "l2", eval_every: int = 1):
+    """Asynchronous stale-gradient SGD over a per-arrival event stream.
+
+    workers[u]   — which worker's gradient lands at update u;
+    staleness[u] — how many master updates happened since that worker read w.
+
+    The ring buffer holds the last ``buffer_size`` iterates (buffer_size
+    must exceed the engine's staleness bound); update u computes worker i's
+    block gradient at the stale iterate and applies it immediately.  The
+    per-worker gradient is scaled by m, an unbiased estimate of the full
+    gradient.  Returns (w, trace) with trace[j] = f after update
+    (j+1)*eval_every.
+    """
+    return _traced_call("runner:async", _async_run, prob, workers, staleness,
+                        step_size, w0, buffer_size, h, eval_every)
+
+
+def _batched_async(prob, workers, staleness, step_size, w0, buffer_size, h,
+                   eval_every):
+    runs = [_async_run(prob, workers[q], staleness[q], step_size, w0[q],
+                       buffer_size, h, eval_every)
+            for q in range(len(workers))]
+    return (torch.stack([w for w, _ in runs]),
+            torch.stack([tr for _, tr in runs]))
+
+
+def batched_scan_async(prob: EncodedProblem, workers, staleness, step_size,
+                       w0, buffer_size: int, h: str = "l2",
+                       eval_every: int = 1):
+    """R realizations of async stale-gradient SGD.
+
+    workers/staleness: (R, U) stacked event streams; w0: (R, p).  Returns
+    (w (R, p), trace (R, U // eval_every)).  Each realization is its own
+    event loop (the event streams differ), so realization r equals
+    ``scan_async`` on its stream bit for bit.
+    """
+    name = "runner:async" if len(workers) == 1 else "runner:batched_async"
+    return _traced_call(name, _batched_async, prob, workers, staleness,
+                        step_size, w0, buffer_size, h, eval_every)
+
+
 def trials_device_count(trials: int) -> int:
     """Devices the realization axis is spread over.  The port runs every
     realization on the problem's one device, so this is 1: the reference's
@@ -211,3 +387,12 @@ def sharded_scan_prox(prob: EncodedProblem, masks, step_size, w0,
     w, tr = batched_scan_prox(prob, masks, step_size, w0,
                               eval_every=eval_every, degrade=degrade)
     return w, tr, trials_device_count(len(masks))
+
+
+def sharded_scan_async(prob: EncodedProblem, workers, staleness, step_size,
+                       w0, buffer_size: int, h: str = "l2",
+                       eval_every: int = 1):
+    """``batched_scan_async`` placed like ``sharded_scan_gd``."""
+    w, tr = batched_scan_async(prob, workers, staleness, step_size, w0,
+                               buffer_size, h=h, eval_every=eval_every)
+    return w, tr, trials_device_count(len(workers))

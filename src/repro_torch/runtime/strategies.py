@@ -1,16 +1,19 @@
-"""Strategy interface + registry for the synchronous straggler-mitigation
-schemes (port of ``src/repro/runtime/strategies.py``).
+"""Strategy interface + registry for the straggler-mitigation schemes
+(port of ``src/repro/runtime/strategies.py``).
 
-``coded-gd`` / ``coded-prox`` (the paper's Algorithm 1), ``uncoded`` and
-``replication`` build the worker-resident problem for a shared
-``ProblemSpec``, ask the ``ClusterEngine`` for a delay realization, run the
-device loop of ``runtime.runners`` and return a wall-clock-vs-objective
+``coded-gd`` / ``coded-prox`` (the paper's Algorithm 1), ``coded-lbfgs``
+(Thm 4), ``coded-bcd`` (model parallelism, §2.2), ``uncoded``,
+``replication`` and the ``async`` stale-gradient baseline build the
+worker-resident problem for a shared ``ProblemSpec``, ask the
+``ClusterEngine`` for a delay realization, run the device loop of
+``runtime.runners`` (or ``core.lbfgs``) and return a wall-clock-vs-objective
 ``RunResult`` / ``TrialsResult``.  Every entry point takes ``device``: CUDA
 unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from typing import Any
 
 import numpy as np
@@ -19,13 +22,18 @@ import torch
 from repro_torch.core.data_parallel import make_encoded_problem
 from repro_torch.core.encoding import LinearEncoder, make_encoder
 from repro_torch.core import operators  # noqa: F401  (registers matrix-free encoders)
+from repro_torch.core.lbfgs import run_encoded_lbfgs
+from repro_torch.core.model_parallel import make_lifted_problem, phi_quadratic
 from repro_torch.device import resolve_device
 from repro_torch.obs.trace import span as _obs_span
 
-from .engine import ActiveSetPolicy, ClusterEngine, FastestK, _policy_k_min
+from .engine import (ActiveSetPolicy, AsyncTrace, ClusterEngine, FastestK,
+                     _policy_k_min)
 from .faults import make_degrade
-from .runners import (batched_scan_gd, batched_scan_prox, scan_gd, scan_prox,
-                      sharded_scan_gd, sharded_scan_prox)
+from .runners import (batched_scan_async, batched_scan_bcd, batched_scan_gd,
+                      batched_scan_prox, scan_async, scan_bcd, scan_gd,
+                      scan_prox, sharded_scan_async, sharded_scan_gd,
+                      sharded_scan_prox)
 
 __all__ = [
     "ProblemSpec", "RunResult", "TrialsResult", "Strategy",
@@ -176,6 +184,21 @@ class TrialsResult:
             "summary": self.summary(),
             "meta": json_safe_meta(self.meta),
         }
+
+
+# Every cell solving the same y on one device shares one phi pair, so its
+# float32 copy of y is made once.  Bounded: each entry pins that copy.
+@lru_cache(maxsize=8)
+def _phi_quadratic_cached(y_bytes: bytes, dtype: str, shape: tuple,
+                          device: str):
+    return phi_quadratic(np.frombuffer(y_bytes, dtype=dtype).reshape(shape),
+                         device=device)
+
+
+def _phi_quadratic(y, device: torch.device) -> tuple:
+    a = np.ascontiguousarray(np.asarray(y))
+    return _phi_quadratic_cached(a.tobytes(), str(a.dtype), a.shape,
+                                 str(device))
 
 
 def _auto_step(spec: ProblemSpec) -> float:
@@ -534,3 +557,273 @@ class Replication(_SyncGradientStrategy):
     """beta-fold data replication baseline: S = [I; ...; I] (§5)."""
     encoder_name = "replication"
     encoder_beta = 2.0
+
+
+def _reject_hold(name: str, degrade, why: str) -> None:
+    if degrade is not None and degrade.mode == "hold":
+        raise ValueError(f"{name} supports renormalize/backoff degrade only "
+                         f"({why}; see DESIGN.md §14)")
+
+
+def _w0(cfg: dict, device):
+    w0 = cfg.pop("w0", None)
+    return None if w0 is None else torch.as_tensor(
+        np.asarray(w0), dtype=torch.float32, device=device)
+
+
+@register_strategy("coded-lbfgs")
+class CodedLBFGS(_SyncGradientStrategy):
+    """Encoded L-BFGS (paper Thm 4); Python-loop outer iteration (the
+    two-loop memory is host state), masks/wall-clock from the engine.
+    ``encoder=`` covers Fig. 7's uncoded, replication and Hadamard arms."""
+
+    _why_no_hold = "the two-loop memory is host state"
+
+    def run(self, spec, engine, *, steps=200, device=None, **cfg):
+        if spec.h != "l2":
+            raise ValueError("coded-lbfgs requires the ridge objective")
+        device = resolve_device(device)
+        policy = self._policy(engine, cfg)
+        degrade = _resolve_degrade(policy, cfg)
+        _reject_hold("coded-lbfgs", degrade, self._why_no_hold)
+        enc, prob = self._problem(spec, engine, cfg, device)
+        memory = cfg.pop("memory", 10)
+        w0 = _w0(cfg, device)
+        sched = engine.sample_schedule(steps, policy, degrade=degrade)
+        with _obs_span("runner:lbfgs", steps=steps):
+            w, tr = run_encoded_lbfgs(prob, sched.masks, memory=memory,
+                                      w0=w0)
+        return RunResult(
+            strategy=self.name, times=sched.times, objective=_host(tr),
+            w=_host(w),
+            meta={"encoder": enc.name, "beta": enc.beta, "memory": memory,
+                  "policy": type(policy).__name__,
+                  **_fault_meta(engine, policy, degrade, sched.masks)},
+            schedule=sched)
+
+    def run_batched(self, spec, engine, *, steps=200, trials=1, eval_every=1,
+                    placement="vmap", device=None, **cfg):
+        """The two-loop memory is host state, so realizations run one after
+        the other whatever ``placement`` asks; the encode and the schedule
+        stack are built once, and the trace is strided like the other
+        runners'."""
+        if spec.h != "l2":
+            raise ValueError("coded-lbfgs requires the ridge objective")
+        device = resolve_device(device)
+        check_trials(steps, trials, eval_every)
+        stride_every = resolve_eval_every(steps, eval_every)
+        policy = self._policy(engine, cfg)
+        degrade = _resolve_degrade(policy, cfg)
+        _reject_hold("coded-lbfgs", degrade, self._why_no_hold)
+        enc, prob = self._problem(spec, engine, cfg, device)
+        memory = cfg.pop("memory", 10)
+        w0 = _w0(cfg, device)
+        batch = engine.sample_schedules(steps, policy, trials,
+                                        degrade=degrade)
+        ws, trs = [], []
+        for r in range(trials):
+            with _obs_span("runner:lbfgs", steps=steps, realization=r):
+                w, tr = run_encoded_lbfgs(prob, batch.masks[r],
+                                          memory=memory, w0=w0)
+            ws.append(w)
+            trs.append(tr)
+        stride = slice(stride_every - 1, None, stride_every)
+        return TrialsResult(
+            strategy=self.name, times=batch.times[:, stride],
+            objective=_host(torch.stack(trs))[:, stride],
+            w=_host(torch.stack(ws)),
+            meta={"encoder": enc.name, "beta": enc.beta, "memory": memory,
+                  "policy": type(policy).__name__, "trials": trials,
+                  "eval_every": eval_every, "batched": False,
+                  **_fault_meta(engine, policy, degrade, batch.masks)},
+            schedules=batch)
+
+
+@register_strategy("coded-bcd")
+class CodedBCD(_SyncGradientStrategy):
+    """Encoded block coordinate descent (model parallelism, paper §2.2).
+
+    Encodes the FEATURE dimension and minimizes phi(Xw) = 1/(2n)||Xw - y||^2
+    (no regularizer — the lifted geometry is exact, Thm 6); the reported
+    objective is phi, noted in ``meta``.
+    """
+
+    _why_no_hold = "an erased block simply holds its coordinates"
+
+    def _lifted(self, spec, engine, cfg, device):
+        with _obs_span("encode", strategy=self.name, p=spec.p, m=engine.m):
+            enc = _resolve_encoder(cfg.pop("encoder", "hadamard"), spec.p,
+                                   beta=cfg.pop("beta", 2.0),
+                                   seed=cfg.pop("encoder_seed", 0),
+                                   m=engine.m)
+            val, grad = _phi_quadratic(spec.y, device)
+            prob = make_lifted_problem(spec.X, enc, engine.m, val, grad,
+                                       device=device)
+        # the lifted quadratic's Hessian S X^T X S^T / n has norm <= beta L
+        step_size = cfg.pop("step_size", None) or \
+            0.9 / (spec.lipschitz() * float(enc.beta))
+        return enc, prob, step_size
+
+    def run(self, spec, engine, *, steps=200, device=None, **cfg):
+        device = resolve_device(device)
+        policy = self._policy(engine, cfg)
+        degrade = _resolve_degrade(policy, cfg)
+        _reject_hold("coded-bcd", degrade, self._why_no_hold)
+        enc, prob, step_size = self._lifted(spec, engine, cfg, device)
+        v0 = torch.zeros((engine.m, prob.XS.shape[-1]), device=device)
+        sched = engine.sample_schedule(steps, policy, degrade=degrade)
+        v, tr = scan_bcd(prob, sched.masks, step_size, v0)
+        # align: tr[t+1] is the objective AFTER commit t (length T+1)
+        return RunResult(
+            strategy=self.name, times=sched.times,
+            objective=_host(tr)[1:], w=_host(v),
+            meta={"encoder": enc.name, "beta": enc.beta,
+                  "objective": "phi(Xw) (unregularized, exact-optimum family)",
+                  "step_size": step_size,
+                  **_fault_meta(engine, policy, degrade, sched.masks)},
+            schedule=sched)
+
+    def run_batched(self, spec, engine, *, steps=200, trials=1, eval_every=1,
+                    placement="vmap", device=None, **cfg):
+        if placement == "single":
+            return Strategy.run_batched(self, spec, engine, steps=steps,
+                                        trials=trials, eval_every=eval_every,
+                                        device=device, **cfg)
+        device = resolve_device(device)
+        check_trials(steps, trials, eval_every)
+        stride_every = resolve_eval_every(steps, eval_every)
+        policy = self._policy(engine, cfg)
+        degrade = _resolve_degrade(policy, cfg)
+        _reject_hold("coded-bcd", degrade, self._why_no_hold)
+        enc, prob, step_size = self._lifted(spec, engine, cfg, device)
+        batch = engine.sample_schedules(steps, policy, trials,
+                                        degrade=degrade)
+        v0 = torch.zeros((trials, engine.m, prob.XS.shape[-1]),
+                         device=device)
+        v, tr = batched_scan_bcd(prob, batch.masks, step_size, v0,
+                                 eval_every=stride_every)
+        meta = {"encoder": enc.name, "beta": enc.beta,
+                "objective": "phi(Xw) (unregularized, exact-optimum family)",
+                "step_size": step_size, "trials": trials,
+                "eval_every": eval_every, "batched": True,
+                **_fault_meta(engine, policy, degrade, batch.masks)}
+        if placement == "sharded":
+            # the lifted problem carries host phi callables; realizations
+            # stay on one device, as the reference keeps them vmapped
+            meta.update(placement="vmap",
+                        placement_fallback="sharded unsupported for the "
+                                           "lifted BCD problem")
+        # batched bcd traces are post-commit (== scan_bcd's tr[1:] at s=1)
+        return TrialsResult(
+            strategy=self.name,
+            times=batch.times[:, stride_every - 1::stride_every],
+            objective=_host(tr), w=_host(v), meta=meta, schedules=batch)
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous stale-gradient SGD
+# ---------------------------------------------------------------------------
+
+@register_strategy("async")
+class AsyncSGD(Strategy):
+    """Asynchronous stale-gradient SGD with bounded staleness (paper §5).
+
+    Uncoded row partition; every arriving worker gradient is applied
+    immediately (per-arrival wall-clock — no barrier), computed at the iterate
+    that worker last read (per-worker parameter timestamps).  Gradients staler
+    than ``staleness_bound`` are discarded by the engine, so the device runner
+    only ever sees bounded staleness.
+    """
+
+    def _problem(self, spec, engine, device):
+        m = engine.m
+        with _obs_span("encode", strategy=self.name, n=spec.n, m=m):
+            enc = make_encoder("uncoded", spec.n, beta=1.0).with_workers(m)
+            return make_encoded_problem(spec.X, spec.y, enc, m, lam=spec.lam,
+                                        device=device)
+
+    def run(self, spec, engine, *, steps=200, device=None, **cfg):
+        if spec.h == "l1":
+            raise ValueError("async baseline covers smooth objectives only")
+        device = resolve_device(device)
+        m = engine.m
+        # per-arrival accounting has no barrier to degrade: crashed workers
+        # simply stop contributing and corrupt arrivals are discarded by
+        # the engine, so any requested degrade mode is a no-op here
+        cfg.pop("degrade", None)
+        bound = int(cfg.pop("staleness_bound", 2 * m))
+        updates = int(cfg.pop("updates", steps * m))
+        step_size = (cfg.pop("step_size", None) or _auto_step(spec)) / m
+        prob = self._problem(spec, engine, device)
+        trace: AsyncTrace = engine.sample_async(updates, bound)
+        w0 = torch.as_tensor(np.asarray(cfg.pop("w0", np.zeros(spec.p))),
+                             dtype=torch.float32, device=device)
+        w, tr = scan_async(prob, trace.workers, trace.staleness, step_size,
+                           w0, buffer_size=bound + 1, h=spec.h)
+        meta = {"staleness_bound": bound, "updates": updates,
+                "dropped": trace.dropped,
+                "mean_staleness": float(trace.staleness.mean()),
+                "max_staleness": int(trace.staleness.max()),
+                "step_size": step_size}
+        if engine.faults is not None:
+            meta["faults"] = engine.faults.spec
+            meta["corrupted"] = int(trace.corrupted)
+        return RunResult(
+            strategy=self.name, times=trace.times, objective=_host(tr),
+            w=_host(w), meta=meta, schedule=trace)
+
+    def run_batched(self, spec, engine, *, steps=200, trials=1, eval_every=1,
+                    placement="vmap", device=None, **cfg):
+        if spec.h == "l1":
+            raise ValueError("async baseline covers smooth objectives only")
+        m = engine.m
+        cfg.pop("degrade", None)       # no barrier to degrade (see run())
+        bound = int(cfg.pop("staleness_bound", 2 * m))
+        updates = int(cfg.pop("updates", steps * m))
+        check_trials(updates, trials, eval_every)
+        stride_every = resolve_eval_every(updates, eval_every)
+        if placement == "single":
+            results = [self.run(spec, engine.trial(r), steps=steps,
+                                staleness_bound=bound, updates=updates,
+                                device=device, **dict(cfg))
+                       for r in range(trials)]
+            stride = slice(stride_every - 1, None, stride_every)
+            return TrialsResult(
+                strategy=self.name,
+                times=np.stack([np.asarray(r.times)
+                                for r in results])[:, stride],
+                objective=np.stack([np.asarray(r.objective)
+                                    for r in results])[:, stride],
+                w=np.stack([np.asarray(r.w) for r in results]),
+                meta={**results[0].meta, "trials": trials,
+                      "eval_every": eval_every, "batched": False})
+        device = resolve_device(device)
+        step_size = (cfg.pop("step_size", None) or _auto_step(spec)) / m
+        prob = self._problem(spec, engine, device)
+        batch = engine.sample_asyncs(updates, bound, trials)
+        w0 = torch.as_tensor(np.asarray(cfg.pop("w0", np.zeros(spec.p))),
+                             dtype=torch.float32, device=device)
+        w0 = w0[None].repeat(trials, 1)
+        meta = {"staleness_bound": bound, "updates": updates,
+                "dropped": [int(d) for d in batch.dropped],
+                "mean_staleness": float(batch.staleness.mean()),
+                "max_staleness": int(batch.staleness.max()),
+                "step_size": step_size, "trials": trials,
+                "eval_every": eval_every, "batched": True}
+        if engine.faults is not None:
+            meta["faults"] = engine.faults.spec
+            if batch.corrupted is not None:
+                meta["corrupted"] = [int(c) for c in batch.corrupted]
+        kw = dict(buffer_size=bound + 1, h=spec.h, eval_every=stride_every)
+        if placement == "sharded":
+            w, tr, ndev = sharded_scan_async(prob, batch.workers,
+                                             batch.staleness, step_size, w0,
+                                             **kw)
+            meta.update(placement="sharded", placement_devices=ndev)
+        else:
+            w, tr = batched_scan_async(prob, batch.workers, batch.staleness,
+                                       step_size, w0, **kw)
+        return TrialsResult(
+            strategy=self.name,
+            times=batch.times[:, stride_every - 1::stride_every],
+            objective=_host(tr), w=_host(w), meta=meta, schedules=batch)

@@ -7,15 +7,20 @@ PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: float32 sums taken in another order than the plain version's,
-max|d| <= 1e-5 of max|ref| for the butterflies and 1e-4 for the fused
-gradient's long dot products; bfloat16 outputs one bfloat16 ulp (2^-7).
+max|d| <= 1e-5 of max|ref| for the butterflies and the combine and 1e-4
+for the fused gradient's long dot products; bfloat16 outputs one bfloat16
+ulp (2^-7).  Encoded L-BFGS on the card matches the same call on the CPU
+to rel 1e-3 of its objective (float32 differences divided by their inner
+products in the two-loop recursion and the line search).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import EncodedProblem
+from repro_torch.core import EncodedProblem, masked_gradient, run_encoded_lbfgs
 from repro_torch.kernels import launches
+from repro_torch.kernels.coded_reduce import (coded_combine_call,
+                                              coded_combine_plain)
 from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
 from repro_torch.kernels.fused_step import (fused_masked_gradient,
                                             fused_masked_gradient_plain)
@@ -144,3 +149,70 @@ def test_runners_on_card_match_cpu(cuda):
         _close(tr_g.cpu(), tr_c, 1e-5)
         _close(w_g.cpu(), w_c, 1e-4)
     assert launches["fused_masked_gradient"] == before + 30
+
+
+@pytest.mark.parametrize("P", [1, 37, 128, 2085, 6000, 6001])
+@pytest.mark.parametrize("m", [1, 8, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_kernel(cuda, P, m, dtype):
+    g = _randn((m, P), P + m, cuda, dtype)
+    c = torch.tensor(np.random.default_rng(m).uniform(size=m),
+                     dtype=torch.float32, device=cuda)
+    before = launches["coded_combine"]
+    out = coded_combine_call(g, c)
+    torch.cuda.synchronize()
+    assert launches["coded_combine"] == before + 1 and out.dtype == dtype
+    _close(out, coded_combine_plain(g, c),
+           1e-5 if dtype == torch.float32 else 2 ** -7)
+    assert torch.equal(out, coded_combine_call(g, c[:, None]))
+
+
+def test_combine_kernel_all_masked_and_misaligned(cuda):
+    g = _randn((8, 6001), 1, cuda)
+    zero = coded_combine_call(g, torch.zeros(8, device=cuda))
+    assert torch.count_nonzero(zero) == 0
+    # a contiguous view one element into its storage: not 16-byte aligned,
+    # so the kernel takes its one-column-at-a-time loads
+    base = _randn((8 * 6000 + 1,), 2, cuda)
+    view = base[1:].view(8, 6000)
+    c = torch.rand(8, device=cuda)
+    _close(coded_combine_call(view, c), coded_combine_plain(view, c), 1e-5)
+    with pytest.raises(ValueError):
+        coded_combine_call(g.t(), torch.ones(6001, device=cuda))
+
+
+def _small_problem(dev):
+    SX, Sy, _, _ = _fused(dev, 8, 16, 24, R=1, seed=5)
+    X, y = _randn((64, 24), 7, dev), _randn((64,), 8, dev)
+    return EncodedProblem(SX=SX, Sy=Sy, X=X, y=y, lam=0.05, beta=2.0, n=64)
+
+
+def _cpu_copy(prob):
+    return EncodedProblem(SX=prob.SX.cpu(), Sy=prob.Sy.cpu(), X=prob.X.cpu(),
+                          y=prob.y.cpu(), lam=prob.lam, beta=prob.beta,
+                          n=prob.n)
+
+
+def test_masked_gradient_on_card_matches_cpu(cuda):
+    gpu = _small_problem(cuda)
+    cpu = _cpu_copy(gpu)
+    w = _randn((24,), 3, cuda)
+    before = launches["coded_combine"]
+    for mask in ([1.0] * 8, [0.0] * 8, [1, 0, 1, 1, 0, 1, 1, 0]):
+        mk = torch.tensor(mask, dtype=torch.float32)
+        _close(masked_gradient(gpu, w, mk.to(cuda)).cpu(),
+               masked_gradient(cpu, w.cpu(), mk), 1e-5)
+    assert launches["coded_combine"] == before + 3
+
+
+def test_lbfgs_on_card_matches_cpu(cuda):
+    gpu = _small_problem(cuda)
+    cpu = _cpu_copy(gpu)
+    masks = (np.random.default_rng(4).random((25, 8)) < 0.75)
+    masks = masks.astype(np.float32)
+    before = launches["coded_combine"]
+    w_g, tr_g = run_encoded_lbfgs(gpu, masks, memory=5)
+    w_c, tr_c = run_encoded_lbfgs(cpu, masks, memory=5)
+    assert launches["coded_combine"] == before + 25
+    assert tr_g.is_cuda and torch.isfinite(tr_g).all()
+    _close(tr_g.cpu(), tr_c, 1e-3)

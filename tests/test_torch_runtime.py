@@ -321,8 +321,9 @@ def test_coded_prox_requires_l1():
 
 
 def test_registry_and_validation_match_reference():
-    assert trt.available_strategies() == ["coded-gd", "coded-prox",
-                                          "replication", "uncoded"]
+    # every strategy of the reference but coded SGD (not ported yet)
+    assert trt.available_strategies() == sorted(
+        set(jrt.available_strategies()) - {"coded-sgd"})
     for bad in [(10, 0, 1), (10, 2, -1), (10, 2, 3)]:
         with pytest.raises(ValueError):
             jrt.check_trials(*bad)
