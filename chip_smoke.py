@@ -14,10 +14,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
              card at the main path's shapes (FWHT (6001, 8192); SRHT full
              frame and one worker window of the (4096, 6001) data; fused
              gradient at (32, 256, 6000), single, batched R = 4, all
-             masked, and batched row r == single call r bit for bit; coded
-             combine at (32, 6000) in float32 and bfloat16 and at the odd
-             width (8, 6001), (m,) and (m, 1) weights bit for bit, all
-             masked);
+             masked, and batched row r == single call r bit for bit, also
+             at R = 4 and R = 16 with one worker masked out in every
+             realization and one realization all-masked; coded combine at
+             (32, 6000) in float32 and bfloat16 and at the odd width
+             (8, 6001), (m,) and (m, 1) weights bit for bit, all masked;
+             the kernels' realization tile and row groups equal the
+             wrappers' Python choices);
 4. main    - the paper's ridge problem at its published size (PAPER_RIDGE:
              n = 4096, p = 6000, m = 32, k = 24, beta = 2, bimodal delays)
              through the strategy entry points: coded-gd ``run`` and
@@ -36,13 +39,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
              problem and masks;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
-             same function (the combine also at (32, 4194304), the coded-SGD
-             flat gradient's width); step times (CUDA events around a
-             100-step GD loop, a 50-step L-BFGS loop, the 20-step BCD loop
-             and the 320-update async loop, five repetitions after a
-             warm-up, every sample printed) and encode times (host clock,
-             three repetitions); the profiler's breakdown of each step;
-             peak device memory.
+             same function (the fused gradient also batched at R = 4 and
+             R = 16; the combine also by the profiler's device time, and at
+             (32, 4194304), the coded-SGD flat gradient's width); step
+             times (CUDA events around a 100-step GD loop, a 50-step L-BFGS
+             loop, the 20-step BCD loop and the 320-update async loop, five
+             repetitions after a warm-up, every sample printed) and encode
+             times (host clock, three repetitions); the profiler's
+             breakdown of each step; peak device memory.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -199,10 +203,12 @@ def main() -> int:
                                   phi_quadratic, run_encoded_lbfgs)
     from repro_torch.kernels import _build
     from repro_torch.kernels.coded_reduce import (coded_combine_call,
-                                                  coded_combine_plain)
+                                                  coded_combine_plain,
+                                                  combine_row_groups)
     from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
-    from repro_torch.kernels.fused_step import (fused_masked_gradient,
-                                                fused_masked_gradient_plain)
+    from repro_torch.kernels.fused_step import (
+        MAX_COLS, fused_masked_gradient, fused_masked_gradient_plain,
+        pick_fused_realization_tile)
     from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
     from repro_torch.kernels.ref import fused_masked_gradient_ref
     from repro_torch.runtime import (ClusterEngine, FastestK, ProblemSpec,
@@ -306,7 +312,45 @@ def main() -> int:
     print(f"check fused single: max|d| {err1:.3e} ({rel1:.2e} of max|ref|, "
           f"tol 1e-4); batched R=4: max|d| {err4:.3e} ({rel4:.2e}); "
           f"batched[r] == single(r) bitwise; all-masked == 0")
-    table["fused_masked_gradient"] = {"max_abs_err": max(err1, err4)}
+    fused_err = max(err1, err4)
+    # tiles of realizations: worker 3 masked out in every realization (its
+    # blocks are never read) and the last realization all-masked
+    edge = {}
+    for R in (4, 16):
+        Wr = torch.randn((R, p), device=dev, generator=gen) * 0.01
+        mr = fastest_mask(R)
+        mr[:, 3] = 0.0
+        mr[-1] = 0.0
+        gr = fused_masked_gradient(SX, Sy, Wr, mr, **fkw)
+        err, rel = rel_err(gr, fused_masked_gradient_plain(SX, Sy, Wr, mr,
+                                                           **fkw))
+        require(rel <= 1e-4, f"fused R={R}: rel err {rel:.2e}")
+        for q in range(R):
+            require(torch.equal(gr[q], fused_masked_gradient(
+                SX, Sy, Wr[q], mr[q], **fkw)),
+                f"fused R={R}: batched row {q} != single call")
+        require(torch.count_nonzero(gr[-1]) == 0,
+                f"fused R={R}: all-masked realization != 0")
+        print(f"check fused R={R}, worker 3 out everywhere, realization "
+              f"{R - 1} all-masked: max|d| {err:.3e} ({rel:.2e}, tol 1e-4); "
+              f"batched[r] == single(r) bitwise for all {R}; all-masked "
+              f"row == 0")
+        fused_err = max(fused_err, err)
+        edge[R] = (Wr, mr)
+    table["fused_masked_gradient"] = {"max_abs_err": fused_err}
+    # the kernels' own shape choices agree with the wrappers'
+    lib = _build.load_library()
+    bad_rt = [q for q in range(1, MAX_COLS + 1)
+              if lib.repro_fused_realization_tile(q) !=
+              pick_fused_realization_tile(q)]
+    bad_g = [q for q in range(0, 257) if lib.repro_coded_combine_groups(q)
+             != combine_row_groups(q)]
+    require(not bad_rt and not bad_g, f"kernel and wrapper disagree: tile "
+            f"at p {bad_rt[:5]}, row groups at m {bad_g[:5]}")
+    print(f"check shape choices: realization tile at p = {p}: "
+          f"{pick_fused_realization_tile(p)} (kernel == wrapper for every "
+          f"p <= {MAX_COLS}); combine row groups at m = {m}: "
+          f"{combine_row_groups(m)} (kernel == wrapper for m <= 256)")
 
     # coded combine at the L-BFGS step's (m, p), an odd width, bfloat16
     comb_err = 0.0
@@ -570,15 +614,27 @@ def main() -> int:
         SX, Sy, w, mask, **fkw), 10)
     fu["bound_ms"], fu["bound_by"] = bound_ms(
         (act * r * (p + 1) + 2 * p + m) * 4, 4 * act * r * p)
-    act4 = int((masks4.sum(0) > 0).sum())
-    b4_ms = time_ms(lambda: fused_masked_gradient(SX, Sy, W4, masks4, **fkw),
-                    20)
-    # each realization reads only its own active workers' rows: the union
-    # is read once at best, the flops are counted per realization
-    b4_bound, _ = bound_ms((act4 * r * (p + 1) + 8 * p + 4 * m) * 4,
-                           4 * int(masks4.sum()) * r * p)
-    print(f"fused batched R=4: {b4_ms:.4f} ms, bound {b4_bound:.4f} ms "
-          f"({act4} workers active in some realization)")
+    # batched: each realization reads only its own active workers' rows,
+    # so the union of active workers is read once at best; the flops are
+    # counted per realization.  The library yardstick is the dense einsum
+    # oracle once a realization.
+    for R, (Wr, mr) in ((4, (W4, masks4)), (16, edge[16])):
+        act = int((mr.sum(0) > 0).sum())
+        b_ms = time_ms(lambda: fused_masked_gradient(SX, Sy, Wr, mr, **fkw),
+                       20)
+        b_bound, b_by = bound_ms((act * r * (p + 1) + 2 * R * p + R * m) * 4,
+                                 4 * int(mr.sum()) * r * p)
+        b_lib = time_ms(lambda: [fused_masked_gradient_ref(
+            SX, Sy, Wr[q], mr[q], **fkw) for q in range(R)], 3)
+        b_plain = time_ms(lambda: fused_masked_gradient_plain(
+            SX, Sy, Wr, mr, **fkw), 3)
+        fu[f"batched_r{R}_ms"] = b_ms
+        fu[f"batched_r{R}_bound_ms"] = b_bound
+        fu[f"batched_r{R}_plain_ms"] = b_plain
+        fu[f"batched_r{R}_library_ms"] = b_lib
+        print(f"fused batched R={R}: {b_ms:.4f} ms, bound {b_bound:.4f} ms "
+              f"({b_by}; {act} workers active in some realization); plain "
+              f"{b_plain:.4f} ms; library {b_lib:.4f} ms  [{smi}]")
 
     # coded combine at the L-BFGS step's (m, p) (the gradient block it
     # combines was just written, so it is found in L2, as on the main
@@ -601,10 +657,14 @@ def main() -> int:
                 lambda: coded_combine_call(g, c),
                 lambda: coded_combine_plain(g, c),
                 lambda: torch.matmul(c, g))]
+            co["device_ms"], co["library_device_ms"] = (dev_us[0] / 1e3,
+                                                        dev_us[2] / 1e3)
             print(f"coded_combine (32, {cp}) device time a call (profiler, "
                   f"host gaps excluded): kernel {dev_us[0]:.2f} us, plain "
                   f"{dev_us[1]:.2f} us, library {dev_us[2]:.2f} us  [{smi}]")
         else:
+            co.update({f"wide_{key}": v for key, v in row.items()
+                       if key != "bound_by"})
             print(f"coded_combine (32, {cp}): {row['ms']:.4f} ms; bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
                   f"{row['plain_ms']:.4f} ms; library {row['library_ms']:.4f}"
@@ -631,12 +691,7 @@ def main() -> int:
               f"library {row['library_ms']:.4f} ms  [{smi}]")
         kernels.append({"name": kname, "route": "cuda",
                         "source": meta[kname][0], "replaces": meta[kname][1],
-                        "launches": counts[kname],
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "launches": counts[kname], **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

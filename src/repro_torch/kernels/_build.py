@@ -112,6 +112,10 @@ _SIGNATURES = {
     "repro_coded_combine": [ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_int, ctypes.c_void_p],
+    # the kernels' own shape choices, for the tests to hold against the
+    # wrappers' Python versions
+    "repro_fused_realization_tile": [ctypes.c_int],
+    "repro_coded_combine_groups": [ctypes.c_int],
 }
 
 
@@ -137,6 +141,11 @@ def check(err: int, kernel: str) -> None:
 
 
 def stream_of(tensor) -> int:
-    """PyTorch's current stream on the tensor's device, as a raw handle."""
+    """PyTorch's current stream on the tensor's device, as a raw handle
+    (read straight from the runtime where this build of PyTorch offers it,
+    without making a Stream object)."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(tensor.device.index)
     return torch.cuda.current_stream(tensor.device).cuda_stream

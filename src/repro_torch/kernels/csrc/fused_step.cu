@@ -10,104 +10,393 @@
 // grid step (0, 0) and adds into it on every later step, which is only
 // right because a TPU runs its grid in order.  CUDA blocks run in any
 // order, so this port reduces in two deterministic stages, with no atomics:
-//   stage 1 - one block per (realization q, worker i, row block):
-//             u = SX_blk W[q] - Sy_blk (a warp per row), then
-//             c_qi SX_blk^T u into scratch[q, block, :];
-//   stage 2 - scratch summed over blocks in a fixed order (split eight
-//             ways a column, the eight sums then added in order).
-// The order of every sum for realization q depends on neither R nor q, so
-// a batched call gives, bit for bit, the rows of R single calls.  Workers
-// with mask 0 are skipped in both stages: an erased worker's block is never
-// read, and an all-zero mask gives exactly 0.  c is computed on the device,
-// in the reference's operation order, so a step never waits on the host.
+//   stage 1 - a grid of (blocks, ceil(R / RT)): a block takes a tile of RT
+//             realizations and a list of units (a unit: one worker's block
+//             of br rows); for every row k and every active realization q,
+//             u_qk = SX_k . W[q] - Sy_k (the tile's dot products share one
+//             reduction through the block), and at the unit's end
+//             c_qi SX_unit^T u_q goes to scratch[q, unit, :];
+//   stage 2 - scratch summed over units in a fixed order (split eight ways
+//             a column, the eight sums then added in order).
+// Realization q's sequence of operations depends on neither R, nor RT, nor
+// q's place in its tile, nor the block that takes a unit (the same threads
+// and columns, the same shuffle tree, the warps' sums in the same order,
+// the rows in the same order), so a batched call gives, bit for bit, the
+// rows of R single calls.  Workers with mask 0 are skipped in both stages: a
+// worker masked out in every realization of a tile is in no unit list (its
+// rows are never read), a masked-out realization inside an active unit
+// does no work and writes no scratch, and an all-zero mask gives exactly 0.
+// c is computed on the device, in the reference's operation order, so a
+// step never waits on the host.
 //
-// Bound on the H100: memory.  One step must read the active workers' SX
-// blocks once (about 2 flops per 4-byte element, far below the card's
-// operations-per-byte line); everything else is small.  Stage 1 reads each
-// row once: a thread keeps its share of the row in registers from the dot
-// product to the column sums, which caps p at 16384 (64 registers a
-// thread); wider rows need a multi-pass form.  The scratch (one p-row per
-// active block of 16 rows) adds about 1/8 of SX's bytes.  A batched call
-// reads SX once per realization; the batch as one product on the tensor
-// cores is later work.
+// Bound on the H100: memory in principle, issue latency as built.  One
+// step must read the active workers' SX blocks once.  Read once for a tile,
+// the product does about 4 flops a realization per element, 1 flop a byte
+// in float32 a realization: at RT <= 16 that stays below the card's
+// float32 line of 67 TFLOP/s over 3.35 TB/s, about 20 flops a byte, so
+// float32 FMAs on the CUDA cores can reach the memory bound, and tensor
+// cores would add nothing but TF32's error against the trace gates.  So the
+// batch is a loop over the tile inside the block.  A thread keeps its share
+// of a row in registers (NE of them) from the dot products to the column
+// sums, and RT sets of NE accumulators: RT comes from p alone, the largest
+// of 8, 4, 2, 1 with NE (1 + RT) <= 200 registers and the tile's iterates
+// (RT p floats, staged in shared memory once a block) beside two row
+// buffers inside 227 KB; NE <= 64 caps p at 16384, wider rows need a
+// multi-pass form.  A single call takes a tile of one (fewer registers, so
+// more blocks an SM); its sums are the same.  Rows reach shared memory
+// through a ring of 2-4 row buffers filled by asynchronous copies (one 1D
+// bulk copy of the Tensor Memory Accelerator a row, completing on an
+// mbarrier, where a row is a whole number of aligned 16-byte units; 4-byte
+// cp.async copies arriving on the same mbarrier where rows are whole
+// aligned words; plain loads otherwise), so a block keeps rows in flight
+// while it reduces others, and where registers allow (NE (RT + 2) <= 160)
+// a step reduces two rows with one read of the iterates and one barrier.
+// A batched call runs one wave of blocks, each staging its iterates once
+// and walking its units as one stream of rows.  What holds the tiled
+// block back (PERF.md): at p = 6000 and RT = 4 it needs about 200
+// registers a thread and 192 KB of shared memory, so one block of 8 warps
+// runs on an SM, too few to hide the latency of its per-row chain of
+// shared-memory reads, shuffles and a barrier.  The scratch (one p-row per
+// active unit of up to 16 rows and realization) adds about 1/16 of the
+// rows' bytes a realization.
 #include "hadamard.cuh"
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlockRows = 64;
 constexpr int kMaxCols = 64 * kThreads;   // 16384: a row in registers
+constexpr int kRegBudget = 200;           // NE * (1 + RT) registers
+constexpr int kMaxTile = 8;
+constexpr int kMaxBuf = 4;
+constexpr int kMinBuf = 2;
+// rows a step of the first stage reduces together: two where their
+// registers, NE (RT + 2), stay within this budget
+constexpr int kPairBudget = 160;
+// dynamic shared memory a block may use: the 227 KB opt-in maximum less
+// 3 KB kept for the static arrays of fused_stage1
+constexpr int kSmemBudget = 227 * 1024 - 3072;
+// shared memory of one SM that blocks may share (228 KB), and what the
+// runtime reserves for each resident block
+constexpr int kSmemPerSM = 228 * 1024;
+constexpr int kSmemPerBlock = 1024;
+constexpr int kMaxDevices = 64;
+constexpr int kMaxUnits = 256;            // row blocks a first-stage block
 
-__device__ __forceinline__ float decode_weight(const float* mrow, int m,
-                                               int i, float nbeta) {
-  float k = 0.f;
-  for (int a = 0; a < m; ++a) k += mrow[a];
-  k = fmaxf(k, 1.f);
-  return mrow[i] * (static_cast<float>(m) / k) / nbeta;
+// fused_stage1's static shared memory stays inside what kSmemBudget leaves
+static_assert(2 * 2 * kMaxTile * kWarps * sizeof(float) +
+                  kMaxTile * sizeof(float) +
+                  (kMaxUnits + kWarps) * sizeof(int) +
+                  kMaxBuf * sizeof(uint64_t) <=
+              227 * 1024 - kSmemBudget,
+              "static shared memory of the first stage over its share");
+
+// How a row block reaches the shared-memory ring.
+enum CopyMode { kBulk = 0, kWords = 1, kPlain = 2 };
+
+__host__ __device__ constexpr int round16(int bytes) {
+  return (bytes + 15) & ~15;
 }
 
-// One block walks its br rows one at a time.  Thread t holds the columns
-// t, t + kThreads, ... of the current row in registers (NE of them, NE *
-// kThreads >= p): it loads them once, the block reduces the dot product
-// u_k = SX_k . w - Sy_k (a shuffle tree a warp, then the warps' sums in
-// order), and the same registers then feed acc += u_k * SX_k.  Every row is
-// read from device memory once; w is staged in shared memory.
-template <typename T, int NE>
+// Realizations a block takes for NE registers a row: the largest of 8, 4,
+// 2, 1 whose accumulators fit the register budget and whose iterates fit
+// shared memory beside two float32 row buffers at the widest p this NE
+// serves (NE * kThreads).  Depends on p alone (through NE).
+__host__ __device__ constexpr int tile_for(int ne) {
+  for (int rt = kMaxTile; rt > 1; rt >>= 1)
+    if (ne * (1 + rt) <= kRegBudget &&
+        rt * ne * kThreads * 4 + kMinBuf * ne * kThreads * 4 <= kSmemBudget)
+      return rt;
+  return 1;
+}
+
+// Rows a first-stage step reduces together (their dot products share one
+// read of the iterates and one barrier): 2 where NE (RT + 2) registers fit
+// kPairBudget, else 1.  Each row's sums keep their order either way.
+__host__ __device__ constexpr int rows_for(int ne, int rt) {
+  return ne * (rt + 2) <= kPairBudget ? 2 : 1;
+}
+
+// Registers a thread holds for one row: the smallest listed NE with
+// NE * kThreads >= p.  Depends on p alone, never on R.
+constexpr int kRegSteps[] = {1, 2, 4, 8, 16, 24, 32, 48, 64};
+
+inline int regs_for(int p) {
+  const int need = (p + kThreads - 1) / kThreads;
+  for (int ne : kRegSteps)
+    if (need <= ne) return ne;
+  return 0;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Row k of the slab into ring slot `dst`; completes phase of `bar`.
+//   kBulk  - thread 0 posts the byte count and one bulk copy (1 arrival);
+//   kWords - every thread copies its 4-byte words with cp.async and
+//            arrives when they land (kThreads arrivals);
+//   kPlain - every thread loads and stores its elements, then arrives.
+template <typename T, int kMode>
+__device__ __forceinline__ void fetch_row(const T* src, T* dst, int p,
+                                          uint64_t* bar) {
+  const int t = threadIdx.x;
+  if constexpr (kMode == kBulk) {
+    if (t == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(p) * sizeof(T);
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_addr(bar)), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src),
+          "r"(bytes), "r"(smem_addr(bar)) : "memory");
+    }
+  } else if constexpr (kMode == kWords) {
+    const int words = p * static_cast<int>(sizeof(T)) / 4;
+    const uint32_t d = smem_addr(dst);
+    const char* s = reinterpret_cast<const char*>(src);
+    for (int w = t; w < words; w += kThreads)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       d + 4 * w), "l"(s + 4 * w) : "memory");
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(smem_addr(bar)) : "memory");
+  } else {
+    for (int col = t; col < p; col += kThreads) dst[col] = src[col];
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                     smem_addr(bar)) : "memory");
+  }
+}
+
+// In the first stage a block stages the iterates of its tile of
+// realizations once, then walks a list of units (a unit is one row block of
+// br rows of one worker, scratch row `unit`) as one stream of rows that its
+// ring of row buffers keeps ahead of it.  Units are numbered over the
+// workers active in some realization of the tile (each with its nrb row
+// blocks, in order), and block c of the tile's gridDim.x takes the units
+// c, c + gridDim.x, ...: every active unit once, the blocks evenly loaded,
+// and an erased worker's rows never read.
+//
+// For every row of a unit, thread t holds the columns t, t + kThreads, ...
+// in registers (NE of them, NE * kThreads >= p): it reads them once from
+// the ring, the block reduces the dot products u_qk = SX_k . W[q] - Sy_k of
+// the unit's active realizations (a shuffle tree a warp, then the warps'
+// sums in order), and the same registers then feed acc[q] += u_qk * SX_k.
+// A step takes RS rows of one unit (two where registers allow): their dot
+// products share each read of the iterates and one barrier, and the
+// accumulators take the rows in order.  At the unit's last row,
+// c_qi acc[q] goes to scratch[q, unit, :].
+// Dynamic shared memory: the tile's iterates (min(RT, R) of them), then
+// nbuf row buffers of row_stride bytes.
+template <typename T, int NE, int RT, int kMode>
 __global__ void __launch_bounds__(kThreads)
 fused_stage1(const T* __restrict__ SX, const T* __restrict__ Sy,
              const T* __restrict__ W, const float* __restrict__ masks,
-             float* __restrict__ scratch, int m, int r, int p, int br,
-             float nbeta) {
-  extern __shared__ float ws[];             // w of this realization, (p,)
-  __shared__ float red[kThreads / 32];
+             float* __restrict__ scratch, int R, int m, int r, int p, int br,
+             int nbuf, int ws_bytes, int row_stride, float nbeta) {
+  constexpr int RS = rows_for(NE, RT);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][RS][RT][kWarps];  // by step parity: one barrier
+  __shared__ float mk[RT];                  // m / k_q of the tile
+  __shared__ int units[kMaxUnits];
+  __shared__ int count[kWarps];
+  __shared__ __align__(8) uint64_t full[kMaxBuf];
   const int nrb = r / br;
-  const int blk = blockIdx.x;
-  const int q = blockIdx.y;
-  const int i = blk / nrb, jb = blk - i * nrb;
-  const float* mrow = masks + static_cast<size_t>(q) * m;
-  if (mrow[i] == 0.f) return;
-  const float ci = decode_weight(mrow, m, i, nbeta);
-  const size_t row0 = static_cast<size_t>(i) * r + static_cast<size_t>(jb) * br;
-  const T* slab = SX + row0 * p;
-  const T* w = W + static_cast<size_t>(q) * p;
+  const int nblocks = gridDim.x, c = blockIdx.x;
+  const int q0 = blockIdx.y * RT;
+  const int nq = R - q0 < RT ? R - q0 : RT;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  for (int col = t; col < p; col += kThreads) ws[col] = repro::to_f32(w[col]);
-  __syncthreads();
-  float acc[NE];
-#pragma unroll
-  for (int j = 0; j < NE; ++j) acc[j] = 0.f;
-  for (int k = 0; k < br; ++k) {
-    const T* row = slab + static_cast<size_t>(k) * p;
-    float x[NE];
-    float d = 0.f;
-#pragma unroll
-    for (int j = 0; j < NE; ++j) {
-      const int col = t + j * kThreads;
-      x[j] = col < p ? repro::to_f32(row[col]) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < NE; ++j) {
-      const int col = t + j * kThreads;
-      if (col < p) d += x[j] * ws[col];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      d += __shfl_down_sync(0xffffffffu, d, off);
-    if (lane == 0) red[warp] = d;
+
+  // this block's units, from the ranks of the active workers
+  int active = 0;                           // active workers so far
+  for (int i0 = 0; i0 < m; i0 += kThreads) {
+    const int i = i0 + t;
+    bool on = false;
+    for (int q = 0; q < nq && i < m; ++q)
+      on = on || masks[static_cast<size_t>(q0 + q) * m + i] != 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) count[warp] = __popc(ballot);
     __syncthreads();
-    float uk = 0.f;
-#pragma unroll
-    for (int v = 0; v < kThreads / 32; ++v) uk += red[v];
-    uk -= repro::to_f32(Sy[row0 + k]);
-    __syncthreads();                        // red is rewritten next row
-#pragma unroll
-    for (int j = 0; j < NE; ++j) acc[j] += uk * x[j];
+    int rank = active + __popc(ballot & ((1u << lane) - 1u));
+    for (int v = 0; v < kWarps; ++v) {
+      if (v < warp) rank += count[v];
+      active += count[v];
+    }
+    if (on) {
+      for (int jb = 0; jb < nrb; ++jb) {
+        const int a = rank * nrb + jb;
+        if (a % nblocks == c) units[a / nblocks] = i * nrb + jb;
+      }
+    }
+    __syncthreads();                        // count is rewritten next chunk
   }
-  float* out = scratch + (static_cast<size_t>(q) * gridDim.x + blk) * p;
+  const int nall = active * nrb;
+  const int nunits = c < nall ? (nall - c + nblocks - 1) / nblocks : 0;
+  if (nunits == 0) return;
+  const int nrows = nunits * br;
+  float* ws = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + ws_bytes;
+  auto row_at = [&](int s) {                // row s of this block's stream
+    return SX + (static_cast<size_t>(units[s / br]) * br + s % br) * p;
+  };
+
+  if (t == 0) {
+    for (int b = 0; b < nbuf; ++b)
+      mbar_init(&full[b], kMode == kBulk ? 1 : kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int ahead = nbuf < nrows ? nbuf : nrows;
+  for (int s = 0; s < ahead; ++s)
+    fetch_row<T, kMode>(row_at(s), reinterpret_cast<T*>(ring + s * row_stride),
+                        p, &full[s]);
+  // the tile's iterates and decode scales, staged while the first rows are
+  // in flight; k_q sums the masks in the reference's order
+  for (int q = 0; q < nq; ++q) {
+    const T* w = W + static_cast<size_t>(q0 + q) * p;
+    for (int col = t; col < p; col += kThreads)
+      ws[q * p + col] = repro::to_f32(w[col]);
+  }
+  if (t < nq) {
+    const float* mrow = masks + static_cast<size_t>(q0 + t) * m;
+    float k = 0.f;
+    for (int a = 0; a < m; ++a) k += mrow[a];
+    mk[t] = static_cast<float>(m) / fmaxf(k, 1.f);
+  }
+  __syncthreads();
+
+  float acc[RT][NE];
 #pragma unroll
-  for (int j = 0; j < NE; ++j) {
-    const int col = t + j * kThreads;
-    if (col < p) out[col] = ci * acc[j];
+  for (int q = 0; q < RT; ++q)
+#pragma unroll
+    for (int j = 0; j < NE; ++j) acc[q][j] = 0.f;
+  bool act[RT];
+  int unit = 0, i = 0;
+  // a step reduces nr = RS rows of one unit (fewer at a unit's end)
+  for (int s = 0, k = 0, step = 0; s < nrows; ++step) {
+    if (k == 0) {
+      unit = units[s / br];
+      i = unit / nrb;
+#pragma unroll
+      for (int q = 0; q < RT; ++q)
+        act[q] = q < nq && masks[static_cast<size_t>(q0 + q) * m + i] != 0.f;
+    }
+    const int nr = br - k < RS ? br - k : RS;
+    float syk[RS];
+    float x[RS][NE];
+    const T* row[RS];
+#pragma unroll
+    for (int h = 0; h < RS; ++h) {
+      syk[h] = 0.f;
+      row[h] = nullptr;
+      if (h < nr)
+        syk[h] = repro::to_f32(Sy[static_cast<size_t>(unit) * br + k + h]);
+    }
+#pragma unroll
+    for (int h = 0; h < RS; ++h) {
+      if (h < nr) {
+        const int slot = (s + h) % nbuf;
+        mbar_wait(&full[slot], static_cast<uint32_t>(((s + h) / nbuf) & 1));
+        row[h] = reinterpret_cast<const T*>(ring + slot * row_stride);
+      }
+#pragma unroll
+      for (int j = 0; j < NE; ++j) {
+        const int col = t + j * kThreads;
+        x[h][j] = h < nr && col < p ? repro::to_f32(row[h][col]) : 0.f;
+      }
+    }
+    float d[RS][RT];
+#pragma unroll
+    for (int q = 0; q < RT; ++q) {
+#pragma unroll
+      for (int h = 0; h < RS; ++h) d[h][q] = 0.f;
+      if (!act[q]) continue;
+#pragma unroll
+      for (int j = 0; j < NE; ++j) {
+        const int col = t + j * kThreads;
+        if (col < p) {
+          const float wv = ws[q * p + col];
+#pragma unroll
+          for (int h = 0; h < RS; ++h) d[h][q] += x[h][j] * wv;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int h = 0; h < RS; ++h)
+          d[h][q] += __shfl_down_sync(0xffffffffu, d[h][q], off);
+    }
+    const int par = step & 1;
+    if (lane == 0) {
+#pragma unroll
+      for (int h = 0; h < RS; ++h)
+#pragma unroll
+        for (int q = 0; q < RT; ++q) red[par][h][q][warp] = d[h][q];
+    }
+    // every thread has read its share of this step's rows and posted its
+    // dot products
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < RS; ++h)
+      if (h < nr && s + h + nbuf < nrows)
+        fetch_row<T, kMode>(row_at(s + h + nbuf), const_cast<T*>(row[h]), p,
+                            &full[(s + h) % nbuf]);
+    // the rows in order: acc[q] += u_q,k x_k, then row k + 1
+#pragma unroll
+    for (int h = 0; h < RS; ++h) {
+      if (h >= nr) continue;
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        if (!act[q]) continue;
+        float uk = 0.f;
+#pragma unroll
+        for (int v = 0; v < kWarps; ++v) uk += red[par][h][q][v];
+        uk -= syk[h];
+#pragma unroll
+        for (int j = 0; j < NE; ++j) acc[q][j] += uk * x[h][j];
+      }
+    }
+    s += nr;
+    k += nr;
+    if (k == br) {                          // the unit's last row
+      k = 0;
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        if (act[q]) {
+          const float mq = masks[static_cast<size_t>(q0 + q) * m + i];
+          const float ci = mq * mk[q] / nbeta;
+          float* out = scratch +
+              (static_cast<size_t>(q0 + q) * m * nrb + unit) * p;
+#pragma unroll
+          for (int j = 0; j < NE; ++j) {
+            const int col = t + j * kThreads;
+            if (col < p) out[col] = ci * acc[q][j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NE; ++j) acc[q][j] = 0.f;
+      }
+    }
   }
 }
 
@@ -145,19 +434,102 @@ fused_stage2(const float* __restrict__ scratch,
   }
 }
 
-template <typename T, int NE>
+// What the first stage's launch needs of a kernel and the card, read once
+// per kernel and device.
+struct Resident {
+  int sms = 0;                              // streaming multiprocessors
+  int regs_per_block = 0;                   // allocated registers a block
+  int static_smem = 0;
+};
+
+template <typename T, int NE, int RT, int kMode>
+cudaError_t resident(Resident* out) {
+  const auto kernel = &fused_stage1<T, NE, RT, kMode>;
+  static Resident cache[kMaxDevices];       // one per kernel and device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Resident& rs = cache[dev];
+  if (rs.sms == 0) {
+    // opt in to the full dynamic shared memory once, not on every launch;
+    // a failed call's error is cleared, so no later launch reports it
+    cudaFuncAttributes fa;
+    int sms = 0;
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBudget);
+    if (err == cudaSuccess)
+      err = cudaFuncGetAttributes(&fa, reinterpret_cast<const void*>(kernel));
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+    // registers are allocated 256 at a time a warp
+    const int per_warp = (fa.numRegs * 32 + 255) / 256 * 256;
+    rs.regs_per_block = per_warp * kWarps;
+    rs.static_smem = static_cast<int>(fa.sharedSizeBytes);
+    rs.sms = sms;
+  }
+  *out = rs;
+  return cudaSuccess;
+}
+
+// Blocks of the first stage resident on one SM with `dyn` bytes of dynamic
+// shared memory: the least of the thread, register and shared-memory
+// limits.
+int blocks_per_sm(const Resident& rs, int dyn) {
+  int n = 2048 / kThreads;
+  const int by_regs = 65536 / rs.regs_per_block;
+  const int by_smem = kSmemPerSM / (dyn + rs.static_smem + kSmemPerBlock);
+  if (by_regs < n) n = by_regs;
+  if (by_smem < n) n = by_smem;
+  return n;
+}
+
+template <typename T, int NE, int RT, int kMode>
 cudaError_t launch(const void* SX, const void* Sy, const void* W,
                    const float* masks, float* scratch, void* G, int R, int m,
                    int r, int p, int br, float nbeta, cudaStream_t stream) {
-  const int nrb = r / br;
-  const size_t smem = static_cast<size_t>(p) * sizeof(float);
-  cudaError_t err = repro::set_smem(
-      reinterpret_cast<const void*>(&fused_stage1<T, NE>), smem);
+  const auto kernel = &fused_stage1<T, NE, RT, kMode>;
+  Resident rs;
+  cudaError_t err = resident<T, NE, RT, kMode>(&rs);
   if (err != cudaSuccess) return err;
-  dim3 grid1(m * nrb, R);
-  fused_stage1<T, NE><<<grid1, kThreads, smem, stream>>>(
+  const int ws_bytes = round16((R < RT ? R : RT) * p * 4);
+  const int row_stride = round16(p * static_cast<int>(sizeof(T)));
+  // ring depth: of the depths from 2 up that fit, the one that keeps the
+  // most rows in flight on an SM (buffers ahead of the step's rows, times
+  // resident blocks), the fewer on a tie; it changes no sum
+  constexpr int RS = rows_for(NE, RT);
+  int nbuf = kMinBuf, per_sm = 1, best = -1;
+  for (int nb = kMinBuf; nb <= kMaxBuf; ++nb) {
+    const int dyn = ws_bytes + nb * row_stride;
+    if (dyn > kSmemBudget) break;
+    const int blocks = blocks_per_sm(rs, dyn);
+    if (blocks * (nb - RS) > best)
+      best = blocks * (nb - RS), nbuf = nb, per_sm = blocks;
+  }
+  if (per_sm < 1) per_sm = 1;
+  const size_t smem = static_cast<size_t>(ws_bytes) + nbuf * row_stride;
+  // A single call stages one cheap iterate: a block a unit, balanced by
+  // the card's block scheduler.  A batched call stages RT iterates a block:
+  // one wave of blocks over all tiles, each block taking at most kMaxUnits
+  // units, and no more blocks than units.
+  const int nrb = r / br;
+  const int ntiles = (R + RT - 1) / RT;
+  const int units = m * nrb;
+  int per_tile = R == 1 ? units : rs.sms * per_sm / ntiles;
+  if (per_tile < (units + kMaxUnits - 1) / kMaxUnits)
+    per_tile = (units + kMaxUnits - 1) / kMaxUnits;
+  if (per_tile > units) per_tile = units;
+  if (per_tile < 1) per_tile = 1;
+  dim3 grid1(per_tile, ntiles);
+  kernel<<<grid1, kThreads, smem, stream>>>(
       static_cast<const T*>(SX), static_cast<const T*>(Sy),
-      static_cast<const T*>(W), masks, scratch, m, r, p, br, nbeta);
+      static_cast<const T*>(W), masks, scratch, R, m, r, p, br, nbuf,
+      ws_bytes, row_stride, nbeta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid2((p + kCols - 1) / kCols, R);
@@ -166,28 +538,58 @@ cudaError_t launch(const void* SX, const void* Sy, const void* W,
   return cudaGetLastError();
 }
 
-// Registers a thread holds for one row: the smallest listed NE with
-// NE * kThreads >= p.  Depends on p alone, never on R.
+// The tile a launch takes: one realization for a single call (its block
+// then holds one set of accumulators, and more blocks fit an SM), else
+// tile_for(NE).  A realization's sums are the same in either.
+template <typename T, int NE, int kMode>
+cudaError_t by_tile(const void* SX, const void* Sy, const void* W,
+                    const float* masks, float* scratch, void* G, int R, int m,
+                    int r, int p, int br, float nbeta, cudaStream_t stream) {
+  constexpr int RT = tile_for(NE);
+  if (R == 1 || RT == 1)
+    return launch<T, NE, 1, kMode>(SX, Sy, W, masks, scratch, G, R, m, r, p,
+                                   br, nbeta, stream);
+  return launch<T, NE, RT, kMode>(SX, Sy, W, masks, scratch, G, R, m, r, p,
+                                  br, nbeta, stream);
+}
+
+template <typename T, int NE>
+cudaError_t by_mode(const void* SX, const void* Sy, const void* W,
+                    const float* masks, float* scratch, void* G, int R, int m,
+                    int r, int p, int br, float nbeta, cudaStream_t stream) {
+  const size_t row_bytes = static_cast<size_t>(p) * sizeof(T);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(SX);
+  if (row_bytes % 16 == 0 && base % 16 == 0)
+    return by_tile<T, NE, kBulk>(SX, Sy, W, masks, scratch, G, R, m, r, p,
+                                 br, nbeta, stream);
+  if (row_bytes % 4 == 0 && base % 4 == 0)
+    return by_tile<T, NE, kWords>(SX, Sy, W, masks, scratch, G, R, m, r, p,
+                                  br, nbeta, stream);
+  return by_tile<T, NE, kPlain>(SX, Sy, W, masks, scratch, G, R, m, r, p, br,
+                                nbeta, stream);
+}
+
 template <typename T>
 cudaError_t dispatch(const void* SX, const void* Sy, const void* W,
                      const float* masks, float* scratch, void* G, int R,
                      int m, int r, int p, int br, float nbeta,
                      cudaStream_t stream) {
-  const int need = (p + kThreads - 1) / kThreads;
+  switch (regs_for(p)) {
 #define REPRO_FUSED_NE(NE)                                                 \
-  if (need <= NE)                                                          \
-    return launch<T, NE>(SX, Sy, W, masks, scratch, G, R, m, r, p, br,     \
-                         nbeta, stream);
-  REPRO_FUSED_NE(1)
-  REPRO_FUSED_NE(2)
-  REPRO_FUSED_NE(4)
-  REPRO_FUSED_NE(8)
-  REPRO_FUSED_NE(16)
-  REPRO_FUSED_NE(24)
-  REPRO_FUSED_NE(32)
-  REPRO_FUSED_NE(48)
-  REPRO_FUSED_NE(64)
+  case NE:                                                                 \
+    return by_mode<T, NE>(SX, Sy, W, masks, scratch, G, R, m, r, p, br,    \
+                          nbeta, stream);
+    REPRO_FUSED_NE(1)
+    REPRO_FUSED_NE(2)
+    REPRO_FUSED_NE(4)
+    REPRO_FUSED_NE(8)
+    REPRO_FUSED_NE(16)
+    REPRO_FUSED_NE(24)
+    REPRO_FUSED_NE(32)
+    REPRO_FUSED_NE(48)
+    REPRO_FUSED_NE(64)
 #undef REPRO_FUSED_NE
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -214,4 +616,27 @@ extern "C" int repro_fused_masked_gradient(const void* SX, const void* Sy,
     return dispatch<__nv_bfloat16>(SX, Sy, W, mk, sc, G, R, m, r, p, br,
                                    nbeta, st);
   return cudaErrorInvalidValue;
+}
+
+// The realizations one stage-1 block takes at width p (0 if p is out of
+// range): the kernel's own choice, for the tests to hold against the
+// wrapper's pick_fused_realization_tile.
+extern "C" int repro_fused_realization_tile(int p) {
+  const int ne = p > 0 ? regs_for(p) : 0;
+  switch (ne) {
+#define REPRO_FUSED_RT(NE) \
+  case NE:                 \
+    return tile_for(NE);
+    REPRO_FUSED_RT(1)
+    REPRO_FUSED_RT(2)
+    REPRO_FUSED_RT(4)
+    REPRO_FUSED_RT(8)
+    REPRO_FUSED_RT(16)
+    REPRO_FUSED_RT(24)
+    REPRO_FUSED_RT(32)
+    REPRO_FUSED_RT(48)
+    REPRO_FUSED_RT(64)
+#undef REPRO_FUSED_RT
+  }
+  return 0;
 }

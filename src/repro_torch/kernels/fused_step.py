@@ -9,11 +9,14 @@ Port of the TPU kernel ``src/repro/kernels/fused_step.py`` (``_fused_body``)
 in one batched entry: W (R, p) iterates and (R, m) masks over one shared
 encoded problem.  The single form is the same entry at R = 1.  On CUDA
 tensors the wrapper launches ``csrc/fused_step.cu`` (a deterministic
-two-stage reduction, so realization r of a batched call equals the single
-call bit for bit); on CPU tensors it runs the plain version, which loops
-over realizations for the same reason.
+two-stage reduction whose first stage reads each row of SX once for a tile
+of realizations, so realization r of a batched call equals the single call
+bit for bit); on CPU tensors it runs the plain version, which loops over
+realizations for the same reason.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -22,13 +25,21 @@ from repro_torch.device import full_f32_matmul
 from ._build import check, launches, load_library, stream_of
 
 __all__ = ["fused_masked_gradient", "fused_masked_gradient_plain",
-           "pick_fused_block_rows", "MAX_COLS"]
+           "pick_fused_block_rows", "pick_fused_realization_tile",
+           "fused_row_registers", "fused_stage1_smem_bytes", "MAX_COLS"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_ROWS_CAP = 16
 # the kernel keeps a thread's share of a row in registers (64 of them at
 # 256 threads); wider rows need the multi-pass form, not ported yet
-MAX_COLS = 16384
+_THREADS = 256
+_REG_STEPS = (1, 2, 4, 8, 16, 24, 32, 48, 64)
+MAX_COLS = _REG_STEPS[-1] * _THREADS
+# the first stage's budgets (csrc/fused_step.cu): registers a thread for
+# one row and its accumulators, and dynamic shared memory a block (the
+# 227 KB opt-in maximum less 3 KB for the static arrays)
+_REG_BUDGET = 200
+SMEM_BUDGET = 227 * 1024 - 3072
 
 
 def pick_fused_block_rows(r: int) -> int:
@@ -38,6 +49,37 @@ def pick_fused_block_rows(r: int) -> int:
     reduction order of the kernel is fixed by the problem's shape."""
     return max(d for d in range(1, min(r, _BLOCK_ROWS_CAP) + 1)
                if r % d == 0)
+
+
+def fused_row_registers(p: int) -> int:
+    """Registers NE a first-stage thread holds for one row of width p: the
+    smallest of 1, 2, 4, 8, 16, 24, 32, 48, 64 with NE * 256 >= p."""
+    if not 0 < p <= MAX_COLS:
+        raise ValueError(f"fused kernel takes 0 < p <= {MAX_COLS}, got {p}")
+    return next(ne for ne in _REG_STEPS if ne * _THREADS >= p)
+
+
+def fused_stage1_smem_bytes(p: int, tile: int, itemsize: int) -> int:
+    """Least dynamic shared memory of a first-stage block: ``tile`` float32
+    iterates of width p, then two row buffers of p elements of
+    ``itemsize`` bytes, each rounded up to 16 bytes."""
+    def r16(b):
+        return (b + 15) // 16 * 16
+    return r16(tile * p * 4) + 2 * r16(p * itemsize)
+
+
+def pick_fused_realization_tile(p: int) -> int:
+    """Realizations RT one first-stage block takes at width p: the largest
+    of 8, 4, 2, 1 whose NE * (1 + RT) registers (a row and RT sets of
+    accumulators) stay within 200 a thread, and whose RT float32 iterates
+    fit shared memory beside two float32 row buffers at the widest p its NE
+    serves.  Depends on p alone (through NE), so a realization's sums never
+    depend on the batch; the kernel makes the same choice."""
+    ne = fused_row_registers(p)
+    return next(rt for rt in (8, 4, 2, 1)
+                if rt == 1 or (ne * (1 + rt) <= _REG_BUDGET and
+                               fused_stage1_smem_bytes(ne * _THREADS, rt, 4)
+                               <= SMEM_BUDGET))
 
 
 def _decode_weights(masks: torch.Tensor, m: int, n: int,
@@ -87,6 +129,25 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
         return fused_masked_gradient_plain(SX, Sy, w, mask, n=n, beta=beta)
     if SX.device.type != "cuda":
         raise ValueError(f"unsupported device {SX.device}")
+    _check_kernel_operands(SX, Sy, w, mask)
+    br = pick_fused_block_rows(r)
+    out = torch.empty((R, p), dtype=w.dtype, device=w.device)
+    scratch = torch.empty((R, m * (r // br), p), dtype=torch.float32,
+                          device=w.device)
+    check(_entry()(
+        SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), R, m, r, p, br,
+        float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
+        "fused_masked_gradient")
+    launches["fused_masked_gradient"] += 1
+    return out
+
+
+def _check_kernel_operands(SX, Sy, w, mask) -> None:
+    """Raise on what the kernel does not take: p > MAX_COLS, operands not
+    of one dtype of float32 or bfloat16, masks not float32, operands on
+    other devices than SX, or not contiguous."""
+    p = SX.shape[-1]
     if p > MAX_COLS:
         raise ValueError(f"fused kernel takes p <= {MAX_COLS}, got {p}")
     if SX.dtype not in _DTYPES or Sy.dtype != SX.dtype or \
@@ -99,18 +160,12 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
     for name, t in (("Sy", Sy), ("w", w), ("mask", mask)):
         if t.device != SX.device:
             raise ValueError(f"{name} on {t.device}, SX on {SX.device}")
+    for name, t in (("SX", SX), ("Sy", Sy), ("w", w), ("mask", mask)):
         if not t.is_contiguous():
             raise ValueError(f"fused kernel needs a contiguous {name}")
-    if not SX.is_contiguous():
-        raise ValueError("fused kernel needs a contiguous SX")
-    br = pick_fused_block_rows(r)
-    out = torch.empty((R, p), dtype=w.dtype, device=w.device)
-    scratch = torch.empty((R, m * (r // br), p), dtype=torch.float32,
-                          device=w.device)
-    check(load_library().repro_fused_masked_gradient(
-        SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), R, m, r, p, br,
-        float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
-        "fused_masked_gradient")
-    launches["fused_masked_gradient"] += 1
-    return out
+
+
+@functools.cache
+def _entry():
+    """The kernel's C entry, looked up once."""
+    return load_library().repro_fused_masked_gradient

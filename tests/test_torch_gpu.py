@@ -19,11 +19,14 @@ import torch
 
 from repro_torch.core import EncodedProblem, masked_gradient, run_encoded_lbfgs
 from repro_torch.kernels import launches
+from repro_torch.kernels._build import load_library
 from repro_torch.kernels.coded_reduce import (coded_combine_call,
-                                              coded_combine_plain)
+                                              coded_combine_plain,
+                                              combine_row_groups)
 from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
-from repro_torch.kernels.fused_step import (fused_masked_gradient,
-                                            fused_masked_gradient_plain)
+from repro_torch.kernels.fused_step import (MAX_COLS, fused_masked_gradient,
+                                            fused_masked_gradient_plain,
+                                            pick_fused_realization_tile)
 from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
 from repro_torch.runtime import scan_gd, scan_prox
 
@@ -108,6 +111,42 @@ def test_fused_kernel_batched_and_single(cuda, m, r, p):
         assert torch.equal(out[q], single)
 
 
+@pytest.mark.parametrize("R", [1, 3, 4, 5, 8, 9, 16])
+@pytest.mark.parametrize("p", [1, 37, 6000, 6001, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_tiles_bitwise(cuda, R, p, dtype):
+    """Batched rows equal single calls bit for bit whatever the tile of
+    realizations a row falls in, on every copy path into the row ring
+    (bulk copies where a row is whole 16-byte units, 4-byte copies, plain
+    loads for odd bfloat16 rows); worker 2 is masked out in every
+    realization and, for R > 1, the last realization is all-masked."""
+    SX, Sy, W, masks = _fused(cuda, 5, 24, p, R, dtype, seed=R + p)
+    masks[:, 2] = 0.0
+    if R > 1:
+        masks[-1] = 0.0
+    kw = dict(n=60, beta=2.0)
+    out = fused_masked_gradient(SX, Sy, W, masks, **kw)
+    _close(out, fused_masked_gradient_plain(SX, Sy, W, masks, **kw),
+           1e-4 if dtype == torch.float32 else 2 ** -7)
+    for q in range(R):
+        assert torch.equal(out[q], fused_masked_gradient(SX, Sy, W[q],
+                                                         masks[q], **kw))
+    if R > 1:
+        assert torch.count_nonzero(out[-1]) == 0
+
+
+def test_kernel_shape_choices_match_wrappers(cuda):
+    """The kernels choose their realization tile and row groups as the
+    wrappers' Python functions say (those are what the CPU tests check)."""
+    lib = load_library()
+    assert all(lib.repro_fused_realization_tile(p) ==
+               pick_fused_realization_tile(p)
+               for p in range(1, MAX_COLS + 1))
+    assert lib.repro_fused_realization_tile(MAX_COLS + 1) == 0
+    assert all(lib.repro_coded_combine_groups(m) == combine_row_groups(m)
+               for m in range(0, 300))
+
+
 @pytest.mark.parametrize("r", [1, 7, 12, 34])
 def test_fused_kernel_row_counts(cuda, r):
     """Row counts whose stage-1 row blocks differ (r, 7, 12, 2 rows)."""
@@ -152,7 +191,7 @@ def test_runners_on_card_match_cpu(cuda):
 
 
 @pytest.mark.parametrize("P", [1, 37, 128, 2085, 6000, 6001])
-@pytest.mark.parametrize("m", [1, 8, 32, 64])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 32, 64, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_combine_kernel(cuda, P, m, dtype):
     g = _randn((m, P), P + m, cuda, dtype)
