@@ -37,6 +37,24 @@ Phases, each of which ends the run with a non-zero exit on failure:
              card's coded-gd trace and the first 20 steps of its coded-lbfgs
              trace must match the port's own CPU run on the same encoded
              problem and masks;
+   workloads - the paper's §5 workload zoo through ``get_workload(name)``:
+             ridge at its published size (the ``paper`` preset, Fig. 7's
+             three arms: ``run_trials("coded", trials=2, eval_every=10,
+             encoder="fast-hadamard")``, which is coded-lbfgs, and
+             ``run("replication")`` / ``run("uncoded")``, GD), the gap
+             falling on each, and ``run("coded", encoder="fast-hadamard")``
+             equal bit for bit to the direct ``coded-lbfgs`` strategy run;
+             LASSO (coded-prox), logistic (coded-bcd, default and
+             fast-Hadamard encoders) and matrix factorization (coded-lbfgs
+             ALS) at their ``bench`` presets, on the card and again on the
+             CPU, held to the CPU tests' tolerances.  Each prints its host
+             clock split into data build, ground truth, run (and the
+             run's encode) and scoring (obs spans) and the device's busy
+             share of a profiled second run.  Every workload path is
+             driven with the launch counts cleared just before and must
+             launch exactly its kernels.  The phase also prints the sizes
+             that keep LASSO and logistic ``paper`` off one card and MF
+             ``paper``'s own MemoryError;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
              same function (the fused gradient also batched at R = 4 and
@@ -151,9 +169,9 @@ def device_ms(fn, reps: int) -> float:
     return us / reps / 1e3
 
 
-def device_breakdown(fn, label: str) -> None:
-    """Print where the device time of ``fn`` goes, kernel by kernel, from
-    ``torch.profiler``, and the device's idle share of the wall time."""
+def profile_device(fn) -> tuple[float, list]:
+    """(wall us, [(device us, count, kernel name), ...] largest first) of
+    one call of ``fn`` under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -170,10 +188,16 @@ def device_breakdown(fn, label: str) -> None:
         us = getattr(ev, "self_device_time_total", 0.0)
         if us > 0:
             rows.append((us, ev.count, ev.key))
+    return wall_us, sorted(rows, reverse=True)
+
+
+def device_breakdown(fn, label: str) -> None:
+    """Print where the device time of ``fn`` goes, kernel by kernel, from
+    ``torch.profiler``, and the device's idle share of the wall time."""
+    wall_us, rows = profile_device(fn)
     if not rows:
         print(f"profile {label}: the profiler recorded no device time")
         return
-    rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"profile {label}: wall {wall_us:.0f} us, device busy {busy:.0f} us"
           f" (idle share {max(0.0, 1 - busy / wall_us):.2f})")
@@ -186,6 +210,180 @@ def rel_err(out, ref) -> tuple[float, float]:
     err = float((out.float() - ref.float()).abs().max())
     scale = float(ref.float().abs().max())
     return err, err / max(scale, 1e-30)
+
+
+# the workload presets the workloads phase runs: ridge at its published
+# size; LASSO, logistic and MF at the reference's own bench presets (their
+# paper-size data does not fit one card: PERF.md §4)
+WORKLOAD_PRESETS = {"ridge": "paper", "lasso": "bench", "logistic": "bench",
+                    "mf": "bench"}
+
+
+def timed(fn):
+    """(result, host seconds, host seconds by obs span name) of one call of
+    ``fn`` under a fresh obs recorder, the device synchronised before the
+    clock stops."""
+    import torch
+    from repro_torch.obs import TraceRecorder
+    rec = TraceRecorder()
+    with rec.activate():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans: dict[str, float] = {}
+    for ev in rec.spans():
+        spans[ev.name] = spans.get(ev.name, 0.0) + ev.dur
+    return out, wall, spans
+
+
+def device_share(fn) -> float:
+    """The device's busy share of one profiled call of ``fn``."""
+    wall_us, rows = profile_device(fn)
+    return sum(r[0] for r in rows) / wall_us
+
+
+def host_split(build_spans: dict, run_s: float, run_spans: dict) -> str:
+    """Data build / ground truth / run / scoring host seconds of a cell;
+    the run's share spent encoding (the strategies' ``encode`` spans: once
+    a run, once a chunk or half-step where the workload re-runs its
+    strategy) is given beside it."""
+    score = run_spans.get("workload:score", 0.0)
+    return (f"host s: data {build_spans.get('workload:data', 0.0):.3f}, "
+            f"ground truth {build_spans.get('workload:ground_truth', 0.0):.3f}"
+            f", run {run_s - score:.3f} (encode "
+            f"{run_spans.get('encode', 0.0):.3f}), scoring {score:.4f}")
+
+
+def workloads_phase(dev, smi: str, drive) -> None:
+    """Paper §5's workloads through ``get_workload(name).run`` /
+    ``run_trials`` (module docstring, phase "workloads"); ``drive`` runs
+    one path with the launch counts cleared just before and read just
+    after, and requires its kernels."""
+    import numpy as np
+    from repro_torch.core import hadamard_ensemble
+    from repro_torch.kernels.fused_step import MAX_COLS
+    from repro_torch.kernels.fwht import MAX_ONE_PASS
+    from repro_torch.runtime import get_strategy
+    from repro_torch.workloads import get_workload
+    fused, srht, fwht, comb = ("fused_masked_gradient", "srht_encode",
+                               "fwht", "coded_combine")
+    t_phase = time.perf_counter()
+
+    # the paper presets this phase leaves off the card, sized from the
+    # presets; MF's own guard raised from its entry point
+    ps = get_workload("lasso").preset("paper")
+    n, p = ps.dims["n"], ps.dims["p"]
+    N = hadamard_ensemble(n, 2.0, 0)[0]
+    print(f"lasso paper (n, p) = ({n}, {p}): X float64 {n * p * 8 / 1e9:.1f}"
+          f" GB on the host, S X ({N}, {p}) float32 {N * p * 4 / 1e9:.1f} GB "
+          f"on the card; p > {MAX_COLS} (fused), N > {MAX_ONE_PASS} (SRHT)")
+    ps = get_workload("logistic").preset("paper")
+    n, p = ps.dims["n"], ps.dims["p"]
+    n_train = n - int(round(n * ps.dims["test_frac"]))
+    N = hadamard_ensemble(p, 2.0, 0)[0]
+    print(f"logistic paper (n, p) = ({n}, {p}): X float32 "
+          f"{n * p * 4 / 1e9:.1f} GB, lifted blocks X S^T ({n_train}, {N}) "
+          f"float32 {n_train * N * 4 / 1e9:.1f} GB on the card")
+    try:
+        get_workload("mf").run("coded", preset="paper", device=dev)
+    except MemoryError as exc:
+        print(f"mf paper: MemoryError from run(): {exc}")
+    else:
+        raise SmokeFailure("mf paper: the dense design's guard did not raise")
+
+    # ridge: Fig. 7's three arms at the published size
+    wl = get_workload("ridge")
+    ps = wl.preset(WORKLOAD_PRESETS["ridge"])
+    data, build_s, build_spans = timed(lambda: wl.build(ps))
+    X = data.spec.X
+    print(f"workload ridge {ps.name}: X {X.shape}, m {ps.m}, k {ps.k}, "
+          f"{ps.steps} steps, f* {data.f_star:.6g}; build {build_s:.2f} s "
+          f"host clock")
+    T, R, had = ps.steps, 2, dict(encoder="fast-hadamard")
+    arms = (
+        ("ridge coded run_trials", lambda: wl.run_trials(
+            "coded", preset=ps, data=data, trials=R, eval_every=10,
+            device=dev, **had), {comb: R * T, srht: 1}),
+        ("ridge replication run", lambda: wl.run(
+            "replication", preset=ps, data=data, device=dev), {fused: T}),
+        ("ridge uncoded run", lambda: wl.run(
+            "uncoded", preset=ps, data=data, device=dev), {fused: T}),
+    )
+    for label, fn, expect in arms:
+        out, run_s, spans = timed(lambda: drive(label, fn, expect))
+        for q, res in enumerate(out if isinstance(out, list) else [out]):
+            gap = np.asarray(res.metric)
+            require(np.isfinite(gap).all() and gap[-1] < gap[0],
+                    f"{label} [{q}]: the gap did not fall: {gap[0]:.4g} -> "
+                    f"{gap[-1]:.4g}")
+            print(f"{label} [{q}] ({res.strategy}): gap {gap[0]:.6g} -> "
+                  f"{gap[-1]:.6g}, final rel gap "
+                  f"{res.meta['final_rel_subopt']:.3e}, simulated "
+                  f"{res.wallclock:.3f} s")
+        print(f"{label}: {host_split(build_spans, run_s, spans)}; device "
+              f"busy share {device_share(fn):.3f}  [{smi}]")
+    # the workload adds no arithmetic: its coded run is the strategy's
+    via_wl = drive("ridge coded run", lambda: wl.run(
+        "coded", preset=ps, data=data, device=dev, **had),
+        {comb: T, srht: 1})
+    direct = drive("coded-lbfgs run (direct)", lambda: get_strategy(
+        "coded-lbfgs").run(data.spec, wl.default_engine(ps), steps=T,
+                           k=ps.k, device=dev, **had), {comb: T, srht: 1})
+    require(np.array_equal(via_wl.objective, direct.objective) and
+            np.array_equal(via_wl.w, direct.w) and
+            np.array_equal(via_wl.times, direct.times),
+            "ridge run('coded') != get_strategy('coded-lbfgs').run")
+    print("ridge run('coded', encoder='fast-hadamard') == "
+          "get_strategy('coded-lbfgs').run(...): objective, w and times bit "
+          "for bit")
+
+    # LASSO, logistic (both encoders) and MF: the card against the CPU
+    cells = (("lasso", "coded", {}, lambda p: {fused: p.steps}),
+             ("logistic", "coded", {}, lambda p: {}),
+             ("logistic", "coded", had,
+              lambda p: {srht: 1, fwht: p.dims["records"]}),
+             ("mf", "coded", {}, lambda p: {comb: 2 * p.dims["epochs"]
+                                            * p.steps}))
+    for name, strategy, cfg, expect in cells:
+        wl = get_workload(name)
+        ps = wl.preset(WORKLOAD_PRESETS[name])
+        data, build_s, build_spans = timed(lambda: wl.build(ps))
+        label = f"{name} {ps.name} {wl.resolve_strategy(strategy)}" + \
+            (f" {cfg['encoder']}" if cfg else "")
+
+        def run(device):
+            return wl.run(strategy, preset=ps, data=data, device=device,
+                          **cfg)
+        gpu, run_s, spans = timed(lambda: drive(label, lambda: run(dev),
+                                                expect(ps)))
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        require(np.array_equal(gpu.times, cpu.times), f"{label}: times")
+        obj_tol = 1e-4 if gpu.strategy == "coded-lbfgs" else 1e-5
+        go, co = np.asarray(gpu.objective), np.asarray(cpu.objective)
+        obj_rel = float(np.max(np.abs(go - co)) / np.max(np.abs(co)))
+        require(np.isfinite(go).all() and obj_rel <= obj_tol,
+                f"{label}: card objective vs CPU rel {obj_rel:.2e}")
+        gm, cm = np.asarray(gpu.metric), np.asarray(cpu.metric)
+        if name == "mf":          # test RMSE
+            met_rel = float(np.max(np.abs(gm - cm)) / np.max(np.abs(cm)))
+            require(met_rel <= 1e-4, f"{label}: RMSE rel {met_rel:.2e}")
+            met = f"rel {met_rel:.2e} (tol 1e-4)"
+        else:                     # LASSO F1, logistic test error
+            require(np.array_equal(gm, cm), f"{label}: {gpu.metric_name} "
+                                            f"{gm} != CPU {cm}")
+            met = "equal at every record"
+        print(f"{label}: {gpu.metric_name} card {gpu.final_metric:.6g}, CPU "
+              f"{cpu.final_metric:.6g} ({met}); objective "
+              f"{go[0]:.6g} -> {go[-1]:.6g}, card vs CPU rel {obj_rel:.2e} "
+              f"(tol {obj_tol:.0e}); simulated {gpu.wallclock:.3f} s")
+        print(f"{label}: {host_split(build_spans, run_s, spans)}; CPU run "
+              f"{cpu_s:.3f} s; device busy share "
+              f"{device_share(lambda: run(dev)):.3f}  [{smi}]")
+    print(f"workloads phase: {time.perf_counter() - t_phase:.1f} s host "
+          f"clock")
 
 
 def main() -> int:
@@ -448,7 +646,6 @@ def main() -> int:
 
     print(f"main path: {t_main:.2f} s host clock; peak device memory "
           f"{peak_gb:.2f} GB")
-    print(f"launches by path: {json.dumps(by_path)}")
     for label, tr in (("coded-gd run", res.objective),
                       ("coded-gd run_batched", bat.objective),
                       ("coded-prox run", prox.objective),
@@ -505,6 +702,10 @@ def main() -> int:
                             f"{lb_rel:.2e}")
     print(f"coded-lbfgs card trace vs the port's CPU run ({lb_cmp} steps): "
           f"max rel diff {lb_rel:.2e} (tol 1e-3)")
+
+    # the workloads ------------------------------------------------------
+    workloads_phase(dev, smi, drive)
+    print(f"launches by path: {json.dumps(by_path)}")
 
     # 5. times ---------------------------------------------------------------
     masks_run = torch.as_tensor(res.schedule.masks, device=dev)

@@ -1,8 +1,9 @@
-"""The paper's ridge configuration (§5.1, Fig. 7) — the published
-dimensions, regularization, worker count, fastest-k settings and delay
-model the port's main path runs at.  Own copy of the reference's
-``repro.configs.paper_native.PAPER_RIDGE`` (the port imports nothing of
-``repro``)."""
+"""The paper's own experiment configurations (§5) — the four problems it
+evaluates on EC2, with the published dimensions, regularization, worker
+counts, fastest-k settings, delay models and schemes.  ``PAPER_RIDGE`` is
+the size the port's main path runs at; the workloads' ``paper`` presets
+read all four.  Own copy of the reference's
+``repro.configs.paper_native`` (the port imports nothing of ``repro``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,3 +31,29 @@ PAPER_RIDGE = QuadraticProblemConfig(
     algorithm="lbfgs", encoders=("uncoded", "replication", "hadamard"),
     delay_model="bimodal",
     instance_note="EC2: 32x m1.small workers + c3.8xlarge master (Fig 7)")
+
+PAPER_MF = QuadraticProblemConfig(
+    name="matrix_factorization_s5_2", n=1_000_000, p=15, m=24, k=(3, 12, 24),
+    lam=10.0, algorithm="lbfgs",
+    encoders=("uncoded", "replication", "gaussian", "paley", "hadamard"),
+    delay_model="exponential",
+    instance_note="MovieLens-1M, p=15 embedding, b=3, ALS (Tables 2-3)")
+
+PAPER_LOGISTIC = QuadraticProblemConfig(
+    name="logistic_s5_3", n=597_641, p=32_500, m=128, k=(64, 80, 128),
+    lam=1e-5, regularizer="l2", algorithm="bcd",
+    encoders=("uncoded", "replication", "steiner", "haar"),
+    delay_model="bimodal",
+    instance_note="rcv1.binary; 128x t2.medium + c3.4xlarge (Figs 10-13); "
+                  "second delay model: power-law background tasks")
+
+PAPER_LASSO = QuadraticProblemConfig(
+    name="lasso_s5_4", n=130_000, p=100_000, m=128, k=(80, 128), lam=0.6,
+    regularizer="l1", algorithm="prox",
+    encoders=("uncoded", "replication", "steiner"),
+    delay_model="multimodal",
+    instance_note="7695-sparse ground truth, sigma=40 noise, F1 metric "
+                  "(Fig 14)")
+
+PAPER_PROBLEMS = {c.name: c for c in
+                  [PAPER_RIDGE, PAPER_MF, PAPER_LOGISTIC, PAPER_LASSO]}

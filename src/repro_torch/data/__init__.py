@@ -1,3 +1,5 @@
-from .pipeline import lsq_dataset, lsq_rows
+from .pipeline import (logreg_dataset, logreg_rows, lsq_dataset, lsq_rows,
+                       mf_ratings_dataset, stream_worker_blocks)
 
-__all__ = ["lsq_dataset", "lsq_rows"]
+__all__ = ["lsq_dataset", "lsq_rows", "logreg_dataset", "logreg_rows",
+           "mf_ratings_dataset", "stream_worker_blocks"]

@@ -11,7 +11,11 @@ max|d| <= 1e-5 of max|ref| for the butterflies and the combine and 1e-4
 for the fused gradient's long dot products; bfloat16 outputs one bfloat16
 ulp (2^-7).  Encoded L-BFGS on the card matches the same call on the CPU
 to rel 1e-3 of its objective (float32 differences divided by their inner
-products in the two-loop recursion and the line search).
+products in the two-loop recursion and the line search).  The workloads'
+``smoke`` cells on the card match the same cells on the CPU: ``times``
+bit for bit, GD / ISTA / BCD traces to rel 1e-5, ``coded-lbfgs`` and MF
+to rel 1e-4, ridge gaps to abs 1e-4 |f*|, LASSO F1 and logistic test
+error equal; each cell launches exactly the kernels of its path.
 """
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ from repro_torch.kernels.fused_step import (MAX_COLS, fused_masked_gradient,
                                             pick_fused_realization_tile)
 from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
 from repro_torch.runtime import scan_gd, scan_prox
+from repro_torch.workloads import get_workload
 
 pytestmark = pytest.mark.gpu
 
@@ -255,3 +260,70 @@ def test_lbfgs_on_card_matches_cpu(cuda):
     assert launches["coded_combine"] == before + 25
     assert tr_g.is_cuda and torch.isfinite(tr_g).all()
     _close(tr_g.cpu(), tr_c, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the workloads' smoke cells: card against CPU, and the kernels each path
+# launches
+# ---------------------------------------------------------------------------
+
+FUSED, SRHT, FWHT, COMB = ("fused_masked_gradient", "srht_encode", "fwht",
+                           "coded_combine")
+WORKLOAD_CELLS = [
+    # (workload, strategy, encoder, launches on the card)
+    ("ridge", "coded", None, {COMB: 40}),
+    ("ridge", "coded", "fast-hadamard", {COMB: 40, SRHT: 1}),
+    ("ridge", "uncoded", None, {FUSED: 40}),
+    ("ridge", "replication", None, {FUSED: 40}),
+    ("lasso", "coded", None, {FUSED: 240}),
+    ("logistic", "coded", None, {}),
+    ("logistic", "coded", "fast-hadamard", {SRHT: 1, FWHT: 8}),
+    ("mf", "coded", None, {COMB: 48}),
+]
+
+
+def _launched(before) -> dict:
+    return {k: v - before.get(k, 0) for k, v in launches.items()
+            if v - before.get(k, 0)}
+
+
+def _same_cell(gpu, cpu, f_star=None):
+    assert np.array_equal(gpu.times, cpu.times)
+    assert np.array_equal(gpu.metric_times, cpu.metric_times)
+    lbfgs = gpu.strategy == "coded-lbfgs"
+    _close(torch.as_tensor(gpu.objective), torch.as_tensor(cpu.objective),
+           1e-4 if lbfgs else 1e-5)
+    if gpu.workload == "ridge":
+        assert np.max(np.abs(gpu.metric - cpu.metric)) <= 1e-4 * abs(f_star)
+    elif gpu.workload == "mf":
+        _close(torch.as_tensor(gpu.metric), torch.as_tensor(cpu.metric),
+               1e-4)
+    else:                       # LASSO F1, logistic test error
+        assert np.array_equal(gpu.metric, cpu.metric)
+
+
+@pytest.mark.parametrize("name,strategy,encoder,expect", WORKLOAD_CELLS)
+def test_workload_on_card_matches_cpu(cuda, name, strategy, encoder, expect):
+    wl = get_workload(name)
+    data = wl.build("smoke")
+    cfg = {} if encoder is None else {"encoder": encoder}
+    before = dict(launches)
+    gpu = wl.run(strategy, preset="smoke", data=data, **cfg)
+    torch.cuda.synchronize()
+    assert _launched(before) == expect
+    cpu = wl.run(strategy, preset="smoke", data=data, device="cpu", **cfg)
+    assert _launched(before) == expect          # the CPU run launches none
+    _same_cell(gpu, cpu, getattr(data, "f_star", None))
+
+
+def test_ridge_run_trials_on_card_matches_cpu(cuda):
+    wl = get_workload("ridge")
+    data = wl.build("smoke")
+    kw = dict(preset="smoke", data=data, trials=3, eval_every=4,
+              encoder="fast-hadamard")
+    before = dict(launches)
+    gpu = wl.run_trials("coded", **kw)
+    assert _launched(before) == {COMB: 3 * 40, SRHT: 1}
+    cpu = wl.run_trials("coded", device="cpu", **kw)
+    for g, c in zip(gpu, cpu):
+        _same_cell(g, c, data.f_star)
