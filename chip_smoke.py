@@ -9,7 +9,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
 
 1. device  - probe CUDA (exit 2 without a card), print the card's name and
              power limit;
-2. build   - compile the CUDA kernels from src/repro_torch/kernels/csrc;
+2. build   - compile the CUDA kernels from src/repro_torch/kernels/csrc
+             (the build's host time as ``obs.CompileWatch`` splits it);
 3. kernels - hold every kernel against its plain PyTorch version on the
              card at the main path's shapes (FWHT (6001, 8192); SRHT full
              frame and one worker window of the (4096, 6001) data; fused
@@ -55,6 +56,31 @@ Phases, each of which ends the run with a non-zero exit on failure:
              launch exactly its kernels.  The phase also prints the sizes
              that keep LASSO and logistic ``paper`` off one card and MF
              ``paper``'s own MemoryError;
+   harness - the experiment harness and its CLIs, each ``main(argv)``
+             called in-process with the launch counts cleared just before
+             and read just after: (a) ``repro_torch.runtime.compare`` at
+             PAPER_RIDGE's width (coded-gd, coded-lbfgs, uncoded,
+             replication x bimodal, exponential; fast-Hadamard encoder, 4
+             realizations, 100 steps), one call a cell, each launching its
+             own kernels, and the coded-gd cells again under REPRO_FUSED=0
+             (the combine path, no fused launch, traces equal to the fused
+             ones to rel 1e-4), each cell's host seconds split by
+             ``obs.CompileWatch``; (b) Fig. 7 as a Monte-Carlo summary:
+             ``repro_torch.workloads.run --workload ridge --preset paper
+             --strategies coded,replication,uncoded --trials 32``, each
+             arm's final gap and simulated wall-clock as median and
+             p10-p90 over the realizations, and the wall-clock each arm
+             takes to reach a common gap (reported, not gated), then
+             ``--workload logistic --preset bench --strategies coded
+             --encoder fast-hadamard`` on the card (one SRHT lift, one FWHT
+             decode a chunk) and the CPU, objectives to rel 1e-5; (c)
+             ``repro_torch.experiments.run`` on a small synthetic spec into
+             a run store, on the card and with ``--device cpu``; the card
+             run cut after cell 0 (later cell files deleted, manifest
+             marked running) and ``--resume``d to the same records and a
+             byte-identical JSON; ``repro_torch.obs.diff`` of the card run
+             against the CPU run exits 0, and every cell's final objective
+             matches the CPU's to rel 1e-4;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
              same function (the fused gradient also batched at R = 4 and
@@ -71,11 +97,15 @@ The line before the last is the kernel table as JSON; the last line is
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -386,6 +416,222 @@ def workloads_phase(dev, smi: str, drive) -> None:
           f"clock")
 
 
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept off this script's (the
+    CLIs print their own tables); returns (result, captured text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """Set one environment variable for the block, then restore it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def pctl(xs) -> str:
+    """'median (p10-p90)' of a list of numbers."""
+    import numpy as np
+    a = np.asarray(xs, dtype=float)
+    return (f"{np.median(a):.6g} (p10 {np.percentile(a, 10):.6g}, p90 "
+            f"{np.percentile(a, 90):.6g})")
+
+
+def rel_max(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+
+
+def harness_phase(cfg, smi: str, drive) -> None:
+    """The experiment harness and its CLIs (module docstring, phase
+    "harness"); ``drive`` runs one CLI call with the launch counts cleared
+    just before and read just after, and requires its kernels."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.experiments.run import main as exp_main
+    from repro_torch.obs import CompileWatch, RunStore
+    from repro_torch.obs.diff import main as diff_main
+    from repro_torch.runtime.compare import main as compare_main
+    from repro_torch.workloads import get_workload
+    from repro_torch.workloads.runner import main as workloads_main
+    fused, srht, fwht, comb = ("fused_masked_gradient", "srht_encode",
+                               "fwht", "coded_combine")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_harness_"))
+
+    # (a) the compare CLI at PAPER_RIDGE's width, one call a cell
+    S, R = 100, 4
+    base = ["--n", str(cfg.n), "--p", str(cfg.p), "--m", str(cfg.m),
+            "--k", str(cfg.k[1]), "--lam", str(cfg.lam), "--encoder",
+            "fast-hadamard", "--trials", str(R), "--steps", str(S),
+            "--formats", "json"]
+    expect = {"coded-gd": {fused: S, srht: 1},
+              "coded-lbfgs": {comb: S * R, srht: 1},
+              "uncoded": {fused: S}, "replication": {fused: S}}
+    traces = {}
+    cells = [(st, d, "1") for d in ("bimodal", "exponential")
+             for st in expect] + \
+        [("coded-gd", d, "0") for d in ("bimodal", "exponential")]
+    for st, delay, fused_env in cells:
+        label = f"compare {st} x {delay}" + \
+            (" REPRO_FUSED=0" if fused_env == "0" else "")
+        want = expect[st] if fused_env == "1" else {comb: S * R, srht: 1}
+        argv = base + ["--strategies", st, "--delays", delay, "--out",
+                       str(tmp / "compare")]
+        with env_var("REPRO_FUSED", fused_env), CompileWatch() as cw:
+            (rec,), _ = drive(label, lambda: quiet(compare_main, argv), want)
+        obj = np.asarray(rec["objective"])
+        require(obj.shape == (R, S) and np.isfinite(obj).all() and
+                (obj[:, -1] < obj[:, 0]).all(),
+                f"{label}: objective {obj.shape} not finite or not falling")
+        traces[(st, delay, fused_env)] = obj
+        print(f"{label}: final objective {pctl(obj[:, -1])}, simulated "
+              f"{pctl(np.asarray(rec['times'])[:, -1])} s; host_s "
+              f"{cw.total_s:.3f}, compile_s {cw.compile_s:.3f}, execute_s "
+              f"{cw.execute_s:.3f}, compiles {cw.compiles}  [{smi}]")
+    for delay in ("bimodal", "exponential"):
+        rel = rel_max(traces[("coded-gd", delay, "0")],
+                      traces[("coded-gd", delay, "1")])
+        require(rel <= 1e-4, f"coded-gd x {delay}: REPRO_FUSED=0 trace vs "
+                             f"fused rel {rel:.2e}")
+        print(f"compare coded-gd x {delay}: REPRO_FUSED=0 (combine) trace "
+              f"vs fused: max rel diff {rel:.2e} (tol 1e-4)")
+
+    # (b) Fig. 7 as a Monte-Carlo summary over the realizations
+    RF = 32
+    T = get_workload("ridge").preset("paper").steps
+    argv = ["--workload", "ridge", "--preset", "paper", "--strategies",
+            "coded,replication,uncoded", "--trials", str(RF), "--out",
+            str(tmp / "fig7"), "--formats", "json"]
+    with CompileWatch() as cw:
+        recs, _ = drive("fig7 workloads.run ridge paper", lambda: quiet(
+            workloads_main, argv), {comb: RF * T, fused: 2 * T})
+    finals = {}
+    for rec in recs:
+        gaps = np.asarray(rec["metric"])
+        times = np.asarray(rec["times"])
+        require(gaps.shape == (RF, T) and np.isfinite(gaps).all() and
+                (gaps[:, -1] < gaps[:, 0]).all(),
+                f"fig7 {rec['strategy']}: gaps {gaps.shape} not finite or "
+                f"not falling")
+        finals[rec["strategy"]] = (gaps, times)
+        print(f"fig7 {rec['strategy']} (R = {RF}, {T} steps): final gap "
+              f"{pctl(gaps[:, -1])}; simulated wall-clock to reach it "
+              f"{pctl(times[:, -1])} s")
+    target = max(float(np.median(g[:, -1])) for g, _ in finals.values())
+    for name, (gaps, times) in finals.items():
+        hit = [float(t[np.argmax(g <= target)]) if (g <= target).any()
+               else float("inf") for g, t in zip(gaps, times)]
+        print(f"fig7 {name}: simulated wall-clock to reach gap "
+              f"{target:.6g} (the largest median final gap): {pctl(hit)} s;"
+              f" reached by {sum(np.isfinite(hit))}/{RF}")
+    print(f"fig7: host_s {cw.total_s:.3f}, compile_s {cw.compile_s:.3f}, "
+          f"execute_s {cw.execute_s:.3f}  [{smi}]")
+
+    # logistic under the fast-Hadamard encoder: the SRHT lift and one FWHT
+    # decode a chunk, on the card and on the CPU
+    records = get_workload("logistic").preset("bench").dims["records"]
+    argv = ["--workload", "logistic", "--preset", "bench", "--strategies",
+            "coded", "--encoder", "fast-hadamard", "--formats", "json"]
+    with CompileWatch() as cw:
+        (lg,), _ = drive("workloads.run logistic bench fast-hadamard",
+                         lambda: quiet(workloads_main, argv + [
+                             "--out", str(tmp / "logistic")]),
+                         {srht: 1, fwht: records})
+    (lc,), _ = quiet(workloads_main, argv + ["--out", str(tmp / "lg_cpu"),
+                                             "--device", "cpu"])
+    go, co = np.asarray(lg["objective"]), np.asarray(lc["objective"])
+    rel = float(np.max(np.abs(go - co)) / np.max(np.abs(co)))
+    require(lg["times"] == lc["times"] and np.isfinite(go).all() and
+            rel <= 1e-5, f"workloads.run logistic fast-hadamard: card vs CPU "
+                         f"objective rel {rel:.2e}")
+    print(f"workloads.run logistic bench {lg['strategy']} fast-hadamard: "
+          f"test error {lg['final_metric']:.6g}, card vs CPU objective rel "
+          f"{rel:.2e} (tol 1e-5); host_s {cw.total_s:.3f}, compile_s "
+          f"{cw.compile_s:.3f}, execute_s {cw.execute_s:.3f}  [{smi}]")
+
+    # (c) a run store: card run, CPU run, a cut and resumed card run, diff
+    store_root = tmp / "store"
+    argv = ["--strategies", "coded-gd,coded-lbfgs,uncoded,replication,async",
+            "--delays", "bimodal,exponential", "--n", "512", "--p", "128",
+            "--m", "16", "--steps", "40", "--trials", "2", "--encoder",
+            "fast-hadamard", "--formats", "json"]
+    pl = quiet(exp_main, argv + ["--plan-only"])[0].plan
+    per_cell = {"coded-gd": {fused: 40, srht: 1},
+                "coded-lbfgs": {comb: 80, srht: 1},
+                "uncoded": {fused: 40}, "replication": {fused: 40},
+                "async": {}}
+
+    def launches_of(cells):
+        total: dict[str, int] = {}
+        for c in cells:
+            for kn, v in per_cell[c.resolved_strategy].items():
+                total[kn] = total.get(kn, 0) + v
+        return total
+
+    with env_var("REPRO_RUNSTORE", str(store_root)):
+        card, _ = drive("experiments.run card", lambda: quiet(
+            exp_main, argv + ["--out", str(tmp / "card")]),
+            launches_of(pl.cells))
+        cpu, _ = drive("experiments.run --device cpu", lambda: quiet(
+            exp_main, argv + ["--out", str(tmp / "cpu"), "--device",
+                              "cpu"]), {})
+        store = RunStore(str(store_root))
+        require(card.run_id and cpu.run_id, "runs not recorded")
+        require(store.load(card.run_id)["backend"] == "cuda" and
+                store.load(cpu.run_id)["backend"] == "cpu",
+                "manifest backends")
+        # stop the card run after cell 0, as a killed matrix leaves it
+        cdir = Path(store.cells_dir(card.run_id))
+        for f in sorted(cdir.glob("*.json"))[1:]:
+            f.unlink()
+        mpath = Path(store.manifest_path(card.run_id))
+        manifest = json.loads(mpath.read_text())
+        manifest["status"] = "running"
+        mpath.write_text(json.dumps(manifest))
+        resumed, _ = drive("experiments.run --resume", lambda: quiet(
+            exp_main, argv + ["--out", str(tmp / "resumed"), "--resume",
+                              card.run_id]), launches_of(pl.cells[1:]))
+        require(resumed.records == card.records,
+                "resumed records != the uninterrupted run's")
+        a = (tmp / "card" / "experiments.json").read_bytes()
+        b = (tmp / "resumed" / "experiments.json").read_bytes()
+        require(a == b, "resumed experiments.json is not byte-identical")
+        rc, diff_out = quiet(diff_main, [card.run_id, cpu.run_id, "--store",
+                                         str(store_root)])
+        require(rc == 0, f"obs.diff card vs CPU exit {rc}:\n{diff_out}")
+    worst = 0.0
+    for g, c in zip(card.records, cpu.records):
+        require(("skipped" in g) == ("skipped" in c), "skips differ")
+        if "skipped" in c:
+            continue
+        require(g["times"] == c["times"], f"{g['strategy']}: times differ")
+        rel = abs(g["final_objective"] - c["final_objective"]) / \
+            abs(c["final_objective"])
+        require(rel <= 1e-4, f"{g['strategy']} x {g['delay']}: card final "
+                             f"objective vs CPU rel {rel:.2e}")
+        worst = max(worst, rel)
+    print(f"harness store: {len(pl.cells)} cells on the card and the CPU; "
+          f"resumed after cell 0: records equal, experiments.json "
+          f"byte-identical ({len(a)} bytes); obs.diff card vs CPU exit 0; "
+          f"final objectives card vs CPU max rel {worst:.2e} (tol 1e-4)")
+    shutil.rmtree(tmp)
+    print(f"harness phase: {time.perf_counter() - t_phase:.1f} s host "
+          f"clock")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -401,7 +647,7 @@ def main() -> int:
                                   phi_quadratic, run_encoded_lbfgs)
     from repro_torch.kernels import _build
     from repro_torch.kernels.coded_reduce import (coded_combine_call,
-                                                  coded_combine_plain,
+                                                  coded_combine_ref,
                                                   combine_row_groups)
     from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
     from repro_torch.kernels.fused_step import (
@@ -409,6 +655,7 @@ def main() -> int:
         pick_fused_realization_tile)
     from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
     from repro_torch.kernels.ref import fused_masked_gradient_ref
+    from repro_torch.obs import CompileWatch
     from repro_torch.runtime import (ClusterEngine, FastestK, ProblemSpec,
                                      batched_scan_gd, get_strategy,
                                      scan_async, scan_bcd, scan_gd)
@@ -428,9 +675,11 @@ def main() -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_library()
+    with CompileWatch() as cw:
+        _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
-          f"{_build.library_path().name}")
+          f"{_build.library_path().name}; obs.CompileWatch: compile_s "
+          f"{cw.compile_s:.1f}, compiles {cw.compiles}")
     log = _build.library_path().with_suffix(".log")
     if log.exists():      # absent when an earlier process built the library
         text = log.read_text()
@@ -558,7 +807,7 @@ def main() -> int:
         g = torch.randn((cm, cp), device=dev, generator=gen).to(dt)
         c = torch.rand(cm, device=dev, generator=gen)
         out = coded_combine_call(g, c)
-        err, rel = rel_err(out, coded_combine_plain(g, c))
+        err, rel = rel_err(out, coded_combine_ref(g, c))
         # f32 sums of m terms in another order; bf16 one output ulp
         require(rel <= tol, f"combine {(cm, cp)} {dt}: max|d| {err:.3e} = "
                             f"{rel:.2e} max|ref|")
@@ -705,6 +954,8 @@ def main() -> int:
 
     # the workloads ------------------------------------------------------
     workloads_phase(dev, smi, drive)
+    # the experiment harness and its CLIs ---------------------------------
+    harness_phase(cfg, smi, drive)
     print(f"launches by path: {json.dumps(by_path)}")
 
     # 5. times ---------------------------------------------------------------
@@ -848,7 +1099,7 @@ def main() -> int:
         c = torch.rand(m, device=dev, generator=gen)
         reps = 200 if cp == p else 20
         row = {"ms": time_ms(lambda: coded_combine_call(g, c), reps),
-               "plain_ms": time_ms(lambda: coded_combine_plain(g, c), reps),
+               "plain_ms": time_ms(lambda: coded_combine_ref(g, c), reps),
                "library_ms": time_ms(lambda: torch.matmul(c, g), reps)}
         row["bound_ms"], row["bound_by"] = bound_ms(
             (m * cp + m + cp) * 4, 2 * m * cp)
@@ -856,7 +1107,7 @@ def main() -> int:
             co.update(row)
             dev_us = [1e3 * device_ms(f, 50) for f in (
                 lambda: coded_combine_call(g, c),
-                lambda: coded_combine_plain(g, c),
+                lambda: coded_combine_ref(g, c),
                 lambda: torch.matmul(c, g))]
             co["device_ms"], co["library_device_ms"] = (dev_us[0] / 1e3,
                                                         dev_us[2] / 1e3)

@@ -15,7 +15,8 @@ from .straggler import (bimodal_delays, power_law_delays, exponential_delays,
                         adaptive_k)
 from .data_parallel import (EncodedProblem, make_encoded_problem,
                             encoded_gradients, masked_gradient, gd_step,
-                            prox_l1, prox_step, original_objective)
+                            run_encoded_gd, prox_l1, prox_step,
+                            run_encoded_proximal, original_objective)
 from .lbfgs import LBFGSState, lbfgs_direction, run_encoded_lbfgs
 from .model_parallel import (LiftedProblem, make_lifted_problem, phi_quadratic,
                              phi_logistic, run_encoded_bcd)

@@ -29,8 +29,8 @@ from .operators import FastHadamardEncoder
 
 __all__ = [
     "EncodedProblem", "make_encoded_problem", "encoded_gradients",
-    "masked_gradient", "gd_step", "prox_l1", "prox_step",
-    "original_objective",
+    "masked_gradient", "gd_step", "run_encoded_gd", "prox_l1", "prox_step",
+    "run_encoded_proximal", "original_objective",
 ]
 
 
@@ -141,7 +141,7 @@ def _masked_mean(g: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def masked_gradient(prob: EncodedProblem, w: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:
     """Fastest-k aggregation of per-worker encoded gradients (the unfused
-    path; the GD / ISTA runners use the fused kernel)."""
+    path, which the GD / ISTA runners take under ``REPRO_FUSED=0``)."""
     return _masked_mean(encoded_gradients(prob, w), mask)
 
 
@@ -154,6 +154,39 @@ def gd_step(prob: EncodedProblem, w: torch.Tensor, mask: torch.Tensor,
     return w - step_size * g
 
 
+def _on_device(prob: EncodedProblem, device) -> EncodedProblem:
+    """``prob`` with its tensors on ``device`` (``Tensor.to`` copies
+    nothing for a tensor already there)."""
+    dev = resolve_device(device)
+    return dataclasses.replace(prob, SX=prob.SX.to(dev), Sy=prob.Sy.to(dev),
+                               X=prob.X.to(dev), y=prob.y.to(dev))
+
+
+def _start(prob: EncodedProblem, w0) -> torch.Tensor:
+    """The starting iterate on ``prob``'s device: zeros, or ``w0`` (any
+    array or tensor, on any device) as float32."""
+    if w0 is None:
+        return torch.zeros(prob.SX.shape[-1], device=prob.device)
+    return torch.as_tensor(w0, dtype=torch.float32, device=prob.device)
+
+
+def run_encoded_gd(prob: EncodedProblem, masks, step_size: float, w0=None,
+                   h: str = "l2", device=None):
+    """Run GD over a precomputed (T, m) mask schedule; returns (w_T, f-trace)
+    with w_T a tensor on ``device`` and the trace a host array.
+
+    Thin wrapper over the runner ``runtime.runners.scan_gd``: the schedule
+    and the trace stay on the device until the end.  ``device`` unset means
+    CUDA (and raises without a card); the problem and ``w0`` are moved
+    there if they lie elsewhere.
+    """
+    from repro_torch.runtime.runners import scan_gd
+    prob = _on_device(prob, device)
+    w = _start(prob, w0)
+    w, trace = scan_gd(prob, masks, step_size, w, h=h)
+    return w, trace.cpu().numpy()
+
+
 def prox_l1(v: torch.Tensor, thresh) -> torch.Tensor:
     """Soft-thresholding operator (ISTA)."""
     return torch.sign(v) * torch.clamp_min(torch.abs(v) - thresh, 0.0)
@@ -164,3 +197,16 @@ def prox_step(prob: EncodedProblem, w: torch.Tensor, mask: torch.Tensor,
     """Encoded proximal gradient step for l1 regularizer (paper §2.1, Thm 5)."""
     g = masked_gradient(prob, w, mask)
     return prox_l1(w - step_size * g, step_size * prob.lam)
+
+
+def run_encoded_proximal(prob: EncodedProblem, masks, step_size: float,
+                         w0=None, device=None):
+    """Encoded ISTA over a mask schedule; returns (w_T, f-trace with h=l1).
+
+    Thin wrapper over the runner ``runtime.runners.scan_prox``; ``device``
+    as in ``run_encoded_gd``."""
+    from repro_torch.runtime.runners import scan_prox
+    prob = _on_device(prob, device)
+    w = _start(prob, w0)
+    w, trace = scan_prox(prob, masks, step_size, w)
+    return w, trace.cpu().numpy()

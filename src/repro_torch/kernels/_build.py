@@ -9,7 +9,9 @@ failed build raises: nothing falls back to the plain PyTorch versions.
 
 ``launches`` counts, per kernel wrapper, the calls that launched a kernel
 on the card (never the plain CPU path); ``chip_smoke.py`` clears it before
-driving the main path and reads it after.
+driving the main path and reads it after.  ``build_seconds`` and
+``builds`` add up the library's loads (``obs.timing.CompileWatch`` reads
+their difference across a region to split build time from run time).
 """
 from __future__ import annotations
 
@@ -21,10 +23,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 __all__ = ["launches", "load_library", "library_path", "check", "stream_of",
-           "NVCC_FLAGS"]
+           "build_seconds", "builds", "NVCC_FLAGS"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -34,6 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: collections.Counter = collections.Counter()
+# host seconds of the library's loads in this process (the ``nvcc`` builds,
+# the link and the load), and the loads that ran ``nvcc``
+build_seconds = 0.0
+builds = 0
 
 
 def _nvcc() -> str:
@@ -122,14 +129,19 @@ _SIGNATURES = {
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built from ``csrc/`` on first use."""
+    global build_seconds, builds
+    t0 = time.perf_counter()
     lib_path = library_path()
-    if not lib_path.exists():
+    built = not lib_path.exists()
+    if built:
         _compile(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    build_seconds += time.perf_counter() - t0
+    builds += built
     return lib
 
 

@@ -9,7 +9,7 @@ bytes of neighbouring columns a thread, 16-byte loads where P and
 alignment allow, the m rows split over ``combine_row_groups(m)`` lane
 groups of a warp whose partial sums a fixed shuffle tree adds); on a CPU
 tensor it
-runs the plain version, ``ref.coded_combine_plain``.
+runs the plain version, ``ref.coded_combine_ref``.
 
 The reference's ``combine_layout`` (pad P to a block multiple, or snap the
 block to a divisor of P) and its ``m <= 32`` worker limit exist only for the
@@ -23,9 +23,9 @@ import functools
 import torch
 
 from ._build import check, launches, load_library, stream_of
-from .ref import coded_combine_plain
+from .ref import coded_combine_ref
 
-__all__ = ["coded_combine_call", "coded_combine_plain",
+__all__ = ["coded_combine_call", "coded_combine_ref",
            "combine_row_groups"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,7 +55,7 @@ def coded_combine_call(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"weights of shape {tuple(c.shape)} do not match "
                          f"g {tuple(g.shape)}: expected ({m},) or ({m}, 1)")
     if g.device.type == "cpu":
-        return coded_combine_plain(g, c)
+        return coded_combine_ref(g, c)
     if g.device.type != "cuda":
         raise ValueError(f"unsupported device {g.device}")
     _check_kernel_operands(g, c)

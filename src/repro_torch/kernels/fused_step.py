@@ -17,6 +17,7 @@ realizations for the same reason.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -24,7 +25,8 @@ from repro_torch.device import full_f32_matmul
 
 from ._build import check, launches, load_library, stream_of
 
-__all__ = ["fused_masked_gradient", "fused_masked_gradient_plain",
+__all__ = ["fused_enabled", "fused_masked_gradient",
+           "fused_masked_gradient_plain",
            "pick_fused_block_rows", "pick_fused_realization_tile",
            "fused_row_registers", "fused_stage1_smem_bytes", "MAX_COLS"]
 
@@ -40,6 +42,22 @@ MAX_COLS = _REG_STEPS[-1] * _THREADS
 # 227 KB opt-in maximum less 3 KB for the static arrays)
 _REG_BUDGET = 200
 SMEM_BUDGET = 227 * 1024 - 3072
+
+
+def fused_enabled() -> bool:
+    """Should the GD / ISTA runners take the fused kernel?  ``REPRO_FUSED``
+    decides when it is set, as in the reference ("", "0", "false" and "no"
+    turn it off); the other branch is ``core.data_parallel.masked_gradient``,
+    whose combine is the coded-combine kernel on the card.
+
+    Unset, it is on for every device, where the reference turns it on for
+    the TPU only: the port's CPU path runs the kernel's plain version and
+    exists to test the card's path, so both take the same branch.  The
+    runners read it once a run."""
+    env = os.environ.get("REPRO_FUSED")
+    if env is not None:
+        return env.strip().lower() not in ("", "0", "false", "no")
+    return True
 
 
 def pick_fused_block_rows(r: int) -> int:
@@ -149,7 +167,10 @@ def _check_kernel_operands(SX, Sy, w, mask) -> None:
     other devices than SX, or not contiguous."""
     p = SX.shape[-1]
     if p > MAX_COLS:
-        raise ValueError(f"fused kernel takes p <= {MAX_COLS}, got {p}")
+        raise ValueError(f"fused kernel takes p <= {MAX_COLS}, got {p}; "
+                         f"REPRO_FUSED=0 takes the combine path "
+                         f"(core.data_parallel.masked_gradient), which takes "
+                         f"any p")
     if SX.dtype not in _DTYPES or Sy.dtype != SX.dtype or \
             w.dtype != SX.dtype:
         raise TypeError(f"fused kernel takes one operand dtype of float32 "

@@ -43,9 +43,9 @@ def fused_masked_gradient_ref(SX, Sy, w, mask, *, n: int,
 
 
 @full_f32_matmul
-def coded_combine_plain(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Plain version of the coded combine (the reference's
-    ``coded_combine_ref``): ``sum_i c_i g_i`` as one float32 einsum, cast
+def coded_combine_ref(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Plain version of the coded combine (counterpart of the reference's
+    oracle of the same name): ``sum_i c_i g_i`` as one float32 einsum, cast
     back to g's dtype; c may be (m,) or (m, 1)."""
     return torch.einsum("m,mp->p", c.reshape(-1).float(),
                         g.float()).to(g.dtype)

@@ -10,7 +10,9 @@
                      realizations;
   * ``strategies`` — ``coded-gd``, ``coded-prox``, ``coded-lbfgs``,
                      ``coded-bcd``, ``uncoded``, ``replication`` and
-                     ``async`` behind one ``Strategy`` registry.
+                     ``async`` behind one ``Strategy`` registry;
+  * ``compare``    — the strategy x delay-model CLI, a thin front-end over
+                     ``repro_torch.experiments``.
 """
 from .engine import (DELAY_MODELS, POLICIES, ActiveSetPolicy, AdaptiveK,
                      AdversarialRotation, AsyncBatch, AsyncTrace,
@@ -38,8 +40,17 @@ __all__ = [
     "sharded_scan_async", "trials_device_count", "ProblemSpec", "RunResult",
     "Strategy", "TrialsResult", "available_strategies", "check_trials",
     "get_strategy", "register_strategy", "resolve_eval_every",
-    "summary_stats",
+    "summary_stats", "run_matrix",
     "FAULT_KINDS", "BlackoutFault", "CorruptionFault", "CrashFault",
     "DegradePolicy", "FaultEvent", "FaultModel", "ZoneFault", "make_degrade",
     "make_fault_model",
 ]
+
+
+def __getattr__(name):
+    # Lazy: importing .compare eagerly would shadow `python -m
+    # repro_torch.runtime.compare` (runpy warns about double import).
+    if name == "run_matrix":
+        from .compare import run_matrix
+        return run_matrix
+    raise AttributeError(name)

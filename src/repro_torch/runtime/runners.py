@@ -8,10 +8,13 @@ preallocated on the device, and nothing inside the loop reads a value back
 to the host (no ``.item()``, no sync); callers copy the results to the host
 once, at the end.
 
-Every step is one call of the fused masked-gradient kernel
-(``kernels/fused_step.py``): the CUDA kernel for a problem on the card,
-its plain PyTorch version for a problem on the CPU.  There is no switch:
-the problem's device decides.
+Every GD / ISTA step takes the masked gradient as the reference's
+``_masked_grad`` does: one call of the fused kernel
+(``kernels/fused_step.py``) when ``fused_enabled()`` (on unless
+``REPRO_FUSED`` turns it off), else ``core.data_parallel.masked_gradient``
+for each realization, whose combine is the coded-combine kernel.  Either
+way the problem's device decides between the CUDA kernel and its plain
+PyTorch version.
 
 One implementation serves the single and the batched runners: a single
 run is the batched loop at R = 1, so ``batched_scan_*`` at R = 1 equals
@@ -32,11 +35,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.data_parallel import (EncodedProblem,
+from repro_torch.core.data_parallel import (EncodedProblem, masked_gradient,
                                             original_objective, prox_l1)
 from repro_torch.core.model_parallel import LiftedProblem
 from repro_torch.device import full_f32_matmul
-from repro_torch.kernels.fused_step import fused_masked_gradient
+from repro_torch.kernels.fused_step import (fused_enabled,
+                                            fused_masked_gradient)
 from repro_torch.obs.trace import current_recorder as _obs_recorder
 
 __all__ = [
@@ -63,10 +67,22 @@ def _traced_call(name: str, fn, *args, **kw):
     return out
 
 
-def _runner_name(base: str, prob: EncodedProblem) -> str:
-    """Obs span name; runs on the card go through the fused kernel and say
-    so, as the reference's fused path does."""
-    return base + ":fused" if prob.device.type == "cuda" else base
+def _masked_grad(prob: EncodedProblem, W: torch.Tensor, masks: torch.Tensor,
+                 fused: bool) -> torch.Tensor:
+    """The (R, p) masked gradients of one step: the fused kernel over all R
+    realizations when ``fused`` (``fused_enabled()``, read once a run),
+    else the unfused ``masked_gradient`` (one coded-combine launch a
+    realization)."""
+    if fused:
+        return fused_masked_gradient(prob.SX, prob.Sy, W, masks, n=prob.n,
+                                     beta=prob.beta)
+    return torch.stack([masked_gradient(prob, W[q], masks[q])
+                        for q in range(W.shape[0])])
+
+
+def _runner_name(base: str) -> str:
+    """Obs span name; the fused path says so, as the reference's does."""
+    return base + ":fused" if fused_enabled() else base
 
 
 # -- sub-k degradation (runtime.faults) --------------------------------------
@@ -120,10 +136,10 @@ def _run(prob: EncodedProblem, masks, step_size, w0, *, kind: str, h: str,
     h_obj = "l1" if kind == "prox" else h
     thresh = step * prob.lam
     g_prev = torch.zeros_like(W) if degrade is not None else None
+    fused = fused_enabled()
     for t in range(T):
         mask = masks_t[t]
-        g = fused_masked_gradient(prob.SX, prob.Sy, W, mask, n=prob.n,
-                                  beta=prob.beta)
+        g = _masked_grad(prob, W, mask, fused)
         if kind == "gd" and h == "l2":
             g = g + prob.lam * W
         if degrade is not None:
@@ -158,7 +174,7 @@ def scan_gd(prob: EncodedProblem, masks, step_size, w0, h: str = "l2",
     (``eval_every=s`` strides it).  ``degrade`` selects the sub-k behavior
     (hold-mode gradient carry); None is the default renormalized math.
     """
-    return _traced_call(_runner_name("runner:gd", prob), _single, "gd", prob,
+    return _traced_call(_runner_name("runner:gd"), _single, "gd", prob,
                         masks, step_size, w0, h=h, eval_every=eval_every,
                         degrade=_degrade_tuple(degrade))
 
@@ -166,7 +182,7 @@ def scan_gd(prob: EncodedProblem, masks, step_size, w0, h: str = "l2",
 def scan_prox(prob: EncodedProblem, masks, step_size, w0,
               eval_every: int = 1, degrade=None):
     """Encoded proximal gradient (ISTA, l1) over a mask schedule."""
-    return _traced_call(_runner_name("runner:prox", prob), _single, "prox",
+    return _traced_call(_runner_name("runner:prox"), _single, "prox",
                         prob, masks, step_size, w0, h="l1",
                         eval_every=eval_every,
                         degrade=_degrade_tuple(degrade))
@@ -183,7 +199,7 @@ def batched_scan_gd(prob: EncodedProblem, masks, step_size, w0,
     """
     R = len(masks)
     name = "runner:gd" if R == 1 else "runner:batched_gd"
-    return _traced_call(_runner_name(name, prob), _run, prob, masks,
+    return _traced_call(_runner_name(name), _run, prob, masks,
                         step_size, w0, kind="gd", h=h, eval_every=eval_every,
                         degrade=_degrade_tuple(degrade))
 
@@ -194,7 +210,7 @@ def batched_scan_prox(prob: EncodedProblem, masks, step_size, w0,
     ``batched_scan_gd`` for the axis and eval_every conventions)."""
     R = len(masks)
     name = "runner:prox" if R == 1 else "runner:batched_prox"
-    return _traced_call(_runner_name(name, prob), _run, prob, masks,
+    return _traced_call(_runner_name(name), _run, prob, masks,
                         step_size, w0, kind="prox", h="l1",
                         eval_every=eval_every,
                         degrade=_degrade_tuple(degrade))

@@ -9,6 +9,9 @@ with its paper metric against a host ground-truth reference.
     result = get_workload("ridge").run("coded", preset="smoke")  # on CUDA
     result = get_workload("ridge").run("coded", preset="smoke",
                                        device="cpu")
+
+``run_workload_matrix`` and ``python -m repro_torch.workloads.run`` run a
+workload x strategy matrix through ``repro_torch.experiments``.
 """
 from .base import (Preset, UnsupportedStrategy, Workload, WorkloadRunResult,
                    available_workloads, get_workload, register_workload)
@@ -19,5 +22,14 @@ from . import ridge, lasso, logistic, matrix_factorization  # noqa: F401
 __all__ = [
     "Preset", "UnsupportedStrategy", "Workload", "WorkloadRunResult",
     "available_workloads", "get_workload", "register_workload",
-    "ground_truth",
+    "ground_truth", "run_workload_matrix",
 ]
+
+
+def __getattr__(name):
+    # Lazy: importing .runner eagerly would shadow `python -m
+    # repro_torch.workloads.run` (runpy warns about double import).
+    if name == "run_workload_matrix":
+        from .runner import run_workload_matrix
+        return run_workload_matrix
+    raise AttributeError(name)

@@ -22,7 +22,7 @@ import repro_torch.core as tcore
 from repro_torch.core.data_parallel import _masked_mean
 from repro_torch.kernels import launches, ops
 from repro_torch.kernels.coded_reduce import coded_combine_call
-from repro_torch.kernels.ref import coded_combine_plain
+from repro_torch.kernels.ref import coded_combine_ref
 
 F32_TOL = 1e-5
 BF16_TOL = 2.0 ** -7
@@ -94,7 +94,7 @@ def test_combine_rejects_bad_shapes():
 
 def test_plain_version_is_the_reference_formula():
     g, c = _inputs(5, 77, 5)
-    assert torch.equal(coded_combine_plain(torch.tensor(g), torch.tensor(c)),
+    assert torch.equal(coded_combine_ref(torch.tensor(g), torch.tensor(c)),
                        torch.einsum("m,mp->p", torch.tensor(c),
                                     torch.tensor(g)))
 

@@ -462,3 +462,201 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
             trt.get_strategy(name).run(tspec, te, steps=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcore.phi_quadratic(np.zeros(4))
+
+
+# ---------------------------------------------------------------------------
+# encoded GD and ISTA entry points (tests/test_convergence.py's cases) and
+# the runners' fused / combine dispatch (REPRO_FUSED)
+# ---------------------------------------------------------------------------
+
+def _lipschitz(jp):
+    X = np.asarray(jp.X, np.float64)
+    return float(np.linalg.eigvalsh(X.T @ X / X.shape[0]).max())
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+@pytest.mark.parametrize("masks_kind", ["adversarial", "random"])
+def test_run_encoded_gd_matches_reference_and_converges(
+        ridge, masks_kind, fused, monkeypatch):
+    """Thm 2 on the port, on either branch of the runners' dispatch, held
+    to the reference's trace."""
+    jp, tp, f_star = ridge
+    masks = (_adversarial_masks(200) if masks_kind == "adversarial"
+             else _random_masks(200))
+    step = 1.0 / (1.3 * _lipschitz(jp) + 0.05)
+    jw, jtr = jcore.run_encoded_gd(jp, masks, step_size=step)
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    tw, ttr = tcore.run_encoded_gd(tp, masks, step_size=step, device="cpu")
+    assert isinstance(ttr, np.ndarray) and ttr.shape == (200,)
+    assert tw.device.type == "cpu"
+    _rel_close(ttr, jtr, RTOL)
+    _rel_close(tw, jw, RTOL)
+    assert ttr[-1] <= 1.10 * f_star
+    assert ttr[-1] <= 0.05 * ttr[0] + 1.10 * f_star
+    assert np.isfinite(ttr).all()
+
+
+def test_run_encoded_gd_uncoded_baseline_worse_under_erasures():
+    jp_c, tp_c, _ = _ridge_problem(encoder="hadamard")
+    jp_u, tp_u, _ = _ridge_problem(encoder="uncoded")
+    masks = _adversarial_masks(200)
+    step = 1.0 / (1.3 * _lipschitz(jp_c) + 0.05)
+    _, tr_c = tcore.run_encoded_gd(tp_c, masks, step_size=step,
+                                   device="cpu")
+    _, tr_u = tcore.run_encoded_gd(tp_u, masks, step_size=step,
+                                   device="cpu")
+    _, jtr_u = jcore.run_encoded_gd(jp_u, masks, step_size=step)
+    _rel_close(tr_u, jtr_u, RTOL)
+    assert tr_c[-1] <= tr_u[-1] + 1e-6
+
+
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_run_encoded_proximal_lasso_recovery_matches_reference(fused,
+                                                               monkeypatch):
+    """Thm 5 + §5.4 on the port: ISTA on encoded data recovers the
+    support, with the reference's trace."""
+    rng = np.random.default_rng(0)
+    n, p, s = 256, 64, 8
+    X = rng.standard_normal((n, p))
+    w_true = np.zeros(p)
+    w_true[:s] = rng.standard_normal(s) * 2.0
+    y = X @ w_true + 0.05 * rng.standard_normal(n)
+    jp = jcore.make_encoded_problem(X, y, jcore.hadamard_encoder(n, 2.0,
+                                                                 seed=1),
+                                    M, lam=0.1)
+    tp = _port_problem(jp)
+    step = 0.5 / np.linalg.eigvalsh(X.T @ X / n).max()
+    masks = _adversarial_masks(300)
+    jw, jtr = jcore.run_encoded_proximal(jp, masks, step_size=step)
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    tw, ttr = tcore.run_encoded_proximal(tp, masks, step_size=step,
+                                         device="cpu")
+    _rel_close(ttr, jtr, RTOL)
+    _rel_close(tw, jw, RTOL)
+    w = tw.numpy()
+    assert (np.abs(w[:s]) > 1e-3).all()
+    assert (np.abs(w[s:]) > 1e-3).sum() <= 2
+    assert (ttr[1:] / np.maximum(ttr[:-1], 1e-12)).max() < 2.0
+
+
+def test_run_encoded_wrappers_use_the_runners(ridge):
+    """tests/test_runtime.py's wrapper case: the entry points are thin
+    wrappers over scan_gd / scan_prox (same bits), each matching the
+    reference's wrapper."""
+    jp, tp, _ = ridge
+    masks = _random_masks(20, seed=5)
+    w1, tr1 = tcore.run_encoded_gd(tp, masks, 0.01, device="cpu")
+    w2, tr2 = trt.scan_gd(tp, masks, 0.01, torch.zeros(64), h="l2")
+    assert torch.equal(w1, w2) and np.array_equal(tr1, tr2.numpy())
+    _rel_close(tr1, jcore.run_encoded_gd(jp, masks, 0.01)[1], RTOL)
+    w3, tr3 = tcore.run_encoded_proximal(tp, masks, 0.01, device="cpu")
+    w4, tr4 = trt.scan_prox(tp, masks, 0.01, torch.zeros(64))
+    assert torch.equal(w3, w4) and np.array_equal(tr3, tr4.numpy())
+    _rel_close(tr3, jcore.run_encoded_proximal(jp, masks, 0.01)[1], RTOL)
+
+
+def test_run_encoded_entry_points_without_device_raise_when_no_card(
+        ridge, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, tp, _ = ridge
+    masks = _random_masks(4)
+    for fn in (tcore.run_encoded_gd, tcore.run_encoded_proximal):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(tp, masks, 0.01)
+
+
+@pytest.mark.parametrize("value,expected", [
+    (None, True), ("1", True), ("yes", True), ("0", False), ("", False),
+    ("false", False), ("No", False)])
+def test_fused_enabled_reads_repro_fused(value, expected, monkeypatch):
+    from repro.kernels.fused_step import fused_enabled as j_enabled
+    from repro_torch.kernels.fused_step import fused_enabled
+    if value is None:
+        monkeypatch.delenv("REPRO_FUSED", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_FUSED", value)
+        assert j_enabled() == expected       # the reference's reading
+    assert fused_enabled() == expected
+
+
+@pytest.mark.parametrize("kind", ["gd", "prox"])
+@pytest.mark.parametrize("fused", ["1", "0"])
+def test_runners_dispatch_on_fused_enabled(ridge, kind, fused, monkeypatch):
+    """REPRO_FUSED=1 runs every step through the fused kernel's wrapper and
+    never the unfused path; REPRO_FUSED=0 the reverse, through the coded
+    combine.  Both agree with each other and name the path in the span."""
+    import repro_torch.runtime.runners as tr
+    from repro_torch.obs import TraceRecorder
+    _, tp, _ = ridge
+    masks = _random_masks(10, seed=6)
+    R = 3
+    batch = np.stack([_random_masks(10, seed=s) for s in range(R)])
+    calls = {"fused": 0, "unfused": 0}
+    real_fused, real_unfused = tr.fused_masked_gradient, tr.masked_gradient
+
+    def fused_counted(*a, **kw):
+        calls["fused"] += 1
+        return real_fused(*a, **kw)
+
+    def unfused_counted(*a, **kw):
+        calls["unfused"] += 1
+        return real_unfused(*a, **kw)
+
+    monkeypatch.setattr(tr, "fused_masked_gradient", fused_counted)
+    monkeypatch.setattr(tr, "masked_gradient", unfused_counted)
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    rec = TraceRecorder()
+    with rec.activate():
+        if kind == "gd":
+            w, t1 = trt.scan_gd(tp, masks, 0.01, torch.zeros(64))
+            W, tB = trt.batched_scan_gd(tp, batch, 0.01, torch.zeros(R, 64))
+        else:
+            w, t1 = trt.scan_prox(tp, masks, 0.01, torch.zeros(64))
+            W, tB = trt.batched_scan_prox(tp, batch, 0.01,
+                                          torch.zeros(R, 64))
+    names = {e.name for e in rec.events() if e.kind == "span"}
+    if fused == "1":
+        assert calls == {"fused": 20, "unfused": 0}
+        assert f"runner:{kind}:fused" in names
+    else:
+        assert calls == {"fused": 0, "unfused": 10 + 10 * R}
+        assert f"runner:{kind}" in names
+        assert not any(n.endswith(":fused") for n in names)
+    monkeypatch.setenv("REPRO_FUSED", "1" if fused == "0" else "0")
+    w_other, t_other = (trt.scan_gd if kind == "gd" else trt.scan_prox)(
+        tp, masks, 0.01, torch.zeros(64))
+    _rel_close(t1, t_other, RTOL)
+    _rel_close(w, w_other, RTOL)
+    # realization 0 of the batch is the single run on its masks
+    _rel_close(tB[0], (trt.scan_gd if kind == "gd" else trt.scan_prox)(
+        tp, batch[0], 0.01, torch.zeros(64))[1], RTOL)
+
+
+def test_fused_refusal_past_max_cols_names_the_switch():
+    """Past MAX_COLS the fused kernel refuses (on the card) and its error
+    says that REPRO_FUSED=0 takes the combine path; the operand check is
+    reachable from the CPU."""
+    from repro_torch.kernels.fused_step import MAX_COLS, _check_kernel_operands
+    p = MAX_COLS + 1
+    SX = torch.zeros((2, 1, p))
+    with pytest.raises(ValueError, match="REPRO_FUSED=0") as err:
+        _check_kernel_operands(SX, torch.zeros((2, 1)), torch.zeros((1, p)),
+                               torch.ones((1, 2)))
+    assert "p <=" in str(err.value) and "combine" in str(err.value)
+
+
+def test_combine_path_takes_any_width_on_the_cpu(monkeypatch):
+    """Under REPRO_FUSED=0 a GD run past the fused kernel's width runs on
+    the combine path (the reference runs there too)."""
+    from repro_torch.kernels.fused_step import MAX_COLS
+    rng = np.random.default_rng(0)
+    p = MAX_COLS + 1
+    SX = rng.standard_normal((2, 2, p)).astype(np.float32)
+    Sy = rng.standard_normal((2, 2)).astype(np.float32)
+    X = rng.standard_normal((4, p)).astype(np.float32)
+    tp = tcore.EncodedProblem.from_numpy(SX, Sy, X, np.ones(4), lam=0.1,
+                                         beta=1.0, n=4, device="cpu")
+    monkeypatch.setenv("REPRO_FUSED", "0")
+    masks = np.ones((2, 2), np.float32)
+    w, tr = tcore.run_encoded_gd(tp, masks, 1e-4, device="cpu")
+    assert w.shape == (p,) and np.isfinite(tr).all()

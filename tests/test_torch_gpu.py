@@ -15,7 +15,10 @@ products in the two-loop recursion and the line search).  The workloads'
 ``smoke`` cells on the card match the same cells on the CPU: ``times``
 bit for bit, GD / ISTA / BCD traces to rel 1e-5, ``coded-lbfgs`` and MF
 to rel 1e-4, ridge gaps to abs 1e-4 |f*|, LASSO F1 and logistic test
-error equal; each cell launches exactly the kernels of its path.
+error equal; each cell launches exactly the kernels of its path.  The
+runners' combine branch (``REPRO_FUSED=0``) matches the fused branch to rel
+1e-5, and an experiment spec executed on the card matches the same spec on
+the CPU under the same rules, with ``times`` bit for bit.
 """
 import numpy as np
 import pytest
@@ -25,7 +28,7 @@ from repro_torch.core import EncodedProblem, masked_gradient, run_encoded_lbfgs
 from repro_torch.kernels import launches
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.coded_reduce import (coded_combine_call,
-                                              coded_combine_plain,
+                                              coded_combine_ref,
                                               combine_row_groups)
 from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
 from repro_torch.kernels.fused_step import (MAX_COLS, fused_masked_gradient,
@@ -206,7 +209,7 @@ def test_combine_kernel(cuda, P, m, dtype):
     out = coded_combine_call(g, c)
     torch.cuda.synchronize()
     assert launches["coded_combine"] == before + 1 and out.dtype == dtype
-    _close(out, coded_combine_plain(g, c),
+    _close(out, coded_combine_ref(g, c),
            1e-5 if dtype == torch.float32 else 2 ** -7)
     assert torch.equal(out, coded_combine_call(g, c[:, None]))
 
@@ -220,7 +223,7 @@ def test_combine_kernel_all_masked_and_misaligned(cuda):
     base = _randn((8 * 6000 + 1,), 2, cuda)
     view = base[1:].view(8, 6000)
     c = torch.rand(8, device=cuda)
-    _close(coded_combine_call(view, c), coded_combine_plain(view, c), 1e-5)
+    _close(coded_combine_call(view, c), coded_combine_ref(view, c), 1e-5)
     with pytest.raises(ValueError):
         coded_combine_call(g.t(), torch.ones(6001, device=cuda))
 
@@ -327,3 +330,185 @@ def test_ridge_run_trials_on_card_matches_cpu(cuda):
     cpu = wl.run_trials("coded", device="cpu", **kw)
     for g, c in zip(gpu, cpu):
         _same_cell(g, c, data.f_star)
+
+
+# ---------------------------------------------------------------------------
+# the runners' two branches (REPRO_FUSED), the harness and the build watch
+# ---------------------------------------------------------------------------
+
+def test_runners_combine_branch_on_card(cuda, monkeypatch):
+    """REPRO_FUSED=0 takes the combine kernel (one launch a realization a
+    step) and never the fused kernel; its trace matches the fused
+    branch's."""
+    from repro_torch.runtime import batched_scan_gd
+    gpu = _small_problem(cuda)
+    masks = (np.random.default_rng(9).random((3, 15, 8)) < 0.75)
+    masks = masks.astype(np.float32)
+    W0 = torch.zeros((3, 24), device=cuda)
+    monkeypatch.setenv("REPRO_FUSED", "1")
+    before = dict(launches)
+    W_f, tr_f = batched_scan_gd(gpu, masks, 0.01, W0)
+    torch.cuda.synchronize()
+    assert _launched(before) == {FUSED: 15}
+    monkeypatch.setenv("REPRO_FUSED", "0")
+    before = dict(launches)
+    W_c, tr_c = batched_scan_gd(gpu, masks, 0.01, W0)
+    w_p, tr_p = scan_prox(gpu, masks[0], 0.01, W0[0])
+    torch.cuda.synchronize()
+    assert _launched(before) == {COMB: 3 * 15 + 15}
+    _close(tr_c, tr_f, 1e-5)
+    _close(W_c, W_f, 1e-4)
+    monkeypatch.setenv("REPRO_FUSED", "1")
+    _close(tr_p, scan_prox(gpu, masks[0], 0.01, W0[0])[1], 1e-5)
+
+
+def test_runners_refuse_past_max_cols_and_name_the_switch(cuda, monkeypatch):
+    """At p = MAX_COLS + 1 the fused branch raises with an error that names
+    REPRO_FUSED=0; under it the same run takes the combine path."""
+    from repro_torch.core import run_encoded_gd
+    p = MAX_COLS + 1
+    SX, Sy, _, _ = _fused(cuda, 4, 2, p, R=1, seed=1)
+    prob = EncodedProblem(SX=SX, Sy=Sy, X=_randn((8, p), 2, cuda),
+                          y=_randn((8,), 3, cuda), lam=0.1, beta=1.0, n=8)
+    masks = np.ones((3, 4), np.float32)
+    monkeypatch.delenv("REPRO_FUSED", raising=False)
+    with pytest.raises(ValueError, match="REPRO_FUSED=0"):
+        run_encoded_gd(prob, masks, 1e-4)
+    monkeypatch.setenv("REPRO_FUSED", "0")
+    before = dict(launches)
+    w, tr = run_encoded_gd(prob, masks, 1e-4)
+    assert _launched(before) == {COMB: 3}
+    assert w.is_cuda and np.isfinite(tr).all()
+    w_c, tr_c = run_encoded_gd(prob, masks, 1e-4, device="cpu")
+    _close(torch.as_tensor(tr), torch.as_tensor(tr_c), 1e-5)
+
+
+@pytest.mark.parametrize("wrapper", ["run_encoded_gd",
+                                     "run_encoded_proximal"])
+def test_run_encoded_wrappers_move_a_host_w0(cuda, wrapper):
+    """A card problem with a host ``w0`` (a CPU tensor or a numpy array):
+    the wrapper moves ``w0`` to the card and matches the CPU run."""
+    import repro_torch.core as core
+    run = getattr(core, wrapper)
+    gpu = _small_problem(cuda)
+    masks = (np.random.default_rng(4).random((12, 8)) < 0.75)
+    masks = masks.astype(np.float32)
+    w0 = np.random.default_rng(5).standard_normal(24)
+    w_c, tr_c = run(_cpu_copy(gpu), masks, 0.01, w0=torch.as_tensor(w0),
+                    device="cpu")
+    for start in (torch.as_tensor(w0, dtype=torch.float32), w0):
+        before = dict(launches)
+        w, tr = run(gpu, masks, 0.01, w0=start)
+        torch.cuda.synchronize()
+        assert _launched(before) == {FUSED: 12}
+        assert w.is_cuda
+        _close(torch.as_tensor(tr), torch.as_tensor(tr_c), 1e-5)
+        _close(w.cpu(), w_c, 1e-5)
+
+
+def test_logistic_fast_hadamard_through_harness_on_card(cuda):
+    """The logistic fast-Hadamard smoke cell through the harness's
+    ``run_workload_matrix``: one SRHT lift and one FWHT decode a chunk on
+    the card, and the same record as the CPU run."""
+    from repro_torch.workloads import run_workload_matrix
+    kw = dict(preset="smoke", encoder="fast-hadamard")
+    before = dict(launches)
+    (gpu,) = run_workload_matrix(["logistic"], ["coded"], **kw)
+    torch.cuda.synchronize()
+    records = get_workload("logistic").preset("smoke").dims["records"]
+    assert _launched(before) == {SRHT: 1, FWHT: records}
+    before = dict(launches)
+    (cpu,) = run_workload_matrix(["logistic"], ["coded"], device="cpu", **kw)
+    assert _launched(before) == {}
+    assert gpu["times"] == cpu["times"]
+    _close(torch.tensor(gpu["objective"]), torch.tensor(cpu["objective"]),
+           1e-5)
+
+
+def test_harness_cells_past_max_cols_on_card(cuda, monkeypatch):
+    """Through ``execute`` on the card, GD cells at p = MAX_COLS + 1 come
+    out as skip records naming REPRO_FUSED=0; under it they run on the
+    combine kernel."""
+    from repro_torch.experiments import (DelayAxis, ExperimentSpec,
+                                         ProblemAxis, StrategyAxis, execute,
+                                         plan)
+    opts = (("step_size", 1e-4),)
+    spec = ExperimentSpec(
+        problems=(ProblemAxis.synthetic(32, MAX_COLS + 1),),
+        strategies=(StrategyAxis("coded-gd", options=opts),
+                    StrategyAxis("uncoded", options=opts)),
+        delays=DelayAxis.of("bimodal", m=4), steps=2)
+    monkeypatch.delenv("REPRO_FUSED", raising=False)
+    before = dict(launches)
+    out = execute(plan(spec), record_to=False)
+    assert FUSED not in _launched(before)
+    for rec in out.records:
+        assert "REPRO_FUSED=0" in rec["skipped"]
+    monkeypatch.setenv("REPRO_FUSED", "0")
+    before = dict(launches)
+    out = execute(plan(spec), record_to=False)
+    torch.cuda.synchronize()
+    assert _launched(before).get(COMB, 0) >= 2 * 2
+    assert FUSED not in _launched(before)
+    for rec in out.records:
+        assert "skipped" not in rec
+        assert np.isfinite(rec["objective"]).all()
+
+
+def _spec():
+    from repro_torch.experiments import (DelayAxis, ExperimentSpec,
+                                         ProblemAxis, StrategyAxis,
+                                         TrialsAxis)
+    return ExperimentSpec(
+        problems=(ProblemAxis.synthetic(96, 24),
+                  ProblemAxis.from_workload("ridge", "smoke")),
+        strategies=(StrategyAxis("coded-gd", encoder="fast-hadamard"),
+                    StrategyAxis("coded-lbfgs"), StrategyAxis("uncoded")),
+        delays=DelayAxis.of("bimodal", m=8),
+        trials=TrialsAxis(trials=2), steps=8)
+
+
+def test_experiment_on_card_matches_cpu(cuda, tmp_path):
+    """One spec through ``execute`` on the card and on the CPU: the same
+    records (``times`` bit for bit, objectives to rel 1e-5, coded-lbfgs
+    to rel 1e-4), the card's run launching the kernels of its cells."""
+    from repro_torch.experiments import execute, plan
+    from repro_torch.obs import RunStore
+    store = RunStore(str(tmp_path / "runs"))
+    before = dict(launches)
+    gpu = execute(plan(_spec()), record_to=store)
+    torch.cuda.synchronize()
+    got = _launched(before)
+    assert got.get(FUSED, 0) > 0 and got.get(SRHT, 0) > 0 and \
+        got.get(COMB, 0) > 0
+    before = dict(launches)
+    cpu = execute(plan(_spec()), device="cpu", record_to=False)
+    assert _launched(before) == {}
+    assert gpu.device.type == "cuda" and cpu.device.type == "cpu"
+    assert store.load(gpu.run_id)["backend"] == "cuda"
+    for g, c in zip(gpu.records, cpu.records):
+        assert g.keys() == c.keys() and g.get("skipped") == c.get("skipped")
+        if "skipped" in c:
+            continue
+        assert g["times"] == c["times"]
+        assert g["wallclock_s"] == c["wallclock_s"]
+        tol = 1e-4 if g["strategy"] == "coded-lbfgs" else 1e-5
+        _close(torch.tensor(g["objective"]), torch.tensor(c["objective"]),
+               tol)
+
+
+def test_compile_watch_counts_a_fresh_build(cuda, monkeypatch, tmp_path):
+    """A build of the kernels into an empty directory inside the watch
+    counts one compile, and its time is compile time; loading the built
+    library again counts none."""
+    from repro_torch.kernels import _build
+    from repro_torch.obs import CompileWatch
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    with CompileWatch() as cold:
+        lib = _build.load_library.__wrapped__()
+    assert cold.compiles == 1 and cold.compile_s > 1.0
+    assert cold.compile_s <= cold.total_s
+    assert lib.repro_coded_combine_groups(32) == combine_row_groups(32)
+    with CompileWatch() as warm:
+        _build.load_library.__wrapped__()
+    assert warm.compiles == 0 and warm.compile_s < cold.compile_s
