@@ -81,6 +81,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
              byte-identical JSON; ``repro_torch.obs.diff`` of the card run
              against the CPU run exits 0, and every cell's final objective
              matches the CPU's to rel 1e-4;
+   train   - coded SGD over the dense LM (``repro_torch.train``), each
+             entry driven with the launch counts cleared just before and
+             read just after: (1) ``get_strategy("coded-sgd").run`` at the
+             ``100m`` preset (deepseek-7b's block at 12 x 768, vocab 16384,
+             97 536 768 parameters, float32; m = 8, k = 6, seq 128), 30
+             FRC steps (beta 2) and 10 cyclic steps, exactly one combine
+             launch a step and no other kernel, the loss finite and
+             falling; (2) the first 2 of those steps again on the card and
+             on the CPU from the same port-initialized parameters, losses
+             to rel 1e-4 and step 1's combined gradient to rel 1e-5 in
+             norm; (3) the FRC update under masks 11110000 and 00001111
+             equal bit for bit; the step's time (five samples) and its
+             profiler breakdown (workers' forward and backward, flatten,
+             combine, AdamW, idle share); (4) deepseek-7b at its published
+             width with one layer of 30 (bfloat16, 621 817 856 parameters)
+             through ``CodedTrainer``, 3 steps, 3 combines at (8,
+             621 817 856), peak device memory; (5) ``experiments.run
+             --train deepseek-7b`` (coded-sgd and uncoded, 10 steps) on the
+             card and with ``--device cpu``, final losses to rel 1e-4; (6)
+             the combine at (8, 97 536 768) and (8, 621 817 856) beside its
+             bound, its plain version and ``torch.matmul(c, g)``;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
              same function (the fused gradient also batched at R = 4 and
@@ -632,6 +653,288 @@ def harness_phase(cfg, smi: str, drive) -> None:
           f"clock")
 
 
+def train_phase(smi: str, drive, co: dict) -> None:
+    """Coded SGD over the dense LM (module docstring, phase "train");
+    ``drive`` runs one entry with the launch counts cleared just before and
+    read just after, and requires its kernels; ``co`` is the combine's row
+    of the kernel table, which gains the coded-SGD widths' times."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import repro_torch.train.coded as coded
+    from repro_torch.configs import get_config
+    from repro_torch.core import bimodal_delays, make_code
+    from repro_torch.experiments.run import main as exp_main
+    from repro_torch.kernels.coded_reduce import (coded_combine_call,
+                                                  coded_combine_ref)
+    from repro_torch.models import count_params
+    from repro_torch.runtime import ClusterEngine, FastestK, get_strategy
+    from repro_torch.train import CodedTrainer, TrainerConfig, TrainProblem
+    from repro_torch.tree import tree_leaves, tree_map
+
+    comb = "coded_combine"
+    t_phase = time.perf_counter()
+    m, k, steps = 8, 6, 30
+    engine = lambda: ClusterEngine(bimodal_delays(), m, seed=0)  # noqa: E731
+    spec = TrainProblem(arch="deepseek-7b", preset="100m", seq_len=128)
+    cfg = spec.build_cfg()
+    p100 = int(count_params(cfg))
+    require(p100 == 97_536_768, f"100m preset has {p100} parameters")
+
+    # (1) coded SGD at the 100m preset through the strategy entry point
+    t0 = time.perf_counter()
+    res = drive("coded-sgd 100m frc", lambda: get_strategy("coded-sgd").run(
+        spec, engine(), steps=steps, k=k, code="frc", beta=2),
+        {comb: steps})
+    t_run = time.perf_counter() - t0
+    loss = np.asarray(res.objective)
+    require(np.isfinite(loss).all(), "coded-sgd 100m: non-finite loss")
+    require(loss[-5:].mean() < loss[0], f"coded-sgd 100m: loss did not "
+            f"fall ({loss[0]:.4f} -> last 5 {loss[-5:].mean():.4f})")
+    print(f"coded-sgd 100m frc (deepseek-7b block, 12 x 768, P_total "
+          f"{p100}, m {m}, k {k}, beta 2, seq 128, {steps} steps): loss "
+          f"{loss[0]:.4f} -> mean of last 5 {loss[-5:].mean():.4f}; "
+          f"exact_fraction {res.meta['exact_fraction']:.3f}, mean_active "
+          f"{res.meta['mean_active']:.3f}; {t_run:.2f} s host clock "
+          f"[{smi}]")
+    cyc = drive("coded-sgd 100m cyclic", lambda: get_strategy(
+        "coded-sgd").run(spec, engine(), steps=10, k=k, code="cyclic",
+                         beta=2), {comb: 10})
+    closs = np.asarray(cyc.objective)
+    require(np.isfinite(closs).all(), "coded-sgd 100m cyclic: non-finite")
+    ccode = make_code("cyclic", m, beta=2)
+    print(f"coded-sgd 100m cyclic (num_groups {ccode.num_groups}, "
+          f"{ccode.worker_groups.shape[1]} slots a worker, 10 steps): loss "
+          f"{closs[0]:.4f} -> {closs[-1]:.4f}; exact_fraction "
+          f"{cyc.meta['exact_fraction']:.3f}, mean_active "
+          f"{cyc.meta['mean_active']:.3f}")
+
+    # (2) the first 2 steps of (1) on the card and on the CPU, from the
+    # same port-initialized parameters, masks and batches
+    tcfg = TrainerConfig(m_workers=m, beta=2, wait_k=k, seq_len=128,
+                         steps=steps, lr=3e-3, warmup=6, seed=0,
+                         log_every=0, code="frc")
+    card = CodedTrainer(cfg, tcfg, engine(), policy=FastestK(k))
+    host = CodedTrainer(cfg, tcfg, engine(), policy=FastestK(k),
+                        device="cpu")
+    params, opt = card.init_state()
+    masks = engine().sample_schedule(steps, FastestK(k)).masks
+    combined: list = []
+    plain_call = coded.coded_combine_call
+
+    def keep(g, c):
+        combined.append(plain_call(g, c))
+        return combined[-1]
+
+    def first_steps(tr, p, o, n=2):
+        out = []
+        for t in range(n):
+            toks, labels, coeff = tr.batcher.next_batch(tr.code.at_step(t))
+            d = np.asarray(tr.code.decode_weights(np.asarray(masks[t])),
+                           np.float32)
+            p, o, met = tr._step(p, o, *(tr._on_device(a) for a in
+                                         (toks, labels, coeff, d)))
+            out.append(float(met["loss"]))
+        return out
+
+    coded.coded_combine_call = keep
+    try:
+        card_loss = drive("coded-sgd 100m 2 steps on the card",
+                          lambda: first_steps(card, params, opt), {comb: 2})
+        cpu_loss = drive("coded-sgd 100m 2 steps on the CPU",
+                         lambda: first_steps(
+                             host, tree_map(lambda t: t.cpu(), params),
+                             tree_map(lambda t: t.cpu(), opt)), {})
+    finally:
+        coded.coded_combine_call = plain_call
+    loss_rel = rel_max(card_loss, cpu_loss)
+    g_card, g_cpu = combined[0].cpu(), combined[2]
+    g_rel = float((g_card - g_cpu).norm() / g_cpu.norm())
+    del combined
+    require(loss_rel <= 1e-4, f"100m card vs CPU loss rel {loss_rel:.2e}")
+    require(g_rel <= 1e-5, f"100m card vs CPU combined gradient rel "
+                           f"{g_rel:.2e}")
+    print(f"coded-sgd 100m card vs CPU, 2 steps: losses {card_loss} vs "
+          f"{cpu_loss}, max rel {loss_rel:.2e} (tol 1e-4); step 1 combined "
+          f"gradient rel {g_rel:.2e} in norm (tol 1e-5); card steps equal "
+          f"the strategy run's first 2 losses bit for bit: "
+          f"{card_loss == loss[:2].tolist()}")
+
+    # (3) FRC invariance: one replica of every cluster survives either way
+    batch = [card._on_device(a) for a in card.batcher.next_batch()]
+
+    def both_masks():
+        outs = []
+        for mask in ([1, 1, 1, 1, 0, 0, 0, 0], [0, 0, 0, 0, 1, 1, 1, 1]):
+            d = card.code.decode_weights(np.asarray(mask, np.float64))
+            outs.append(card._step(params, opt, *batch, card._on_device(
+                np.asarray(d, np.float32))))
+        return outs
+
+    a, b = drive("coded-sgd 100m FRC invariance", both_masks, {comb: 2})
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[:2]),
+                                                 tree_leaves(b[:2])))
+    require(same and torch.equal(a[2]["loss"], b[2]["loss"]),
+            "FRC update depends on which replica survived")
+    print(f"coded-sgd 100m FRC invariance: masks 11110000 and 00001111 give "
+          f"parameters, optimizer state and loss ({float(a[2]['loss']):.6f})"
+          f" equal bit for bit")
+    del a, b
+
+    # the 100m step's time (the step is functional: each sample starts from
+    # the same parameters) and its profiler breakdown
+    d = card._on_device(np.asarray(card.code.decode_weights(
+        np.asarray(masks[0])), np.float32))
+    step_fn = lambda: card._step(params, opt, *batch, d)  # noqa: E731
+    step_ms = samples_ms(step_fn, 5)
+    print(f"coded-sgd 100m step (m {m}, seq 128, one combine): "
+          f"{spread(step_ms, 'ms')}  [{smi}]")
+    train_breakdown(step_fn, smi, sorted(step_ms)[len(step_ms) // 2])
+    del params, opt, card, host, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # (4) deepseek-7b at its published width, one layer of 30
+    cfg7 = get_config("deepseek-7b").with_overrides(n_layers=1)
+    p7 = int(count_params(cfg7))
+    require(p7 == 621_817_856, f"deepseek-7b 1 layer has {p7} parameters")
+    print(f"reduced: n_layers {get_config('deepseek-7b').n_layers} -> 1 "
+          f"(deepseek-7b: d_model {cfg7.d_model}, {cfg7.n_heads} heads, "
+          f"d_ff {cfg7.d_ff}, vocab {cfg7.vocab}, {cfg7.param_dtype}; "
+          f"P_total {p7})")
+    trainer = CodedTrainer(cfg7, TrainerConfig(
+        m_workers=m, beta=2, wait_k=k, seq_len=128, steps=3, lr=3e-3,
+        warmup=1, log_every=0), engine(), policy=FastestK(k))
+    shapes: list = []
+
+    def watch(g, c):
+        shapes.append(tuple(g.shape))
+        return plain_call(g, c)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    coded.coded_combine_call = watch
+    try:
+        _, _, hist = drive("coded-sgd deepseek-7b 1 layer",
+                           lambda: trainer.run(), {comb: 3})
+    finally:
+        coded.coded_combine_call = plain_call
+    peak7 = torch.cuda.max_memory_allocated() / 1e9
+    l7 = [h["loss"] for h in hist]
+    require(np.isfinite(l7).all(), "deepseek-7b 1 layer: non-finite loss")
+    require(shapes == [(m, p7)] * 3, f"deepseek-7b combines at {shapes}")
+    print(f"coded-sgd deepseek-7b 1 layer (m {m}, FRC beta 2, k {k}, seq "
+          f"128, 3 steps): losses {[round(x, 4) for x in l7]}; 3 combine "
+          f"launches at ({m}, {p7}); step host s "
+          f"{[round(h['execute_s'], 3) for h in hist]}; peak device memory "
+          f"{peak7:.2f} GB  [{smi}]")
+    del trainer, hist
+    torch.cuda.empty_cache()
+
+    # (5) a train-kind cell through the harness, on the card and the CPU
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    argv = ["--train", "deepseek-7b", "--preset", "smoke", "--strategies",
+            "coded-sgd,uncoded", "--delays", "bimodal", "--code", "frc",
+            "--steps", "10", "--formats", "json"]
+    with env_var("REPRO_RUNSTORE", str(tmp / "store")):
+        gpu, _ = drive("experiments.run --train card", lambda: quiet(
+            exp_main, argv + ["--out", str(tmp / "card")]), {comb: 20})
+        cpu, _ = drive("experiments.run --train --device cpu", lambda: quiet(
+            exp_main, argv + ["--out", str(tmp / "cpu"), "--device",
+                              "cpu"]), {})
+    finals = []
+    for g, c in zip(gpu.records, cpu.records):
+        require(g["times"] == c["times"], f"{g['strategy']}: times differ")
+        rel = abs(g["final_metric"] - c["final_metric"]) / \
+            abs(c["final_metric"])
+        require(rel <= 1e-4, f"train cell {g['strategy']}: card final loss "
+                             f"vs CPU rel {rel:.2e}")
+        finals.append(f"{g['strategy']} ({g['meta']['code']}) "
+                      f"{g['final_metric']:.6f} vs {c['final_metric']:.6f}, "
+                      f"rel {rel:.2e}")
+    shutil.rmtree(tmp)
+    print(f"experiments.run --train deepseek-7b smoke, 10 steps, card vs "
+          f"CPU final loss (tol 1e-4): {'; '.join(finals)}")
+
+    # (6) the combine at the coded-SGD widths: read (m, P) and c once,
+    # write P once; the yardstick is one torch.matmul(c, g)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for tag, cp, reps in (("sgd100m", p100, 20), ("sgd7b", p7, 5)):
+        g = torch.empty((m, cp), device="cuda")
+        g.normal_(generator=gen)
+        c = torch.rand(m, device="cuda", generator=gen)
+        out = coded_combine_call(g, c)
+        err, rel = rel_err(out, coded_combine_ref(g, c))
+        require(rel <= 1e-5, f"combine ({m}, {cp}): rel {rel:.2e}")
+        del out
+        row = {"ms": time_ms(lambda: coded_combine_call(g, c), reps),
+               "plain_ms": time_ms(lambda: coded_combine_ref(g, c), reps),
+               "library_ms": time_ms(lambda: torch.matmul(c, g), reps)}
+        row["bound_ms"], by = bound_ms((m * cp + m + cp) * 4, 2 * m * cp)
+        co.update({f"{tag}_{key}": v for key, v in row.items()})
+        print(f"coded_combine ({m}, {cp}): {row['ms']:.4f} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({by}; {row['bound_ms'] / row['ms']:.1%}"
+              f" of it); plain {row['plain_ms']:.4f} ms; library "
+              f"{row['library_ms']:.4f} ms; max|d| {err:.2e} ({rel:.2e} of "
+              f"max|ref|)  [{smi}]")
+        del g
+        torch.cuda.empty_cache()
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s host clock")
+
+
+def train_breakdown(step_fn, smi: str, step_ms: float) -> None:
+    """Where one coded train step's device time goes: the combine kernel
+    (by name), the kernels under the step's ``coded:flatten`` and
+    ``coded:adamw`` ranges, and the workers' forward and backward as the
+    rest (the backward runs on autograd's own thread, outside the ranges;
+    the forward alone is ``coded:worker_grad``'s); the span the workers'
+    ranges cover on the device's timeline, the largest kernels, and the
+    device's idle share of the profiled wall and of ``step_ms`` (the
+    step's unprofiled time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, ranges, spans, kernels = 0.0, {}, {}, []
+    for ev in prof.key_averages():
+        named = ev.key.startswith("coded:")
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if named:          # the range's span on the device timeline
+                spans[ev.key[6:]] = us
+            else:
+                busy += us
+                kernels.append((us, ev.count, ev.key))
+        elif named:
+            ranges[ev.key[6:]] = getattr(ev, "device_time_total",
+                                         getattr(ev, "cuda_time_total", 0.0))
+    if busy <= 0:
+        print("profile coded-sgd 100m step: the profiler recorded no device "
+              "time (breakdown not measured)")
+        return
+    comb = sum(us for us, _, key in kernels if "combine_kernel" in key)
+    flat, adamw = ranges.get("flatten", 0.0), ranges.get("adamw", 0.0)
+    workers = busy - comb - flat - adamw
+    span = spans.get("worker_grad", 0.0)
+    fwd = ranges.get("worker_grad", 0.0)
+    print(f"profile coded-sgd 100m step: wall {wall_us:.0f} us, device busy "
+          f"{busy:.0f} us (idle share {max(0.0, 1 - busy / wall_us):.2f} of "
+          f"the profiled wall, {max(0.0, 1 - busy / (step_ms * 1e3)):.2f} of "
+          f"the {step_ms:.1f} ms step); workers' forward and backward "
+          f"{workers:.0f} us (forward alone {fwd:.0f} us; the workers' "
+          f"ranges span {span:.0f} us of the "
+          f"device's timeline), flatten {flat:.0f} us, combine {comb:.0f} "
+          f"us, AdamW {adamw:.0f} us  [{smi}]")
+    for us, count, key in sorted(kernels, reverse=True)[:8]:
+        print(f"  {us:10.1f} us {count:5d}x  {key[:100]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -956,6 +1259,8 @@ def main() -> int:
     workloads_phase(dev, smi, drive)
     # the experiment harness and its CLIs ---------------------------------
     harness_phase(cfg, smi, drive)
+    # coded SGD over the dense LM ------------------------------------------
+    train_phase(smi, drive, table["coded_combine"])
     print(f"launches by path: {json.dumps(by_path)}")
 
     # 5. times ---------------------------------------------------------------

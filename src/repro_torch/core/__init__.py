@@ -20,3 +20,8 @@ from .data_parallel import (EncodedProblem, make_encoded_problem,
 from .lbfgs import LBFGSState, lbfgs_direction, run_encoded_lbfgs
 from .model_parallel import (LiftedProblem, make_lifted_problem, phi_quadratic,
                              phi_logistic, run_encoded_bcd)
+from .gradient_coding import (GradientCode, FRCode, CyclicRepetitionCode,
+                              StochasticCode, GRADIENT_CODES, make_code,
+                              make_frc, make_cyclic, make_stochastic,
+                              coded_weights, decode_exact_possible,
+                              assignment_matrix)

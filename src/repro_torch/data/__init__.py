@@ -1,5 +1,7 @@
-from .pipeline import (logreg_dataset, logreg_rows, lsq_dataset, lsq_rows,
+from .pipeline import (CodedBatcher, GroupBatcher, TokenStream,
+                       logreg_dataset, logreg_rows, lsq_dataset, lsq_rows,
                        mf_ratings_dataset, stream_worker_blocks)
 
-__all__ = ["lsq_dataset", "lsq_rows", "logreg_dataset", "logreg_rows",
-           "mf_ratings_dataset", "stream_worker_blocks"]
+__all__ = ["TokenStream", "CodedBatcher", "GroupBatcher", "lsq_dataset",
+           "lsq_rows", "logreg_dataset", "logreg_rows", "mf_ratings_dataset",
+           "stream_worker_blocks"]

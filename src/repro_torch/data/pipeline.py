@@ -1,18 +1,131 @@
-"""Synthetic data for the paper-native problems: least squares (ridge /
-LASSO), rcv1-like sparse logistic regression, MovieLens-protocol ratings,
-and the worker-by-worker streaming encode (paper §4.2).
+"""Synthetic data: LM token batches laid out for coded data parallelism
+(the synthetic Zipf + motif token stream, the FRC ``CodedBatcher`` and the
+any-code ``GroupBatcher``), and for the paper-native problems least squares
+(ridge / LASSO), rcv1-like sparse logistic regression, MovieLens-protocol
+ratings and the worker-by-worker streaming encode (paper §4.2).
 
 Own copy of the reference's generators (``repro/data/pipeline.py``): the
-same numpy generators, the same draws, so a dataset equals the
-reference's bit for bit.
+same numpy generators, the same draws, so every batch and dataset equals
+the reference's bit for bit.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-__all__ = ["lsq_dataset", "lsq_rows", "logreg_dataset", "logreg_rows",
-           "mf_ratings_dataset", "stream_worker_blocks"]
+from repro_torch.core.gradient_coding import (FRCode, GradientCode,
+                                              coded_weights)
+
+__all__ = ["TokenStream", "CodedBatcher", "GroupBatcher", "lsq_dataset",
+           "lsq_rows", "logreg_dataset", "logreg_rows", "mf_ratings_dataset",
+           "stream_worker_blocks"]
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Zipf + motif synthetic token stream (deterministic per seed)."""
+    vocab: int
+    seed: int = 0
+    motif_len: int = 16
+    n_motifs: int = 64
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        ranks = np.arange(1, self.vocab + 1)
+        self._probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+        self._motifs = rng.integers(0, self.vocab,
+                                    (self.n_motifs, self.motif_len))
+
+    def sample(self, rng: np.random.Generator, n: int, seq: int) -> np.ndarray:
+        toks = rng.choice(self.vocab, size=(n, seq + 1), p=self._probs)
+        # Insert learnable motifs with 50% probability per sequence —
+        # vectorized (one fancy-indexed write for the whole batch; the
+        # per-sequence Python loop dominated CodedBatcher hot paths).
+        L = min(self.motif_len, seq + 1)
+        insert = rng.random(n) < 0.5
+        motif_ids = rng.integers(0, self.n_motifs, size=n)
+        starts = rng.integers(0, seq + 2 - L, size=n)
+        rows = np.nonzero(insert)[0]
+        if rows.size:
+            cols = starts[rows, None] + np.arange(L)[None, :]
+            toks[rows[:, None], cols] = self._motifs[motif_ids[rows], :L]
+        return toks.astype(np.int32)
+
+
+@dataclasses.dataclass
+class CodedBatcher:
+    """Yields (tokens, labels, weights) with FRC-coded worker layout.
+
+    tokens: (m * rows, seq) — worker i owns rows [i*rows, (i+1)*rows);
+    replicas of a cluster carry identical rows.  weights: (m * rows,) decode
+    weights (uniform 1 when mask is all-ones).
+    """
+    stream: TokenStream
+    code: FRCode
+    rows_per_worker: int
+    seq_len: int
+    seed: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+
+    def next_batch(self, mask: np.ndarray):
+        b = self.code.num_clusters
+        cluster_data = self.stream.sample(
+            self._rng, b * self.rows_per_worker, self.seq_len)
+        cluster_data = cluster_data.reshape(b, self.rows_per_worker, -1)
+        per_worker = cluster_data[self.code.clusters]     # (m, rows, seq+1)
+        toks = per_worker.reshape(-1, self.seq_len + 1)
+        w = np.asarray(coded_weights(self.code, mask))    # (m,)
+        weights = np.repeat(w, self.rows_per_worker).astype(np.float32)
+        return toks[:, :-1], toks[:, 1:], weights
+
+
+@dataclasses.dataclass
+class GroupBatcher:
+    """Group-major batches for ANY :class:`GradientCode` (DESIGN §15).
+
+    Where :class:`CodedBatcher` bakes in the FRC replica layout and folds
+    decode weights into per-sample loss weights, ``GroupBatcher`` keeps the
+    two stages of the coded train step separate: it draws the
+    ``num_groups * rows`` data rows ONCE per step and lays them out
+    worker-major by the code's assignment —
+
+      tokens/labels: (m, slots * rows, seq)  where worker i's slots are its
+        ``worker_groups[i]`` (replicas/overlaps share bit-identical rows);
+      coeff: (m, slots * rows) float32 combine coefficients
+        (``worker_coeffs`` repeated over rows) — the B[i, j] each worker
+        applies LOCALLY before the decode-weighted combine.
+
+    Decode weights are NOT applied here: the trainer gets them from
+    ``code.decode_weights(mask)`` per step so the same batch serves any
+    erasure pattern.  Stochastic codes pass their per-step re-draw via the
+    ``code=`` override; the data draw count is identical either way, so
+    trajectories across codes with equal (num_groups, rows) consume the
+    same token stream.
+    """
+    stream: TokenStream
+    code: GradientCode
+    rows_per_worker: int
+    seq_len: int
+    seed: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+
+    def next_batch(self, code: GradientCode | None = None):
+        code = self.code if code is None else code
+        b, rows = code.num_groups, self.rows_per_worker
+        data = self.stream.sample(self._rng, b * rows, self.seq_len)
+        data = data.reshape(b, rows, -1)
+        per_worker = data[code.worker_groups]      # (m, slots, rows, seq+1)
+        m = per_worker.shape[0]
+        per_worker = per_worker.reshape(m, -1, self.seq_len + 1)
+        coeff = np.repeat(np.asarray(code.worker_coeffs, np.float32),
+                          rows, axis=1)            # (m, slots * rows)
+        return (per_worker[..., :-1], per_worker[..., 1:], coeff)
 
 
 def lsq_dataset(n: int, p: int, *, noise: float = 0.1, sparse: int = 0,

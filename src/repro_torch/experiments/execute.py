@@ -17,9 +17,6 @@ the legacy ``runtime.compare`` and ``workloads.run`` CLIs) funnels through
   * every cell yields one **canonical record** (see below) plus the raw
     result object for programmatic callers.
 
-Train-kind cells (coded SGD over the model zoo) are not ported yet: a plan
-that holds one is refused before any cell runs.
-
 Canonical record schema (the union of the three legacy schemas; every
 record carries the core keys, workload records add theirs):
 
@@ -166,9 +163,7 @@ def execute(plan: ExperimentPlan, *, device=None, record_to=None,
             resume: str | None = None) -> ExperimentResult:
     """Run every planned cell on ``device`` (unset: CUDA, which raises
     without a card); never aborts mid-matrix for per-cell
-    incompatibilities (those become skip-with-reason records).  A plan
-    that holds a train-kind cell is refused with ``NotImplementedError``
-    before anything runs or is recorded.
+    incompatibilities (those become skip-with-reason records).
 
     When the spec carries an enabled :class:`ObsAxis`, the whole matrix runs
     under an active :class:`repro_torch.obs.TraceRecorder`: every record gains
@@ -197,12 +192,6 @@ def execute(plan: ExperimentPlan, *, device=None, record_to=None,
     seconds, ±25% deterministic jitter, 30 s cap); the last failure
     re-raises, and the streamed records make the partial matrix resumable.
     """
-    train = [c.index for c in plan.cells if c.kind == "train"]
-    if train:
-        raise NotImplementedError(
-            f"cells {train} are train-kind (coded SGD over the model zoo), "
-            f"which the port does not have yet (ROADMAP Queue 1 item 4); "
-            f"nothing was run")
     dev = resolve_device(device)
     obs = getattr(plan.spec, "obs", None)
     cell_batch = getattr(plan.spec.placement, "cell_batch", False)
@@ -430,7 +419,66 @@ def _engine(cell: PlannedCell):
 def _execute_cell(cell: PlannedCell, caches: dict, device) -> CellOutcome:
     if cell.kind == "workload":
         return _execute_workload_cell(cell, caches, device)
+    if cell.kind == "train":
+        return _execute_train_cell(cell, caches, device)
     return _execute_synthetic_cell(cell, caches, device)
+
+
+def _train_problem(cell: PlannedCell, caches: dict):
+    from repro_torch.train.coded import TrainProblem
+    key = ("train", id(cell.problem))
+    if key not in caches:
+        pr = cell.problem
+        caches[key] = TrainProblem(
+            arch=pr.arch, preset=pr.preset, seq_len=pr.seq_len,
+            rows_per_worker=pr.rows_per_worker, vocab=pr.vocab)
+    return caches[key]
+
+
+def _execute_train_cell(cell: PlannedCell, caches: dict,
+                        device) -> CellOutcome:
+    """One train-kind cell: a coded-SGD LM run through the strategy layer.
+
+    ``'uncoded'`` cells dispatch the SAME ``coded-sgd`` strategy with the
+    identity code forced — the no-redundancy baseline is the same trainer
+    minus the code, so loss curves are directly comparable.
+    """
+    from repro_torch.runtime.strategies import get_strategy
+    pr, st = cell.problem, cell.strategy
+    base = {"strategy": cell.resolved_strategy, "delay": cell.delay,
+            "arch": pr.arch, "preset": pr.preset, "m": cell.m, "k": cell.k,
+            "seed": cell.seed}
+    if cell.skip is not None:
+        return CellOutcome(cell, {**base, "skipped": cell.skip,
+                                  "metric_name": "loss"})
+    spec_ = _train_problem(cell, caches)
+    engine = _engine(cell)
+    cfg = st.options_dict()
+    if cell.resolved_strategy == "uncoded":
+        cfg["code"] = "uncoded"     # force over any --code option
+    cfg.setdefault("policy", resolve_policy(
+        st.policy or "fastest-k", cell.m, cell.k,
+        deadline=st.deadline, beta=st.policy_beta))
+    if cell.degrade is not None:
+        cfg.setdefault("degrade", cell.degrade)
+    strat = get_strategy("coded-sgd")
+    try:
+        if cell.trials > 1:
+            result = strat.run_batched(
+                spec_, engine, steps=cell.steps, trials=cell.trials,
+                eval_every=cell.eval_every, placement=cell.placement,
+                device=device, **cfg)
+        else:
+            result = strat.run(spec_, engine, steps=cell.steps,
+                               device=device, **cfg)
+    except ValueError as e:
+        print(f"# skipping {cell.resolved_strategy} x {cell.delay}: {e}")
+        return CellOutcome(cell, {**base, "skipped": str(e),
+                                  "metric_name": "loss"})
+    rec = result.to_record()
+    rec.update(base, metric_name="loss",
+               final_metric=rec["final_objective"])
+    return CellOutcome(cell, rec, result)
 
 
 def _synthetic_problem(cell: PlannedCell, caches: dict):

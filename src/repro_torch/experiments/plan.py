@@ -136,11 +136,7 @@ def plan(spec: ExperimentSpec) -> ExperimentPlan:
             m = spec.delays.m if spec.delays.m is not None else TRAIN_M
             for delay in spec.delays.delays:
                 for st in spec.strategies:
-                    # unknown name -> KeyError now; coded-sgd is not in
-                    # the port's registry yet, and execute refuses
-                    # train-kind cells before any runs
-                    if st.name not in _TRAIN_STRATEGIES:
-                        get_strategy(st.name)
+                    get_strategy(st.name)   # unknown name -> KeyError now
                     skip = (None if st.name in _TRAIN_STRATEGIES else
                             f"strategy '{st.name}' has no train-kind "
                             f"lowering (coded-sgd/uncoded only)")

@@ -13,12 +13,15 @@ x trials x placement cell the paper's §5 protocol needs:
     PYTHONPATH=src python -m repro_torch.experiments.run --device cpu \\
         --workloads ridge,logistic --strategies coded,uncoded --trials 8
 
+    # coded-SGD train matrix over the model zoo
+    PYTHONPATH=src python -m repro_torch.experiments.run \\
+        --train deepseek-7b --strategies coded-sgd,uncoded \\
+        --delays bimodal --code cyclic --steps 3
+
 Argv is parsed into an :class:`ExperimentSpec`, compiled with ``plan`` and
 run with ``execute`` — the path the legacy ``runtime.compare`` and
 ``workloads.run`` CLIs delegate to.  ``--plan-only`` prints the resolved
-cell list (including pre-materialized skips) without running.  ``--train``
-plans like the reference's, and ``execute`` refuses it until coded SGD is
-ported.
+cell list (including pre-materialized skips) without running.
 """
 from __future__ import annotations
 

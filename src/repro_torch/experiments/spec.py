@@ -50,8 +50,6 @@ class ProblemAxis:
     * ``'train'``     — a neural LM from the model zoo trained with coded
       SGD (DESIGN §15): ``arch`` names the architecture, ``preset`` picks
       ``smoke``/``100m``, and the metric is the decoded training loss.
-      Plans like the reference's; the port's ``execute`` refuses it until
-      coded SGD is ported.
     """
     kind: str = "synthetic"
     # -- synthetic fields --

@@ -9,8 +9,9 @@
                      async stale-gradient SGD, single and batched over
                      realizations;
   * ``strategies`` — ``coded-gd``, ``coded-prox``, ``coded-lbfgs``,
-                     ``coded-bcd``, ``uncoded``, ``replication`` and
-                     ``async`` behind one ``Strategy`` registry;
+                     ``coded-bcd``, ``uncoded``, ``replication``,
+                     ``async`` and ``coded-sgd`` behind one ``Strategy``
+                     registry;
   * ``compare``    — the strategy x delay-model CLI, a thin front-end over
                      ``repro_torch.experiments``.
 """

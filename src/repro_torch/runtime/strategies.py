@@ -7,7 +7,8 @@
 worker-resident problem for a shared ``ProblemSpec``, ask the
 ``ClusterEngine`` for a delay realization, run the device loop of
 ``runtime.runners`` (or ``core.lbfgs``) and return a wall-clock-vs-objective
-``RunResult`` / ``TrialsResult``.  Every entry point takes ``device``: CUDA
+``RunResult`` / ``TrialsResult``; ``coded-sgd`` trains an LM of the model
+zoo on a ``train.TrainProblem`` (``train.coded``).  Every entry point takes ``device``: CUDA
 unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -718,6 +719,46 @@ class CodedBCD(_SyncGradientStrategy):
             strategy=self.name,
             times=batch.times[:, stride_every - 1::stride_every],
             objective=_host(tr), w=_host(v), meta=meta, schedules=batch)
+
+
+# ---------------------------------------------------------------------------
+# Coded SGD on the neural model zoo (train-kind cells)
+# ---------------------------------------------------------------------------
+
+@register_strategy("coded-sgd")
+class CodedSGD(Strategy):
+    """Gradient-coded data-parallel SGD training a real LM (train/coded.py).
+
+    ``spec`` is a ``repro_torch.train.TrainProblem`` (not a
+    ``ProblemSpec``); the ``objective`` trace is the decoded training loss,
+    times come from the engine schedule.  cfg: code ("frc" | "cyclic" |
+    "stochastic" | "uncoded"), beta, policy/k, lr, warmup, degrade,
+    log_every.  The train module is imported lazily so registry load never
+    pulls the model zoo.
+    """
+
+    def run(self, spec, engine, *, steps=100, device=None, **cfg):
+        from repro_torch.train.coded import run_coded_sgd
+        return run_coded_sgd(spec, engine, steps=steps, device=device, **cfg)
+
+    def run_batched(self, spec, engine, *, steps=100, trials=1, eval_every=1,
+                    placement="vmap", device=None, **cfg):
+        """Sequential trial loop; the base implementation would stack the
+        absent iterate."""
+        check_trials(steps, trials, eval_every)
+        stride_every = resolve_eval_every(steps, eval_every)
+        results = [self.run(spec, engine.trial(r), steps=steps,
+                            device=device, **dict(cfg))
+                   for r in range(trials)]
+        stride = slice(stride_every - 1, None, stride_every)
+        return TrialsResult(
+            strategy=self.name,
+            times=np.stack([np.asarray(r.times) for r in results])[:, stride],
+            objective=np.stack([np.asarray(r.objective)
+                                for r in results])[:, stride],
+            w=None,
+            meta={**results[0].meta, "trials": trials,
+                  "eval_every": eval_every, "batched": False})
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@ them.  Records are compared field by field, apart from the timing fields
     (objectives, metrics, summaries), 1e-4 for ``coded-lbfgs`` cells and
     MF (the two-loop recursion divides by inner products of float32
     differences) — the tolerances of ``test_torch_runtime.py`` and
-    ``test_torch_workloads.py``;
+    ``test_torch_workloads.py`` — and 1e-4 for the losses of train-kind
+    cells (``test_torch_coded_sgd.py``'s);
   * suboptimality gaps to abs 1e-4 |f*|.
 The executor's fault cases (streamed cells, resume, spec-mismatch refusal,
 retry) are ``tests/test_faults.py``'s, on the port.
@@ -37,7 +38,7 @@ from repro.obs import analyze as j_analyze
 from repro.obs.runstore import RunStore as JStore
 from repro_torch.obs.runstore import RunStore, spec_hash
 
-RTOL, LBFGS_RTOL, GAP_ATOL = 1e-5, 1e-4, 1e-4
+RTOL, LBFGS_RTOL, TRAIN_RTOL, GAP_ATOL = 1e-5, 1e-4, 1e-4, 1e-4
 M = 8
 TIMING = ("host_s", "compile_s", "execute_s", "compiles", "obs")
 EXACT = {"times", "wallclock_s", "metric_times", "t_start", "t_end",
@@ -113,7 +114,8 @@ def _strip(rec):
 def _rtol(rec):
     lbfgs = (rec.get("strategy") == "coded-lbfgs" or
              rec.get("workload") == "mf")
-    return LBFGS_RTOL if lbfgs else RTOL
+    return LBFGS_RTOL if lbfgs else TRAIN_RTOL \
+        if rec.get("metric_name") == "loss" else RTOL
 
 
 def assert_records_match(out_records, ref_records):
@@ -314,13 +316,41 @@ def test_outcomes_carry_port_results():
     assert all(isinstance(o.result, TrialsResult) for o in out.outcomes)
 
 
-def test_train_spec_refused_before_any_cell_runs(tmp_path):
+def _reference_init(cfg, key, *, device=None):
+    """The port's ``init_params`` replaced by the reference's parameters for
+    the same config and seed, carried across."""
+    import dataclasses
+    import jax
+    import repro.configs.base as JB
+    import repro.models.transformer as JT
+    from repro_torch.models import params_from_numpy
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw["period"] = tuple(JB.BlockSpec(**dataclasses.asdict(b))
+                         for b in cfg.period)
+    jp = JT.init_params(JB.ArchConfig(**kw), jax.random.key(int(key)))
+    return params_from_numpy(jax.tree.map(np.asarray, jp), device)
+
+
+def test_train_spec_refused_before_any_cell_runs(tmp_path, monkeypatch):
+    """Train-kind cells (coded SGD) are no longer refused: the spec runs
+    through ``execute`` into the run store, and from the reference's
+    parameters its records equal the reference's apart from timing fields
+    (losses rel 1e-4, the coded-gd cell the same skip record)."""
+    import repro_torch.models.transformer as PT
+    monkeypatch.setattr(PT, "init_params", _reference_init)
     store = RunStore(str(tmp_path / "runs"))
     pl = P.plan(_train_spec(P))
-    assert any(c.kind == "train" for c in pl.cells)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        P.execute(pl, device="cpu", record_to=store)
-    assert store.runs() == [] and not os.path.exists(store.root)
+    assert sum(c.kind == "train" for c in pl.cells) == 3
+    out = P.execute(pl, device="cpu", record_to=store)
+    ref = J.execute(J.plan(_train_spec(J)), record_to=False)
+    assert [r["strategy"] for r in out.records] == \
+        ["coded-sgd", "uncoded", "coded-gd"]
+    assert "skipped" in out.records[2]
+    strip = lambda rec: {**rec, "meta": {  # noqa: E731
+        k: v for k, v in rec.get("meta", {}).items() if k not in TIMING}}
+    assert_records_match([strip(r) for r in out.records],
+                         [strip(r) for r in ref.records])
+    assert [r["run_id"] for r in store.runs()] == [out.run_id]
 
 
 def test_execute_without_device_raises_when_no_card(monkeypatch):

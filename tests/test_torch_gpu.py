@@ -18,7 +18,11 @@ to rel 1e-4, ridge gaps to abs 1e-4 |f*|, LASSO F1 and logistic test
 error equal; each cell launches exactly the kernels of its path.  The
 runners' combine branch (``REPRO_FUSED=0``) matches the fused branch to rel
 1e-5, and an experiment spec executed on the card matches the same spec on
-the CPU under the same rules, with ``times`` bit for bit.
+the CPU under the same rules, with ``times`` bit for bit.  Coded SGD:
+the FRC update under two masks that keep one replica of every cluster is
+equal bit for bit on the card; three coded steps on the card match the
+same steps on the CPU to rel 1e-4 of the loss; the combine above 2^31
+elements matches its plain version on column slices to rel 1e-5.
 """
 import numpy as np
 import pytest
@@ -512,3 +516,119 @@ def test_compile_watch_counts_a_fresh_build(cuda, monkeypatch, tmp_path):
     with CompileWatch() as warm:
         _build.load_library.__wrapped__()
     assert warm.compiles == 0 and warm.compile_s < cold.compile_s
+
+
+# ---------------------------------------------------------------------------
+# coded SGD on the card
+# ---------------------------------------------------------------------------
+
+def _coded_setup(dev, code_name="frc"):
+    from repro_torch.core import make_code
+    from repro_torch.data import GroupBatcher, TokenStream
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.train import TrainProblem, build_coded_train_step
+    cfg = TrainProblem(seq_len=32, vocab=128).build_cfg()
+    code = make_code(code_name, 8, beta=2)
+    batcher = GroupBatcher(TokenStream(cfg.vocab, seed=0), code, 1, 32,
+                           seed=0)
+    step = build_coded_train_step(cfg, cosine_schedule(1e-3, 2, 10),
+                                  rows_per_group=1,
+                                  num_groups=code.num_groups)
+    params = init_params(cfg, 0, device=dev)
+    return code, batcher, step, params, adamw_init(params)
+
+
+def _tensors(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+def test_frc_update_bit_for_bit_on_card(cuda):
+    """Two masks that keep one replica of every FRC cluster give the same
+    parameters and loss bit for bit on the card (replicas' gradients are
+    computed alike, with no atomics), one combine launch a step."""
+    from repro_torch.tree import tree_leaves
+    code, batcher, step, params, opt = _coded_setup(cuda)
+    batch = _tensors(cuda, *batcher.next_batch())
+    outs = []
+    for mask in ([1, 1, 1, 1, 0, 0, 0, 0], [0, 0, 0, 0, 1, 1, 1, 1]):
+        d = _tensors(cuda, code.decode_weights(np.asarray(mask, float)))[0]
+        before = dict(launches)
+        outs.append(step(params, opt, *batch, d))
+        torch.cuda.synchronize()
+        assert _launched(before) == {COMB: 1}
+    for a, b in zip(tree_leaves(outs[0][:2]), tree_leaves(outs[1][:2])):
+        assert torch.equal(a, b)
+    assert torch.equal(outs[0][2]["loss"], outs[1][2]["loss"])
+
+
+@pytest.mark.parametrize("code_name", ["frc", "cyclic"])
+def test_coded_steps_on_card_match_cpu(cuda, code_name):
+    """Three steps on the card and on the CPU from the same parameters:
+    losses rel 1e-4 (float32 sums in another order through AdamW's
+    steps)."""
+    from repro_torch.tree import tree_map
+    code, batcher, step, params, opt = _coded_setup(cuda, code_name)
+    cpu_p = tree_map(lambda t: t.cpu(), params)
+    cpu_o = tree_map(lambda t: t.cpu(), opt)
+    rng = np.random.default_rng(0)
+    got = []
+    for t in range(3):
+        batch = batcher.next_batch(code.at_step(t))
+        mask = (rng.random(8) < 0.75).astype(float)
+        d = code.at_step(t).decode_weights(mask)
+        params, opt, gm = step(params, opt, *_tensors(cuda, *batch, d))
+        cpu_p, cpu_o, cm = step(cpu_p, cpu_o, *_tensors("cpu", *batch, d))
+        got.append((float(gm["loss"]), float(cm["loss"])))
+    g, c = np.asarray(got).T
+    assert np.max(np.abs(g - c)) <= 1e-4 * np.max(np.abs(c))
+
+
+def test_coded_sgd_strategy_on_card(cuda):
+    """The strategy entry point with the device unset runs on the card:
+    one combine launch a step and nothing else of the port's kernels; a
+    seed gives the same parameters on both devices, so the same call with
+    ``device="cpu"`` has the same times and losses to rel 1e-4."""
+    from repro_torch.runtime import ClusterEngine, get_strategy
+    from repro_torch.core import bimodal_delays
+    from repro_torch.train import TrainProblem
+    run = lambda **kw: get_strategy("coded-sgd").run(  # noqa: E731
+        TrainProblem(seq_len=16, vocab=64),
+        ClusterEngine(bimodal_delays(), 8, seed=0), steps=4, k=6, **kw)
+    before = dict(launches)
+    res = run()
+    torch.cuda.synchronize()
+    assert _launched(before) == {COMB: 4}
+    cpu = run(device="cpu")
+    assert np.array_equal(res.times, cpu.times)
+    _close(torch.tensor(res.objective), torch.tensor(cpu.objective), 1e-4)
+
+
+def test_init_params_same_on_card_and_cpu(cuda):
+    from repro_torch.models import init_params
+    from repro_torch.train import TrainProblem
+    from repro_torch.tree import tree_leaves
+    cfg = TrainProblem(seq_len=16, vocab=64).build_cfg()
+    for a, b in zip(tree_leaves(init_params(cfg, 3)),
+                    tree_leaves(init_params(cfg, 3, device="cpu"))):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("P", [(1 << 28) + 4, (1 << 28) + 5])
+def test_combine_above_2_31_elements(cuda, P):
+    """m * P above 2^31: the kernel's row offsets are 64-bit.  The output
+    on column slices at the start, the middle and the end matches the plain
+    version on those columns (rel 1e-5); P + 4 takes the 16-byte loads, P +
+    5 the element-wise path."""
+    m = 8
+    assert m * P > 2 ** 31
+    g = torch.empty((m, P), device=cuda)
+    for i in range(m):
+        g[i].normal_(generator=torch.Generator(device=cuda).manual_seed(i))
+    c = torch.rand(m, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(9))
+    out = coded_combine_call(g, c)
+    for lo in (0, P // 2 - 77, P - 4099):
+        sl = slice(lo, lo + 4099)
+        _close(out[sl], coded_combine_ref(g[:, sl].contiguous(), c), 1e-5)

@@ -321,9 +321,8 @@ def test_coded_prox_requires_l1():
 
 
 def test_registry_and_validation_match_reference():
-    # every strategy of the reference but coded SGD (not ported yet)
-    assert trt.available_strategies() == sorted(
-        set(jrt.available_strategies()) - {"coded-sgd"})
+    # every strategy of the reference, coded SGD included
+    assert trt.available_strategies() == jrt.available_strategies()
     for bad in [(10, 0, 1), (10, 2, -1), (10, 2, 3)]:
         with pytest.raises(ValueError):
             jrt.check_trials(*bad)
