@@ -102,6 +102,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
              card and with ``--device cpu``, final losses to rel 1e-4; (6)
              the combine at (8, 97 536 768) and (8, 621 817 856) beside its
              bound, its plain version and ``torch.matmul(c, g)``;
+   wide    - coded-prox at LASSO §5.4's published width (the ``paper``
+             preset's p = 100 000, m = 128, k = 80, lam = 0.6, sparsity
+             7695, noise 40, multimodal delays, seed 0; fast-Hadamard,
+             beta 2) with n cut from 130 000 to 32 768 (20 000 where the
+             host has under 70 GB free), so N = 65 536 (two FWHT passes)
+             and S X (128, 512, 100 000) float32 is 26.2 GB; 20 steps, the
+             step size 1 / (1.3 L + lam) with L from a power iteration on
+             the card (the workload's build, its eigvalsh and FISTA ground
+             truth, left out): ``get_strategy("coded-prox").run`` with
+             exactly one SRHT and 20 fused launches, the objective finite
+             and falling and within rel 1e-4 of the same call under
+             REPRO_FUSED=0 (the combine kernel); decode_t(encode(x)) =
+             beta x at N for 8 columns (rel 1e-5); make_encoded_problem's
+             peak device memory at most 2.1 |S X|; each kernel against its
+             plain version at the wide shapes (FWHT (8, 65 536) and
+             (2, 262 144); SRHT of 64 columns into N = 65 536, full frame
+             and worker 5's window; the fused gradient on the encoded data
+             at p = 16 385 and 100 000, 8 workers, batched R = 4 rows equal
+             to single calls bit for bit), and their times beside bound,
+             plain version and library call, with the fused step at the
+             path's (128, 512, 100 000) and the path's full SRHT encode;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
              same function (the fused gradient also batched at R = 4 and
@@ -313,8 +334,6 @@ def workloads_phase(dev, smi: str, drive) -> None:
     after, and requires its kernels."""
     import numpy as np
     from repro_torch.core import hadamard_ensemble
-    from repro_torch.kernels.fused_step import MAX_COLS
-    from repro_torch.kernels.fwht import MAX_ONE_PASS
     from repro_torch.runtime import get_strategy
     from repro_torch.workloads import get_workload
     fused, srht, fwht, comb = ("fused_masked_gradient", "srht_encode",
@@ -328,14 +347,16 @@ def workloads_phase(dev, smi: str, drive) -> None:
     N = hadamard_ensemble(n, 2.0, 0)[0]
     print(f"lasso paper (n, p) = ({n}, {p}): X float64 {n * p * 8 / 1e9:.1f}"
           f" GB on the host, S X ({N}, {p}) float32 {N * p * 4 / 1e9:.1f} GB "
-          f"on the card; p > {MAX_COLS} (fused), N > {MAX_ONE_PASS} (SRHT)")
+          f"on the card: memory alone keeps it off one card (the wide phase "
+          f"runs it at n = 32768)")
     ps = get_workload("logistic").preset("paper")
     n, p = ps.dims["n"], ps.dims["p"]
     n_train = n - int(round(n * ps.dims["test_frac"]))
     N = hadamard_ensemble(p, 2.0, 0)[0]
     print(f"logistic paper (n, p) = ({n}, {p}): X float32 "
           f"{n * p * 4 / 1e9:.1f} GB, lifted blocks X S^T ({n_train}, {N}) "
-          f"float32 {n_train * N * 4 / 1e9:.1f} GB on the card")
+          f"float32 {n_train * N * 4 / 1e9:.1f} GB on the card: memory alone "
+          f"keeps it off one card")
     try:
         get_workload("mf").run("coded", preset="paper", device=dev)
     except MemoryError as exc:
@@ -935,6 +956,319 @@ def train_breakdown(step_fn, smi: str, step_ms: float) -> None:
         print(f"  {us:10.1f} us {count:5d}x  {key[:100]}")
 
 
+def host_available_bytes() -> int:
+    """MemAvailable of /proc/meminfo in bytes (0 where it cannot be
+    read)."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def lipschitz_on_card(X, n: int, iters: int = 60) -> float:
+    """max eig of X^T X / n by power iteration on the card (X a float32
+    (n, p) tensor there): the LASSO workload's own rule takes it from a
+    host ``eigvalsh`` of the p x p matrix, which at p = 100 000 is 80 GB of
+    float64."""
+    import torch
+    g = torch.Generator(device=X.device).manual_seed(0)
+    v = torch.randn(X.shape[1], device=X.device, generator=g)
+    v /= v.norm()
+    for _ in range(iters):
+        u = X.T @ (X @ v) / n
+        v = u / u.norm()
+    return float(v @ (X.T @ (X @ v)) / n)
+
+
+def wide_phase(smi: str, drive, table: dict) -> None:
+    """coded-prox at LASSO §5.4's published width (module docstring, phase
+    "wide"); ``drive`` runs one entry with the launch counts cleared just
+    before and read just after, and requires its kernels; ``table`` is the
+    kernel table, whose rows gain the wide shapes' times under "wide"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.core import (FastHadamardEncoder, hadamard_ensemble,
+                                  hadamard_matrix, make_encoded_problem)
+    from repro_torch.data.pipeline import lsq_rows
+    from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
+    from repro_torch.kernels.fused_step import (MAX_COLS,
+                                                fused_masked_gradient,
+                                                fused_masked_gradient_plain,
+                                                fused_wide_scratch_bytes)
+    from repro_torch.kernels.fwht import (fwht_kernel_call, fwht_passes,
+                                          fwht_plain)
+    from repro_torch.kernels.ref import fused_masked_gradient_ref
+    from repro_torch.runtime import (FastestK, ProblemSpec, get_strategy,
+                                     scan_prox)
+    from repro_torch.workloads import get_workload
+
+    fused, srht, fwht, comb = ("fused_masked_gradient", "srht_encode",
+                               "fwht", "coded_combine")
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    wl = get_workload("lasso")
+    ps = wl.preset("paper")
+    p, m, k, lam, beta, steps = ps.dims["p"], ps.m, ps.k, ps.lam, 2.0, 20
+    n_pub = ps.dims["n"]
+    N_pub = hadamard_ensemble(n_pub, beta, 0)[0]
+    # the float64 data, a chunk in flight a thread, and the float32 casts
+    # of make_encoded_problem need about 65 GB of host memory at n = 32768
+    avail = host_available_bytes()
+    n = 32768 if avail >= 70e9 else 20000
+    N = hadamard_ensemble(n, beta, 0)[0]
+    r = N // m
+    print(f"reduced: n {n_pub} -> {n} (S X at the published n is ({N_pub}, "
+          f"{p}) float32, {N_pub * p * 4 / 1e9:.1f} GB, more than one card"
+          f"{'' if n == 32768 else '; host fallback: ' + str(avail // 10**9) + ' GB available'}"
+          f"); steps {ps.steps} -> {steps}; the workload's build (its "
+          f"FISTA ground truth and the eigvalsh of the p x p matrix, 80 GB "
+          f"of float64) left out: the step size 1 / (1.3 L + lam) takes L "
+          f"from a power iteration on the card.  Kept: p {p}, m {m}, k {k}, "
+          f"lam {lam}, sparsity {ps.dims['sparse']}, noise "
+          f"{ps.dims['noise']}, {ps.delay} delays, seed {ps.seed}, "
+          f"fast-Hadamard encoder, beta {beta}: N {N} ({len(fwht_passes(N))}"
+          f" FWHT passes), r {r} rows a worker, S X ({m}, {r}, {p}) float32 "
+          f"{m * r * p * 4 / 1e9:.1f} GB")
+
+    # the data: the port's chunk-deterministic generator (the LASSO
+    # preset's distribution: Gaussian X, a 7695-sparse w, sigma 40), a
+    # 4096-row chunk a thread
+    t0 = time.perf_counter()
+    X, y, chunk = np.empty((n, p)), np.empty(n), 4096
+
+    def fill(c):
+        lo, hi = c * chunk, min(n, (c + 1) * chunk)
+        X[lo:hi], y[lo:hi], _ = lsq_rows(lo, hi, p, noise=ps.dims["noise"],
+                                         sparse=ps.dims["sparse"],
+                                         seed=ps.seed)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(fill, range(-(-n // chunk))))
+    t_data = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xd = torch.empty((n, p), device=dev)
+    for r0 in range(0, n, 1024):
+        Xd[r0:r0 + 1024] = torch.from_numpy(X[r0:r0 + 1024]).to(
+            dev, torch.float32)
+    L = lipschitz_on_card(Xd, n)
+    del Xd
+    step = 1.0 / (1.3 * L + lam)
+    t_L = time.perf_counter() - t0
+    print(f"wide data ({n}, {p}) float64 {n * p * 8 / 1e9:.1f} GB on the "
+          f"host: {t_data:.1f} s host clock; L {L:.6g} (power iteration on "
+          f"the card, {t_L:.1f} s), step {step:.6g}")
+
+    # (1) coded-prox through the strategy entry point, and the same call
+    # under REPRO_FUSED=0 (the combine kernel) as its oracle
+    spec = ProblemSpec(X=X, y=y, lam=lam, h="l1")
+    engine = wl.default_engine(ps)
+    kw = dict(policy=FastestK(k), encoder="fast-hadamard", beta=beta,
+              step_size=step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = drive("wide coded-prox run", lambda: get_strategy(
+        "coded-prox").run(spec, engine, steps=steps, **kw),
+        {fused: steps, srht: 1})
+    t_run = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    with env_var("REPRO_FUSED", "0"):
+        ora = drive("wide coded-prox run REPRO_FUSED=0", lambda: get_strategy(
+            "coded-prox").run(spec, engine, steps=steps, **kw),
+            {comb: steps, srht: 1})
+    t_ora = time.perf_counter() - t0
+    tr, tr_o = np.asarray(res.objective), np.asarray(ora.objective)
+    require(np.isfinite(tr).all(), "wide coded-prox: non-finite objective")
+    require(tr[-1] < tr[0], f"wide coded-prox: objective did not fall "
+            f"({tr[0]:.6g} -> {tr[-1]:.6g})")
+    # f32 sums in another order on each side (the fused kernel's chunked
+    # dot products against the einsum and the combine)
+    d_rel = float(np.max(np.abs(tr - tr_o) / np.abs(tr_o)))
+    require(d_rel <= 1e-4, f"wide coded-prox vs REPRO_FUSED=0: rel "
+                           f"{d_rel:.2e}")
+    print(f"wide coded-prox run (p {p}, m {m}, k {k}, {steps} steps): "
+          f"objective {tr[0]:.6g} -> {tr[-1]:.6g}, support "
+          f"{int((res.w != 0).sum())}; {t_run:.1f} s host clock (encode "
+          f"included); peak device memory {run_peak / 1e9:.2f} GB; trace vs "
+          f"REPRO_FUSED=0 (combine, {t_ora:.1f} s): max rel diff "
+          f"{d_rel:.2e} (tol 1e-4)  [{smi}]")
+
+    # (2) decode_t(encode(x)) = beta x at N, 8 columns
+    gen = torch.Generator(device=dev).manual_seed(1)
+    enc = FastHadamardEncoder(n, beta, seed=0).with_workers(m)
+    x8 = torch.randn((n, 8), device=dev, generator=gen)
+    E = drive("wide encode", lambda: enc.encode(x8), {srht: 1})
+    D = drive("wide decode_t", lambda: enc.decode_t(E), {fwht: 1})
+    dec_rel = float((D - enc.beta * x8).norm() / (enc.beta * x8).norm())
+    require(dec_rel <= 1e-5, f"wide decode_t(encode(x)) != beta x: "
+                             f"{dec_rel:.2e}")
+    print(f"wide decode_t(encode(x)) vs beta x at N {N}, 8 columns: rel "
+          f"{dec_rel:.2e} (tol 1e-5)")
+    del E, D
+
+    # (3) the encode alone: peak device memory against |S X|, host clock
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prob = make_encoded_problem(X, y, FastHadamardEncoder(n, beta, seed=0),
+                                m, lam=lam, device=dev)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    enc_peak = torch.cuda.max_memory_allocated() - base
+    sx_bytes = prob.SX.numel() * prob.SX.element_size()
+    require(enc_peak <= 2.1 * sx_bytes, f"encode peak {enc_peak / 1e9:.2f} "
+            f"GB > 2.1 |S X| = {2.1 * sx_bytes / 1e9:.2f} GB")
+    require(run_peak <= 2.1 * sx_bytes, f"run peak {run_peak / 1e9:.2f} GB "
+            f"> 2.1 |S X|")
+    print(f"wide encode (make_encoded_problem): {t_enc:.1f} s host clock; "
+          f"peak device memory {enc_peak / 1e9:.2f} GB = "
+          f"{enc_peak / sx_bytes:.3f} |S X| (|S X| {sx_bytes / 1e9:.2f} GB; "
+          f"limit 2.1); X on the card {prob.X.numel() * 4 / 1e9:.2f} GB")
+    # where a step's device time goes: the column-split form's kernels
+    # and the objective on the original data
+    masks5 = torch.as_tensor(res.schedule.masks[:5], device=dev)
+    device_breakdown(lambda: scan_prox(prob, masks5, step,
+                                       torch.zeros(p, device=dev)),
+                     "5 wide coded-prox steps")
+    SX, Sy = prob.SX, prob.Sy
+    del prob, spec, X, y
+
+    # (4) each kernel against its plain version at the wide shapes
+    wide = {kn: [] for kn in (fused, srht, fwht)}
+
+    def row(kname, shape, fn, plain, lib, nbytes, flops, reps):
+        out = {"shape": shape, "ms": time_ms(fn, reps),
+               "plain_ms": time_ms(plain, 3) if plain else None,
+               "library_ms": time_ms(lib, 3) if lib else None}
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
+        wide[kname].append(out)
+        plain_s = f"{out['plain_ms']:.4f} ms" if plain else "not measured"
+        lib_s = f"{out['library_ms']:.4f} ms" if lib else "none"
+        print(f"time {kname} {shape}: {out['ms']:.4f} ms; bound "
+              f"{out['bound_ms']:.4f} ms ({out['bound_by']}); plain "
+              f"{plain_s}; library {lib_s}  [{smi}]")
+
+    # the fused gradient on the encoded data: p = MAX_COLS + 1 and p, 8
+    # workers, batched R = 4 rows equal to single calls bit for bit
+    fkw = dict(n=n, beta=beta)
+    rng = np.random.default_rng(0)
+    masks4 = torch.as_tensor((rng.random((4, 8)) < 0.7).astype(np.float32),
+                             device=dev)
+    masks4[:, 0] = 1.0
+    for pw in (MAX_COLS + 1, p):
+        SX8 = SX[:8, :, :pw].contiguous() if pw < p else SX[:8]
+        Sy8 = Sy[:8].contiguous()
+        W4 = torch.randn((4, pw), device=dev, generator=gen) * 0.01
+        g4 = fused_masked_gradient(SX8, Sy8, W4, masks4, **fkw)
+        err, rel = rel_err(g4, fused_masked_gradient_plain(SX8, Sy8, W4,
+                                                           masks4, **fkw))
+        # f32 dot products of pw terms in chunks, rows of r terms
+        require(rel <= 1e-4, f"fused p={pw}: rel err {rel:.2e}")
+        for q in range(4):
+            require(torch.equal(g4[q], fused_masked_gradient(
+                SX8, Sy8, W4[q], masks4[q], **fkw)),
+                f"fused p={pw}: batched row {q} != single call")
+        print(f"check fused (8, {r}, {pw}) batched R=4: max|d| {err:.3e} "
+              f"({rel:.2e} of max|ref|, tol 1e-4); batched[q] == single(q) "
+              f"bitwise; scratch a realization "
+              f"{fused_wide_scratch_bytes(8, r, pw) / 1e6:.1f} MB")
+        table[fused]["max_abs_err"] = max(table[fused]["max_abs_err"], err)
+    act = int(masks4[0].sum())
+    row(fused, f"(8, {r}, {p}) single, {act} active",
+        lambda: fused_masked_gradient(SX8, Sy8, W4[0], masks4[0], **fkw),
+        lambda: fused_masked_gradient_plain(SX8, Sy8, W4[:1], masks4[:1],
+                                            **fkw),
+        lambda: fused_masked_gradient_ref(SX8, Sy8, W4[0], masks4[0], **fkw),
+        (act * r * (p + 1) + 2 * p + 8) * 4, 4 * act * r * p, 20)
+    act = int((masks4.sum(0) > 0).sum())
+    row(fused, f"(8, {r}, {p}) batched R=4, {act} active in some "
+        f"realization", lambda: fused_masked_gradient(SX8, Sy8, W4, masks4,
+                                                      **fkw),
+        lambda: fused_masked_gradient_plain(SX8, Sy8, W4, masks4, **fkw),
+        lambda: [fused_masked_gradient_ref(SX8, Sy8, W4[q], masks4[q], **fkw)
+                 for q in range(4)],
+        (act * r * (p + 1) + 2 * 4 * p + 4 * 8) * 4,
+        4 * int(masks4.sum()) * r * p, 20)
+    mask = torch.as_tensor(res.schedule.masks[0], device=dev)
+    act = int(mask.sum())
+    w = torch.randn(p, device=dev, generator=gen) * 0.01
+    active_bytes = act * r * p * 4
+    scratch = fused_wide_scratch_bytes(m, r, p)
+    require(scratch <= active_bytes / 16, f"fused scratch {scratch} > 1/16 "
+            f"of the active S X bytes {active_bytes}")
+    print(f"fused scratch a realization at ({m}, {r}, {p}): "
+          f"{scratch / 1e9:.3f} GB = 1/{active_bytes / scratch:.1f} of the "
+          f"{act} active workers' S X ({active_bytes / 1e9:.2f} GB)")
+    row(fused, f"({m}, {r}, {p}) single, {act} active (the path's step)",
+        lambda: fused_masked_gradient(SX, Sy, w, mask, **fkw), None, None,
+        (act * r * (p + 1) + 2 * p + m) * 4, 4 * act * r * p, 10)
+    del SX, Sy, SX8, Sy8
+
+    # FWHT at decode_t's (8, N) and LASSO paper's N; the library yardstick
+    # is the dense product with the Sylvester matrix where it fits the card
+    H256 = torch.as_tensor(hadamard_matrix(256), dtype=torch.float32,
+                           device=dev)
+    H = torch.kron(H256, H256) if N == 65536 else None
+    for rows, nf in ((8, N), (2, N_pub)):
+        x = torch.randn((rows, nf), device=dev, generator=gen)
+        err, rel = rel_err(fwht_kernel_call(x), fwht_plain(x))
+        # f32 butterflies of log2(n) stages summed in another stage order
+        require(rel <= 1e-5, f"fwht ({rows}, {nf}): rel {rel:.2e}")
+        print(f"check fwht ({rows}, {nf}), {len(fwht_passes(nf))} passes: "
+              f"max|d| {err:.3e} ({rel:.2e} of max|ref|, tol 1e-5)")
+        table[fwht]["max_abs_err"] = max(table[fwht]["max_abs_err"], err)
+        row(fwht, f"({rows}, {nf})", lambda: fwht_kernel_call(x),
+            lambda: fwht_plain(x),
+            (lambda: torch.matmul(x, H)) if nf == N and H is not None
+            else None, 2 * x.numel() * 4, x.numel() * math.log2(nf), 20)
+
+    # SRHT of 64 data columns: full frame and worker 5's window; the
+    # yardstick is the product with the dense S = H[:, cols] D / sqrt(n)
+    _, cols, signs = hadamard_ensemble(n, beta, 0)
+    cols_t = torch.as_tensor(cols.astype(np.int32), device=dev)
+    signs_t = torch.as_tensor(signs.astype(np.float32), device=dev)
+    xt = torch.randn((64, n), device=dev, generator=gen)
+    S = (H[:, cols_t.long()] * signs_t / math.sqrt(n)) if H is not None \
+        else None
+    del H
+    for lo, hi in ((0, N), (5 * r, 6 * r)):
+        skw = dict(N=N, lo=lo, hi=hi, scale=1.0 / math.sqrt(n))
+        err, rel = rel_err(srht_encode_call(xt, cols_t, signs_t, **skw),
+                           srht_encode_plain(xt, cols_t, signs_t, **skw))
+        require(rel <= 1e-5, f"srht [{lo}, {hi}): rel {rel:.2e}")
+        print(f"check srht (64, {n}) -> N {N} window [{lo}, {hi}): max|d| "
+              f"{err:.3e} ({rel:.2e} of max|ref|, tol 1e-5)")
+        table[srht]["max_abs_err"] = max(table[srht]["max_abs_err"], err)
+        Sw = S[lo:hi] if S is not None else None
+        row(srht, f"(64, {n}) -> [{lo}, {hi}) of {N}",
+            lambda: srht_encode_call(xt, cols_t, signs_t, **skw),
+            lambda: srht_encode_plain(xt, cols_t, signs_t, **skw),
+            (lambda: torch.matmul(Sw, xt.T)) if Sw is not None else None,
+            (64 * n + 64 * (hi - lo)) * 4 + n * 8,
+            64 * N * math.log2(N), 20)
+    del S, Sw, xt
+    # the path's encode: the (p + 1)-column frame
+    xt = torch.randn((p + 1, n), device=dev, generator=gen)
+    skw = dict(N=N, lo=0, hi=N, scale=1.0 / math.sqrt(n))
+    row(srht, f"({p + 1}, {n}) -> {N} (the path's encode)",
+        lambda: srht_encode_call(xt, cols_t, signs_t, **skw), None, None,
+        ((p + 1) * (n + N)) * 4 + n * 8, (p + 1) * N * math.log2(N), 3)
+    del xt
+    for kname, rows_ in wide.items():
+        table[kname]["wide"] = rows_
+    print(f"wide phase: {time.perf_counter() - t_phase:.1f} s host clock "
+          f"(data {t_data:.1f}, L {t_L:.1f}, fused run {t_run:.1f}, "
+          f"REPRO_FUSED=0 run {t_ora:.1f}, encode {t_enc:.1f})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1261,6 +1595,8 @@ def main() -> int:
     harness_phase(cfg, smi, drive)
     # coded SGD over the dense LM ------------------------------------------
     train_phase(smi, drive, table["coded_combine"])
+    # coded-prox at LASSO §5.4's published width ---------------------------
+    wide_phase(smi, drive, table)
     print(f"launches by path: {json.dumps(by_path)}")
 
     # 5. times ---------------------------------------------------------------

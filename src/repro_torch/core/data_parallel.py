@@ -17,6 +17,7 @@ float32 rounding.  The caller's setting is left as it was.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -77,28 +78,67 @@ def make_encoded_problem(X: np.ndarray, y: np.ndarray, enc: LinearEncoder,
 
     X and y are encoded jointly as one (n, p+1) pass.  The fast-Hadamard
     encoder runs its SRHT kernel on the device, on the float32 cast of the
-    data (as the reference does), and its (rows, p+1) result stays there.
-    Host encoders build float64 blocks that are cast to ``dtype`` exactly as
-    the reference casts them.
+    data (as the reference does), and its (rows, p+1) result stays there
+    (``_hadamard_blocks``).  Host encoders build float64 blocks that are
+    cast to ``dtype`` exactly as the reference casts them.
     """
     dev = resolve_device(device)
     enc = enc.with_workers(m)
-    Xy = np.concatenate([np.asarray(X, np.float64),
-                         np.asarray(y, np.float64)[:, None]], axis=1)
     if isinstance(enc, FastHadamardEncoder):
-        blocks = enc.encode_partitioned(
-            torch.as_tensor(Xy, dtype=torch.float32, device=dev))
-        SXy = torch.stack(blocks).to(dtype)               # (m, r, p+1)
+        SX, Sy = _hadamard_blocks(X, y, enc, dtype, dev)
     else:
+        Xy = np.concatenate([np.asarray(X, np.float64),
+                             np.asarray(y, np.float64)[:, None]], axis=1)
         SXy = torch.as_tensor(
             np.stack([np.asarray(b, np.float64)
                       for b in enc.encode_partitioned(Xy)]),
             dtype=dtype, device=dev)
+        SX, Sy = SXy[..., :-1].contiguous(), SXy[..., -1].contiguous()
+        del SXy
     return EncodedProblem(
-        SX=SXy[..., :-1].contiguous(), Sy=SXy[..., -1].contiguous(),
+        SX=SX, Sy=Sy,
         X=torch.as_tensor(np.asarray(X), dtype=dtype, device=dev),
         y=torch.as_tensor(np.asarray(y), dtype=dtype, device=dev),
         lam=float(lam), beta=float(enc.beta), n=X.shape[0])
+
+
+# host rows of the data cast and moved to the device at a time
+_STAGE_ROWS = 1024
+
+
+def _hadamard_blocks(X, y, enc: FastHadamardEncoder, dtype, dev):
+    """SX (m, r, p) and Sy (m, r) of the fast-Hadamard encode of [X y].
+
+    The SRHT kernel reads the data as columns, xt = [X y]^T (p+1, n)
+    float32, built on the device from float32 casts of a few host rows at a
+    time, and writes the (p+1, N) frame.  xt is dropped before the frame
+    is copied once into the worker blocks (zero rows past N pad the last
+    worker), and the frame after, so the device holds at most the frame
+    and SX (about 2 |SX|) and the host no float64 copy of the data.  The
+    values equal those of stacking ``enc.encode_partitioned`` of the
+    float32 [X y] and splitting off its last column."""
+    from repro_torch.kernels.encode import srht_encode_call
+    X = np.asarray(X)
+    n, p = X.shape
+    xt = torch.empty((p + 1, n), dtype=torch.float32, device=dev)
+    for r0 in range(0, n, _STAGE_ROWS):
+        rows = torch.as_tensor(X[r0:r0 + _STAGE_ROWS]).to(dev, torch.float32)
+        xt[:p, r0:r0 + _STAGE_ROWS] = rows.t()
+        del rows
+    xt[p] = torch.as_tensor(np.asarray(y)).to(dev, torch.float32)
+    frame = srht_encode_call(
+        xt, torch.as_tensor(enc.cols.astype(np.int32), device=dev),
+        torch.as_tensor(np.asarray(enc.signs, np.float32), device=dev),
+        N=enc.N, lo=0, hi=enc.N, scale=1.0 / math.sqrt(n))
+    del xt
+    m, r = enc.m, enc.rows_per_worker
+    SX = torch.empty((m, r, p), dtype=dtype, device=dev)
+    Sy = torch.empty((m, r), dtype=dtype, device=dev)
+    SX.view(m * r, p)[:enc.N].copy_(frame[:p].t())
+    Sy.view(-1)[:enc.N].copy_(frame[p])
+    SX.view(m * r, p)[enc.N:].zero_()
+    Sy.view(-1)[enc.N:].zero_()
+    return SX, Sy
 
 
 @full_f32_matmul

@@ -106,11 +106,24 @@ def _compile(lib: Path) -> str:
 
 _SIGNATURES = {
     "repro_fwht": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "repro_fwht_strided": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "repro_srht_encode": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_float, ctypes.c_void_p],
+    "repro_srht_segments": [ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_void_p],
+    "repro_fused_masked_gradient_wide": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     "repro_fused_masked_gradient": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,

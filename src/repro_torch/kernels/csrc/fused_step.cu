@@ -41,8 +41,8 @@
 // sums, and RT sets of NE accumulators: RT comes from p alone, the largest
 // of 8, 4, 2, 1 with NE (1 + RT) <= 200 registers and the tile's iterates
 // (RT p floats, staged in shared memory once a block) beside two row
-// buffers inside 227 KB; NE <= 64 caps p at 16384, wider rows need a
-// multi-pass form.  A single call takes a tile of one (fewer registers, so
+// buffers inside 227 KB; NE <= 64 caps this form at p = 16384 (wider rows
+// take the column-split form below).  A single call takes a tile of one (fewer registers, so
 // more blocks an SM); its sums are the same.  Rows reach shared memory
 // through a ring of 2-4 row buffers filled by asynchronous copies (one 1D
 // bulk copy of the Tensor Memory Accelerator a row, completing on an
@@ -59,6 +59,30 @@
 // shared-memory reads, shuffles and a barrier.  The scratch (one p-row per
 // active unit of up to 16 rows and realization) adds about 1/16 of the
 // rows' bytes a realization.
+//
+// Past p = 16384 (a row no longer fits a thread's registers) the call takes
+// the column-split form, three kernels and the same invariants:
+//   wide_residual - a grid of (row groups of each worker, column chunks of
+//             kChunk, realization tiles of kWideTile): a block keeps its
+//             tile's iterates over one chunk in registers and walks its rows,
+//             each row's chunk dot product reduced as stage 1 reduces a row
+//             (a thread's columns t, t + kThreads, ... in order, a shuffle
+//             tree a warp, the warps' sums in order) into partial[q, i, k,
+//             chunk];
+//   wide_gradient - a grid of (units of bw rows, column tiles of kWideCols,
+//             realization tiles): a block forms u_qk = (the row's chunk sums
+//             added in chunk order) - Sy_k for its unit's rows, then
+//             c_qi sum_k u_qk SX_k[cols] over the rows in order into
+//             scratch[q, unit, cols];
+//   stage 2 as above, over the units of bw rows.
+// Realization q's operations depend on neither R nor the tile, so batched
+// rows equal single calls bit for bit; a block whose worker is masked out in
+// every realization of its tile exits before it reads a row.  This form
+// reads the active SX twice (once a kernel), so its bound is twice one read:
+// a one-read form would keep a row's 4p bytes across a thread-block
+// cluster's distributed shared memory.  The scratch takes one p-row a unit
+// of bw rows (bw the largest divisor of r up to 64), 1/bw of SX a
+// realization.
 #include "hadamard.cuh"
 
 #include <cstdint>
@@ -593,6 +617,211 @@ cudaError_t dispatch(const void* SX, const void* Sy, const void* W,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The column-split form (p > kMaxCols).
+constexpr int kChunk = 4096;                // columns of one partial dot
+constexpr int kChunkRegs = kChunk / kThreads;
+constexpr int kWideCols = 1024;             // columns of a gradient block
+constexpr int kWideRegs = kWideCols / kThreads;
+constexpr int kWideTile = 4;                // realizations a block
+constexpr int kWideRows = 32;               // rows a residual block walks
+constexpr int kMaxWideRows = 64;            // rows of a gradient unit
+
+// partial[q, i, k, chunk] = the chunk's share of SX_ik . W[q], for each
+// realization q of the tile with worker i active.  Grid: (m * groups,
+// chunks, tiles), groups = ceil(r / kWideRows).
+template <typename T, int RT>
+__global__ void __launch_bounds__(kThreads)
+wide_residual(const T* __restrict__ SX, const T* __restrict__ W,
+              const float* __restrict__ masks, float* __restrict__ partial,
+              int R, int m, int r, int p, int nchunks) {
+  __shared__ float red[2][RT][kWarps];
+  const int groups = (r + kWideRows - 1) / kWideRows;
+  const int i = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int chunk = blockIdx.y, q0 = blockIdx.z * RT;
+  const int nq = R - q0 < RT ? R - q0 : RT;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  bool act[RT];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < RT; ++q) {
+    act[q] = q < nq && masks[static_cast<size_t>(q0 + q) * m + i] != 0.f;
+    any = any || act[q];
+  }
+  if (!any) return;                         // worker i's rows are not read
+  const int c0 = chunk * kChunk;
+  float wv[RT][kChunkRegs];
+#pragma unroll
+  for (int q = 0; q < RT; ++q)
+#pragma unroll
+    for (int j = 0; j < kChunkRegs; ++j) {
+      const int col = c0 + t + j * kThreads;
+      wv[q][j] = act[q] && col < p
+          ? repro::to_f32(W[static_cast<size_t>(q0 + q) * p + col]) : 0.f;
+    }
+  const int k0 = grp * kWideRows;
+  const int k1 = r < k0 + kWideRows ? r : k0 + kWideRows;
+  for (int k = k0; k < k1; ++k) {
+    const T* row = SX + (static_cast<size_t>(i) * r + k) * p;
+    float x[kChunkRegs];
+#pragma unroll
+    for (int j = 0; j < kChunkRegs; ++j) {
+      const int col = c0 + t + j * kThreads;
+      x[j] = col < p ? repro::to_f32(row[col]) : 0.f;
+    }
+    const int par = k & 1;
+#pragma unroll
+    for (int q = 0; q < RT; ++q) {
+      float d = 0.f;
+      if (act[q]) {
+#pragma unroll
+        for (int j = 0; j < kChunkRegs; ++j)
+          if (c0 + t + j * kThreads < p) d += x[j] * wv[q][j];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          d += __shfl_down_sync(0xffffffffu, d, off);
+      }
+      if (lane == 0) red[par][q][warp] = d;
+    }
+    // red[par] is rewritten two rows on, after the next barrier, by which
+    // time its readers below are done with it
+    __syncthreads();
+    if (t < nq && masks[static_cast<size_t>(q0 + t) * m + i] != 0.f) {
+      float sum = 0.f;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) sum += red[par][t][v];
+      partial[((static_cast<size_t>(q0 + t) * m + i) * r + k) * nchunks +
+              chunk] = sum;
+    }
+  }
+}
+
+// scratch[q, unit, cols] = c_qi sum_k u_qk SX_k[cols] over the unit's bw
+// rows in order, u_qk = (partial[q, i, k, :] added in chunk order) - Sy_k.
+// Grid: (m * r / bw units, column tiles of kWideCols, tiles).
+template <typename T, int RT>
+__global__ void __launch_bounds__(kThreads)
+wide_gradient(const T* __restrict__ SX, const T* __restrict__ Sy,
+              const float* __restrict__ masks,
+              const float* __restrict__ partial, float* __restrict__ scratch,
+              int R, int m, int r, int p, int bw, int nchunks, float nbeta) {
+  __shared__ float us[RT][kMaxWideRows];
+  __shared__ float mk[RT];
+  const int nrb = r / bw;
+  const int unit = blockIdx.x, i = unit / nrb, kb = (unit % nrb) * bw;
+  const int c0 = blockIdx.y * kWideCols, q0 = blockIdx.z * RT;
+  const int nq = R - q0 < RT ? R - q0 : RT;
+  const int t = threadIdx.x;
+  bool act[RT];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < RT; ++q) {
+    act[q] = q < nq && masks[static_cast<size_t>(q0 + q) * m + i] != 0.f;
+    any = any || act[q];
+  }
+  if (!any) return;                         // worker i's rows are not read
+  for (int idx = t; idx < RT * bw; idx += kThreads) {
+    const int q = idx / bw, kk = idx % bw;
+    if (act[q]) {
+      const float* pp = partial +
+          ((static_cast<size_t>(q0 + q) * m + i) * r + kb + kk) * nchunks;
+      float u = 0.f;
+      for (int c = 0; c < nchunks; ++c) u += pp[c];
+      us[q][kk] = u - repro::to_f32(Sy[static_cast<size_t>(i) * r + kb + kk]);
+    }
+  }
+  // m / k_q, k_q summing the masks in the reference's order
+  if (t < nq) {
+    const float* mrow = masks + static_cast<size_t>(q0 + t) * m;
+    float kq = 0.f;
+    for (int a = 0; a < m; ++a) kq += mrow[a];
+    mk[t] = static_cast<float>(m) / fmaxf(kq, 1.f);
+  }
+  __syncthreads();
+  float acc[RT][kWideRegs];
+#pragma unroll
+  for (int q = 0; q < RT; ++q)
+#pragma unroll
+    for (int j = 0; j < kWideRegs; ++j) acc[q][j] = 0.f;
+  const T* base = SX + (static_cast<size_t>(i) * r + kb) * p;
+#pragma unroll 4
+  for (int kk = 0; kk < bw; ++kk) {
+    const T* row = base + static_cast<size_t>(kk) * p;
+    float x[kWideRegs];
+#pragma unroll
+    for (int j = 0; j < kWideRegs; ++j) {
+      const int col = c0 + t + j * kThreads;
+      x[j] = col < p ? repro::to_f32(row[col]) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < RT; ++q) {
+      if (!act[q]) continue;
+      const float uk = us[q][kk];
+#pragma unroll
+      for (int j = 0; j < kWideRegs; ++j) acc[q][j] += uk * x[j];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < RT; ++q) {
+    if (!act[q]) continue;
+    const float mq = masks[static_cast<size_t>(q0 + q) * m + i];
+    const float ci = mq * mk[q] / nbeta;
+    float* out = scratch + (static_cast<size_t>(q0 + q) * m * nrb + unit) * p;
+#pragma unroll
+    for (int j = 0; j < kWideRegs; ++j) {
+      const int col = c0 + t + j * kThreads;
+      if (col < p) out[col] = ci * acc[q][j];
+    }
+  }
+}
+
+template <typename T, int RT>
+cudaError_t launch_wide(const void* SX, const void* Sy, const void* W,
+                        const float* masks, float* partial, float* scratch,
+                        void* G, int R, int m, int r, int p, int bw,
+                        float nbeta, cudaStream_t stream) {
+  const int nchunks = (p + kChunk - 1) / kChunk;
+  const int ntiles = (R + RT - 1) / RT;
+  const int groups = (r + kWideRows - 1) / kWideRows;
+  const int nrb = r / bw;
+  const int64_t rblocks = static_cast<int64_t>(m) * groups;
+  const int64_t units = static_cast<int64_t>(m) * nrb;
+  const int ctiles = (p + kWideCols - 1) / kWideCols;
+  if (rblocks > 0x7fffffffLL || units > 0x7fffffffLL || nchunks > 65535 ||
+      ctiles > 65535 || ntiles > 65535)
+    return cudaErrorInvalidValue;
+  wide_residual<T, RT><<<dim3(static_cast<unsigned>(rblocks), nchunks,
+                              ntiles), kThreads, 0, stream>>>(
+      static_cast<const T*>(SX), static_cast<const T*>(W), masks, partial, R,
+      m, r, p, nchunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wide_gradient<T, RT><<<dim3(static_cast<unsigned>(units), ctiles, ntiles),
+                         kThreads, 0, stream>>>(
+      static_cast<const T*>(SX), static_cast<const T*>(Sy), masks, partial,
+      scratch, R, m, r, p, bw, nchunks, nbeta);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid2((p + kCols - 1) / kCols, R);
+  fused_stage2<T><<<grid2, kCols * kSplit, 0, stream>>>(
+      scratch, masks, static_cast<T*>(G), m, nrb, p);
+  return cudaGetLastError();
+}
+
+// A single call takes a tile of one (fewer registers); its sums are the
+// same in a tile of kWideTile.
+template <typename T>
+cudaError_t dispatch_wide(const void* SX, const void* Sy, const void* W,
+                          const float* masks, float* partial, float* scratch,
+                          void* G, int R, int m, int r, int p, int bw,
+                          float nbeta, cudaStream_t stream) {
+  if (R == 1)
+    return launch_wide<T, 1>(SX, Sy, W, masks, partial, scratch, G, R, m, r,
+                             p, bw, nbeta, stream);
+  return launch_wide<T, kWideTile>(SX, Sy, W, masks, partial, scratch, G, R,
+                                   m, r, p, bw, nbeta, stream);
+}
+
 }  // namespace
 
 // scratch: (R, m * r / br, p) float32.  dtype: 0 = float32, 1 = bfloat16
@@ -615,6 +844,30 @@ extern "C" int repro_fused_masked_gradient(const void* SX, const void* Sy,
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(SX, Sy, W, mk, sc, G, R, m, r, p, br,
                                    nbeta, st);
+  return cudaErrorInvalidValue;
+}
+
+// The column-split form for p > 16384.  partial: (R, m, r, ceil(p / 4096))
+// float32; scratch: (R, m * r / bw, p) float32, bw dividing r, at most 64.
+// dtype: 0 = float32, 1 = bfloat16 (SX, Sy, W and G).  Returns
+// cudaGetLastError() after the launches.
+extern "C" int repro_fused_masked_gradient_wide(
+    const void* SX, const void* Sy, const void* W, const void* masks,
+    void* partial, void* scratch, void* G, int R, int m, int r, int p,
+    int bw, float nbeta, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R <= 0 || m <= 0 || r <= 0 || p <= kMaxCols || bw <= 0 ||
+      bw > kMaxWideRows || r % bw || R > 65535)
+    return cudaErrorInvalidValue;
+  const float* mk = static_cast<const float*>(masks);
+  float* pa = static_cast<float*>(partial);
+  float* sc = static_cast<float*>(scratch);
+  if (dtype == 0)
+    return dispatch_wide<float>(SX, Sy, W, mk, pa, sc, G, R, m, r, p, bw,
+                                nbeta, st);
+  if (dtype == 1)
+    return dispatch_wide<__nv_bfloat16>(SX, Sy, W, mk, pa, sc, G, R, m, r, p,
+                                        bw, nbeta, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,5 @@
 // Unnormalised fast Walsh-Hadamard transform along the last axis of a
-// (rows, n) array, n a power of two up to 32768, summed in float32.
+// (rows, n) array, n a power of two, summed in float32.
 //
 // Replaces the TPU kernel src/repro/kernels/fwht.py (_fwht_body with
 // butterfly, launched by fwht_kernel_call), which keeps a (rows, n) tile
@@ -7,17 +7,34 @@
 //
 // Bound on the H100: memory.  Each row is read once and written once
 // (8 bytes an element in float32) against 0.5 log2(n) add/sub pairs an
-// element, far below the card's operations-per-byte line.  Design: one block
-// per row, the whole row on chip (registers + shared memory) for every
-// stage, so device memory sees one coalesced read and one coalesced write;
-// the low-stride stages never touch shared memory (registers and warp
-// shuffles, hadamard.cuh).
+// element, far below the card's operations-per-byte line.
+//
+// One pass (n <= 32768): one block per row, the whole row on chip
+// (registers + shared memory) for every stage, so device memory sees one
+// coalesced read and one coalesced write; the low-stride stages never touch
+// shared memory (registers and warp shuffles, hadamard.cuh).
+//
+// Several passes (n > 32768): a block holds at most 32768 values, so the
+// row is split as n = N1 * N2 with N2 = 32768 contiguous, and
+// H_n = H_N1 (x) H_N2 in Sylvester order.  Pass 1 is the one-pass kernel
+// over the rows * N1 contiguous segments of N2 (the stages h < N2); pass 2
+// (fwht_strided) runs the stages h >= N2 along the strided axis: a block
+// takes L = N1 values at stride N2 for TC consecutive offsets, N1 x TC
+// values in shared memory, so its loads and stores stay coalesced along
+// the offsets.  Where N1 is above kMaxStrided the same split applies again
+// (a third pass at stride N2 * kMaxStrided, and so on); the wrapper plans
+// the passes (kernels/fwht.py fwht_passes).  Each pass reads and writes the
+// row once, so P passes move P times one pass's bytes.  A strided pass
+// reads its whole tile before it writes any of it, and the tiles are
+// disjoint, so it may run in place.
 #include "hadamard.cuh"
+
+#include <cstdint>
 
 namespace {
 
-template <typename T, int R>
-__global__ void fwht_kernel(const T* __restrict__ x, T* __restrict__ out,
+template <typename Tin, typename Tout, int R>
+__global__ void fwht_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
                             int n) {
   extern __shared__ float s[];
   const int nt = blockDim.x, t = threadIdx.x;
@@ -26,47 +43,155 @@ __global__ void fwht_kernel(const T* __restrict__ x, T* __restrict__ out,
 #pragma unroll
   for (int j = 0; j < R; ++j) v[j] = repro::to_f32(x[base + j * nt + t]);
   repro::butterfly<R>(v, s);
-  for (int i = t; i < n; i += nt) out[base + i] = repro::from_f32<T>(s[i]);
+  for (int i = t; i < n; i += nt) out[base + i] = repro::from_f32<Tout>(s[i]);
 }
 
-template <typename T, int R>
+template <typename Tin, typename Tout, int R>
 cudaError_t launch(const void* x, void* out, int rows, int n,
                    cudaStream_t stream) {
   const int threads = n / R;
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
   cudaError_t err = repro::set_smem(
-      reinterpret_cast<const void*>(&fwht_kernel<T, R>), smem);
+      reinterpret_cast<const void*>(&fwht_kernel<Tin, Tout, R>), smem);
   if (err != cudaSuccess) return err;
-  fwht_kernel<T, R><<<rows, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), n);
+  fwht_kernel<Tin, Tout, R><<<rows, threads, smem, stream>>>(
+      static_cast<const Tin*>(x), static_cast<Tout*>(out), n);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename Tin, typename Tout>
 cudaError_t dispatch(const void* x, void* out, int rows, int n,
                      cudaStream_t stream) {
   switch (n / repro::butterfly_threads(n)) {
-    case 1: return launch<T, 1>(x, out, rows, n, stream);
-    case 2: return launch<T, 2>(x, out, rows, n, stream);
-    case 4: return launch<T, 4>(x, out, rows, n, stream);
-    case 8: return launch<T, 8>(x, out, rows, n, stream);
-    case 16: return launch<T, 16>(x, out, rows, n, stream);
-    case 32: return launch<T, 32>(x, out, rows, n, stream);
-    case 64: return launch<T, 64>(x, out, rows, n, stream);
+    case 1: return launch<Tin, Tout, 1>(x, out, rows, n, stream);
+    case 2: return launch<Tin, Tout, 2>(x, out, rows, n, stream);
+    case 4: return launch<Tin, Tout, 4>(x, out, rows, n, stream);
+    case 8: return launch<Tin, Tout, 8>(x, out, rows, n, stream);
+    case 16: return launch<Tin, Tout, 16>(x, out, rows, n, stream);
+    case 32: return launch<Tin, Tout, 32>(x, out, rows, n, stream);
+    case 64: return launch<Tin, Tout, 64>(x, out, rows, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// A strided pass: at most kMaxStrided points along the strided axis, and
+// TC = max(32, kTileValues / L) offsets a block, so a block holds at most
+// max(32 L, kTileValues) floats (128 KB at L = 1024).
+constexpr int kMaxStrided = 1024;
+constexpr int kTileValues = 8192;
+constexpr int kStridedThreads = 256;
+
+inline int strided_tile(int L) {
+  const int tc = kTileValues / L;
+  return tc < 32 ? 32 : tc;
+}
+
+// For each row of src (rows, n), viewed as (n / (L S), L, S): the L-point
+// butterflies along the middle axis (stages h = S, 2S, ..., (L/2) S of the
+// whole row, in that order), then positions [lo, hi) of the row, times
+// scale, to dst (rows, hi - lo).  Block b takes offsets [c0, c0 + TC) of
+// group g of row `row`; its tile a * TC + c holds position
+// g L S + a S + c0 + c.  src and dst may be the same array (lo = 0,
+// hi = n, one dtype): the tile is read whole before any of it is written.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kStridedThreads)
+fwht_strided(const Tin* src, Tout* dst, int64_t n, int L, int64_t S, int tc,
+             int64_t lo, int64_t hi, float scale) {
+  extern __shared__ float s[];
+  const int t = threadIdx.x;
+  const int64_t tiles = S / tc, groups = n / (static_cast<int64_t>(L) * S);
+  int64_t b = blockIdx.x;
+  const int64_t tile = b % tiles;
+  b /= tiles;
+  const int64_t g = b % groups, row = b / groups;
+  const int64_t pos0 = g * L * S + tile * tc;
+  const Tin* sp = src + row * n + pos0;
+  const int total = L * tc;
+  for (int idx = t; idx < total; idx += kStridedThreads) {
+    const int a = idx / tc, c = idx - a * tc;
+    s[idx] = repro::to_f32(sp[a * S + c]);
+  }
+  __syncthreads();
+  const int half = total / 2;
+  for (int h = 1; h < L; h <<= 1) {
+    for (int q = t; q < half; q += kStridedThreads) {
+      const int pa = q / tc, c = q - pa * tc;
+      const int a = (pa & ~(h - 1)) * 2 + (pa & (h - 1));
+      const float u = s[a * tc + c], v = s[(a + h) * tc + c];
+      s[a * tc + c] = u + v;
+      s[(a + h) * tc + c] = u - v;
+    }
+    __syncthreads();
+  }
+  const int64_t w = hi - lo;
+  Tout* dp = dst + row * w;
+  for (int idx = t; idx < total; idx += kStridedThreads) {
+    const int a = idx / tc, c = idx - a * tc;
+    const int64_t pos = pos0 + a * S + c;
+    if (pos >= lo && pos < hi)
+      dp[pos - lo] = repro::from_f32<Tout>(s[idx] * scale);
+  }
+}
+
+template <typename Tin, typename Tout>
+cudaError_t launch_strided(const void* src, void* dst, int64_t rows,
+                           int64_t n, int L, int64_t S, int64_t lo,
+                           int64_t hi, float scale, cudaStream_t stream) {
+  const int tc = strided_tile(L);
+  if (S % tc) return cudaErrorInvalidValue;
+  const int64_t blocks = rows * (n / tc / L);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(L) * tc * sizeof(float);
+  cudaError_t err = repro::set_smem(
+      reinterpret_cast<const void*>(&fwht_strided<Tin, Tout>), smem);
+  if (err != cudaSuccess) return err;
+  fwht_strided<Tin, Tout><<<static_cast<unsigned>(blocks), kStridedThreads,
+                            smem, stream>>>(
+      static_cast<const Tin*>(src), static_cast<Tout*>(dst), n, L, S, tc, lo,
+      hi, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success).
+// One pass over rows of n <= 32768 values (rows may be the contiguous
+// segments of longer rows: pass 1 of the multi-pass form).  dtype_in /
+// dtype_out: 0 = float32, 1 = bfloat16 (a bfloat16 transform of several
+// passes reads bfloat16 and writes a float32 intermediate).  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_fwht(const void* x, void* out, int rows, int n,
-                          int dtype, void* stream) {
+                          int dtype_in, int dtype_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n <= 0 || (n & (n - 1)) || n > 32768)
     return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch<float>(x, out, rows, n, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(x, out, rows, n, st);
+  if (dtype_in == 0 && dtype_out == 0)
+    return dispatch<float, float>(x, out, rows, n, st);
+  if (dtype_in == 1 && dtype_out == 1)
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(x, out, rows, n, st);
+  if (dtype_in == 1 && dtype_out == 0)
+    return dispatch<__nv_bfloat16, float>(x, out, rows, n, st);
+  return cudaErrorInvalidValue;
+}
+
+// One strided pass (fwht_strided) over rows of n values: L-point
+// butterflies at stride S, L a power of two up to 1024 and S a power of two
+// at or above 32768 with L S dividing n; positions [lo, hi) of each row,
+// times scale, go to dst (rows, hi - lo).  dtype_in: 0 = float32;
+// dtype_out: 0 = float32, 1 = bfloat16.
+extern "C" int repro_fwht_strided(const void* src, void* dst, int64_t rows,
+                                  int64_t n, int L, int64_t S, int64_t lo,
+                                  int64_t hi, float scale, int dtype_in,
+                                  int dtype_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || L < 2 || L > kMaxStrided || (L & (L - 1)) || S < 32768 ||
+      (S & (S - 1)) || n % (static_cast<int64_t>(L) * S) || lo < 0 ||
+      hi > n || lo >= hi || dtype_in != 0)
+    return cudaErrorInvalidValue;
+  if (dtype_out == 0)
+    return launch_strided<float, float>(src, dst, rows, n, L, S, lo, hi,
+                                        scale, st);
+  if (dtype_out == 1)
+    return launch_strided<float, __nv_bfloat16>(src, dst, rows, n, L, S, lo,
+                                                hi, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -8,11 +8,13 @@ Port of the TPU kernel ``src/repro/kernels/fused_step.py`` (``_fused_body``)
 
 in one batched entry: W (R, p) iterates and (R, m) masks over one shared
 encoded problem.  The single form is the same entry at R = 1.  On CUDA
-tensors the wrapper launches ``csrc/fused_step.cu`` (a deterministic
-two-stage reduction whose first stage reads each row of SX once for a tile
-of realizations, so realization r of a batched call equals the single call
-bit for bit); on CPU tensors it runs the plain version, which loops over
-realizations for the same reason.
+tensors the wrapper launches ``csrc/fused_step.cu``: up to p = MAX_COLS a
+deterministic two-stage reduction whose first stage reads each row of SX
+once for a tile of realizations, and past it the column-split form (the
+rows' dot products by column chunks, then the gradient by column tiles,
+then the same second stage); in both, realization r of a batched call
+equals the single call bit for bit.  On CPU tensors it runs the plain
+version, which loops over realizations for the same reason.
 """
 from __future__ import annotations
 
@@ -28,12 +30,14 @@ from ._build import check, launches, load_library, stream_of
 __all__ = ["fused_enabled", "fused_masked_gradient",
            "fused_masked_gradient_plain",
            "pick_fused_block_rows", "pick_fused_realization_tile",
-           "fused_row_registers", "fused_stage1_smem_bytes", "MAX_COLS"]
+           "pick_wide_block_rows", "fused_wide_scratch_bytes",
+           "fused_row_registers", "fused_stage1_smem_bytes", "MAX_COLS",
+           "WIDE_CHUNK"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_ROWS_CAP = 16
-# the kernel keeps a thread's share of a row in registers (64 of them at
-# 256 threads); wider rows need the multi-pass form, not ported yet
+# the one-read form keeps a thread's share of a row in registers (64 of
+# them at 256 threads); wider rows take the column-split form
 _THREADS = 256
 _REG_STEPS = (1, 2, 4, 8, 16, 24, 32, 48, 64)
 MAX_COLS = _REG_STEPS[-1] * _THREADS
@@ -42,6 +46,10 @@ MAX_COLS = _REG_STEPS[-1] * _THREADS
 # 227 KB opt-in maximum less 3 KB for the static arrays)
 _REG_BUDGET = 200
 SMEM_BUDGET = 227 * 1024 - 3072
+# the column-split form: columns of one partial dot product (its chunks
+# are added in order), and the most rows of one scratch unit
+WIDE_CHUNK = 4096
+_WIDE_ROWS_CAP = 64
 
 
 def fused_enabled() -> bool:
@@ -67,6 +75,21 @@ def pick_fused_block_rows(r: int) -> int:
     reduction order of the kernel is fixed by the problem's shape."""
     return max(d for d in range(1, min(r, _BLOCK_ROWS_CAP) + 1)
                if r % d == 0)
+
+
+def pick_wide_block_rows(r: int) -> int:
+    """Largest divisor of r not above 64: the rows of one scratch unit of
+    the column-split form (p > MAX_COLS).  From r alone, like
+    ``pick_fused_block_rows``."""
+    return max(d for d in range(1, min(r, _WIDE_ROWS_CAP) + 1)
+               if r % d == 0)
+
+
+def fused_wide_scratch_bytes(m: int, r: int, p: int) -> int:
+    """Bytes of scratch a realization of the column-split form takes: one
+    float32 p-row a unit, and the rows' chunk sums."""
+    units = m * (r // pick_wide_block_rows(r))
+    return 4 * (units * p + m * r * -(-p // WIDE_CHUNK))
 
 
 def fused_row_registers(p: int) -> int:
@@ -148,29 +171,35 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
     if SX.device.type != "cuda":
         raise ValueError(f"unsupported device {SX.device}")
     _check_kernel_operands(SX, Sy, w, mask)
-    br = pick_fused_block_rows(r)
     out = torch.empty((R, p), dtype=w.dtype, device=w.device)
-    scratch = torch.empty((R, m * (r // br), p), dtype=torch.float32,
-                          device=w.device)
-    check(_entry()(
-        SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), R, m, r, p, br,
-        float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
-        "fused_masked_gradient")
+    if p <= MAX_COLS:
+        br = pick_fused_block_rows(r)
+        scratch = torch.empty((R, m * (r // br), p), dtype=torch.float32,
+                              device=w.device)
+        check(_entry()(
+            SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), R, m, r, p, br,
+            float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
+            "fused_masked_gradient")
+    else:
+        bw = pick_wide_block_rows(r)
+        partial = torch.empty((R, m, r, -(-p // WIDE_CHUNK)),
+                              dtype=torch.float32, device=w.device)
+        scratch = torch.empty((R, m * (r // bw), p), dtype=torch.float32,
+                              device=w.device)
+        check(load_library().repro_fused_masked_gradient_wide(
+            SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
+            partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), R, m, r,
+            p, bw, float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
+            "fused_masked_gradient")
     launches["fused_masked_gradient"] += 1
     return out
 
 
 def _check_kernel_operands(SX, Sy, w, mask) -> None:
-    """Raise on what the kernel does not take: p > MAX_COLS, operands not
-    of one dtype of float32 or bfloat16, masks not float32, operands on
-    other devices than SX, or not contiguous."""
-    p = SX.shape[-1]
-    if p > MAX_COLS:
-        raise ValueError(f"fused kernel takes p <= {MAX_COLS}, got {p}; "
-                         f"REPRO_FUSED=0 takes the combine path "
-                         f"(core.data_parallel.masked_gradient), which takes "
-                         f"any p")
+    """Raise on what the kernel does not take: operands not of one dtype
+    of float32 or bfloat16, masks not float32, operands on other devices
+    than SX, or not contiguous.  Every width p is taken."""
     if SX.dtype not in _DTYPES or Sy.dtype != SX.dtype or \
             w.dtype != SX.dtype:
         raise TypeError(f"fused kernel takes one operand dtype of float32 "

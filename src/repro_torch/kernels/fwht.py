@@ -2,9 +2,12 @@
 PyTorch version.
 
 Port of the TPU kernel ``src/repro/kernels/fwht.py`` (``_fwht_body``).  On
-a CUDA tensor the wrapper launches ``csrc/fwht.cu`` (one block per row,
-the whole row on chip for all log2(n) stages); on a CPU tensor it runs the
-plain version, the reshape-and-stack butterfly of the reference.
+a CUDA tensor the wrapper launches ``csrc/fwht.cu``: one pass (one block
+per row, the whole row on chip for all log2(n) stages) up to n = 32768, and
+past that the Kronecker split of ``fwht_passes`` (the one-pass kernel over
+contiguous segments, then strided passes through device memory).  On a CPU
+tensor it runs the plain version, the reshape-and-stack butterfly of the
+reference.
 """
 from __future__ import annotations
 
@@ -12,11 +15,14 @@ import torch
 
 from ._build import check, launches, load_library, stream_of
 
-__all__ = ["fwht_kernel_call", "fwht_plain", "butterfly", "MAX_ONE_PASS"]
+__all__ = ["fwht_kernel_call", "fwht_plain", "butterfly", "fwht_passes",
+           "MAX_ONE_PASS", "MAX_STRIDED"]
 
-# one block holds the whole row in shared memory (128 KB of float32); longer
-# transforms need the multi-pass form, which is not ported yet
+# one block holds a whole row in shared memory (128 KB of float32); longer
+# rows are split into segments of this length (pass 1) and strided passes
 MAX_ONE_PASS = 32768
+# points of one strided pass's butterflies (csrc/fwht.cu kMaxStrided)
+MAX_STRIDED = 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,12 +52,42 @@ def _check_length(n: int) -> None:
         raise ValueError(f"FWHT length {n} is not a power of two")
 
 
+def fwht_passes(n: int) -> list[tuple[int, int]]:
+    """The kernel's passes for a row of n (a power of two), as (length,
+    stride): pass 1 is (min(n, 32768), 1), the one-pass transform of each
+    contiguous segment; each later pass (L, S) runs the L-point butterflies
+    at stride S (S the product of the earlier lengths, L <= 1024).  In
+    Sylvester order H_n = H_L (x) ... (x) H_N2, so the passes together are
+    the whole transform, and they run its stages in the reference's order
+    (h below the first length first)."""
+    _check_length(n)
+    first = min(n, MAX_ONE_PASS)
+    passes, done = [(first, 1)], first
+    while done < n:
+        L = min(n // done, MAX_STRIDED)
+        passes.append((L, done))
+        done *= L
+    return passes
+
+
+def strided_pass(lib, src: torch.Tensor, dst: torch.Tensor, n: int, L: int,
+                 S: int, lo: int, hi: int, scale: float) -> None:
+    """Launch one strided pass (``csrc/fwht.cu`` fwht_strided) from the
+    float32 rows of src (rows, n) into positions [lo, hi) of dst (rows,
+    hi - lo), times scale; src and dst may be one tensor (lo = 0, hi = n)."""
+    check(lib.repro_fwht_strided(
+        src.data_ptr(), dst.data_ptr(), src.shape[0], n, L, S, lo, hi,
+        float(scale), 0, _DTYPES[dst.dtype], stream_of(src)), "fwht")
+
+
 def fwht_kernel_call(x: torch.Tensor) -> torch.Tensor:
     """Unnormalised FWHT along the last axis of x: (rows, n) -> (rows, n).
 
-    n must be a power of two.  CUDA tensors (float32 or bfloat16, contiguous,
-    n <= 32768) go through the CUDA kernel; CPU tensors through the plain
-    version.
+    n must be a power of two.  CUDA tensors (float32 or bfloat16,
+    contiguous) go through the CUDA kernel, in one pass up to n = 32768 and
+    in ``len(fwht_passes(n))`` passes past it (a bfloat16 row then keeps a
+    float32 intermediate, rounded once at the end); CPU tensors through the
+    plain version.
     """
     if x.dim() != 2:
         raise ValueError(f"expected a (rows, n) tensor, got {tuple(x.shape)}")
@@ -61,9 +97,6 @@ def fwht_kernel_call(x: torch.Tensor) -> torch.Tensor:
         return fwht_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if n > MAX_ONE_PASS:
-        raise ValueError(f"FWHT length {n} exceeds the one-pass limit "
-                         f"{MAX_ONE_PASS}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"FWHT kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -71,8 +104,18 @@ def fwht_kernel_call(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("FWHT kernel needs a contiguous tensor")
     out = torch.empty_like(x)
     if rows:
-        check(load_library().repro_fwht(x.data_ptr(), out.data_ptr(), rows,
-                                        n, _DTYPES[x.dtype], stream_of(x)),
+        lib = load_library()
+        dt = _DTYPES[x.dtype]
+        (seg, _), *later = fwht_passes(n)
+        # the passes' float32 rows: the output itself, or for bfloat16 a
+        # scratch that the last pass reads and rounds into the output
+        work = out if not later or dt == 0 else torch.empty(
+            (rows, n), dtype=torch.float32, device=x.device)
+        check(lib.repro_fwht(x.data_ptr(), work.data_ptr(), rows * (n // seg),
+                             seg, dt, _DTYPES[work.dtype], stream_of(x)),
               "fwht")
+        for j, (L, S) in enumerate(later):
+            strided_pass(lib, work, out if j == len(later) - 1 else work, n,
+                         L, S, 0, n, 1.0)
         launches["fwht"] += 1
     return out

@@ -633,16 +633,18 @@ def test_runners_dispatch_on_fused_enabled(ridge, kind, fused, monkeypatch):
 
 
 def test_fused_refusal_past_max_cols_names_the_switch():
-    """Past MAX_COLS the fused kernel refuses (on the card) and its error
-    says that REPRO_FUSED=0 takes the combine path; the operand check is
-    reachable from the CPU."""
+    """The card's operand check takes p > MAX_COLS (the column-split form;
+    the refusal that named REPRO_FUSED=0 is gone) and still refuses a
+    mixed dtype there; it is reachable from the CPU."""
     from repro_torch.kernels.fused_step import MAX_COLS, _check_kernel_operands
-    p = MAX_COLS + 1
-    SX = torch.zeros((2, 1, p))
-    with pytest.raises(ValueError, match="REPRO_FUSED=0") as err:
+    for p in (MAX_COLS + 1, 100_000):
+        SX = torch.zeros((2, 1, p))
         _check_kernel_operands(SX, torch.zeros((2, 1)), torch.zeros((1, p)),
                                torch.ones((1, 2)))
-    assert "p <=" in str(err.value) and "combine" in str(err.value)
+        with pytest.raises(TypeError):
+            _check_kernel_operands(SX, torch.zeros((2, 1)),
+                                   torch.zeros((1, p), dtype=torch.bfloat16),
+                                   torch.ones((1, 2)))
 
 
 def test_combine_path_takes_any_width_on_the_cpu(monkeypatch):

@@ -359,46 +359,44 @@ def test_execute_without_device_raises_when_no_card(monkeypatch):
         P.execute(P.plan(_synthetic_spec(P)), record_to=False)
 
 
-def _wide_spec():
-    """GD cells one column past the fused kernel's width (a step size is
-    given, so no p x p eigensolve runs)."""
+def _wide_spec(E):
+    """GD cells one column past the one-read fused form's width (a step
+    size is given, so no p x p eigensolve runs)."""
     from repro_torch.kernels.fused_step import MAX_COLS
     opts = (("step_size", 1e-4),)
-    return P.ExperimentSpec(
-        problems=(P.ProblemAxis.synthetic(32, MAX_COLS + 1),),
-        strategies=(P.StrategyAxis("coded-gd", options=opts),
-                    P.StrategyAxis("uncoded", options=opts)),
-        delays=P.DelayAxis.of("bimodal", m=4), steps=2)
+    return E.ExperimentSpec(
+        problems=(E.ProblemAxis.synthetic(32, MAX_COLS + 1),),
+        strategies=(E.StrategyAxis("coded-gd", options=opts),
+                    E.StrategyAxis("uncoded", options=opts)),
+        delays=E.DelayAxis.of("bimodal", m=4), steps=2)
 
 
 def test_cells_past_max_cols_are_skip_records_naming_the_switch(monkeypatch):
-    """Past MAX_COLS the card's fused kernel refuses; through ``execute``
-    the refusal becomes each cell's skip record, whose reason names
-    REPRO_FUSED=0, and under REPRO_FUSED=0 the cells run on the combine
-    path.  The CPU tensors here go through the card's operand check."""
+    """Past MAX_COLS the card takes the fused kernel's column-split form,
+    so through ``execute`` the harness's cells are records equal to the
+    reference's (the skip records that named REPRO_FUSED=0 are gone), and
+    the same under REPRO_FUSED=0.  The CPU tensors here go through the
+    card's operand check."""
     import repro_torch.runtime.runners as runners
     from repro_torch.kernels.fused_step import _check_kernel_operands
     fused = runners.fused_masked_gradient
+    checked = []
 
     def card_checked(SX, Sy, W, masks, **kw):
         _check_kernel_operands(SX, Sy, W, masks)
+        checked.append(SX.shape[-1])
         return fused(SX, Sy, W, masks, **kw)
     monkeypatch.setattr(runners, "fused_masked_gradient", card_checked)
     monkeypatch.delenv("REPRO_FUSED", raising=False)
-    out = P.execute(P.plan(_wide_spec()), device="cpu", record_to=False)
-    assert len(out.records) == 2
-    for rec in out.records:
-        assert "REPRO_FUSED=0" in rec["skipped"]
-    monkeypatch.setenv("REPRO_FUSED", "0")
-    out = P.execute(P.plan(_wide_spec()), device="cpu", record_to=False)
+    out, ref = _run_both(_wide_spec)
+    assert len(out.records) == 2 and checked
     for rec in out.records:
         assert "skipped" not in rec
-        assert np.isfinite(rec["objective"]).all()
+    assert_records_match(out.records, ref.records)
+    monkeypatch.setenv("REPRO_FUSED", "0")
+    out = P.execute(P.plan(_wide_spec(P)), device="cpu", record_to=False)
+    assert_records_match(out.records, ref.records)
 
-
-# ---------------------------------------------------------------------------
-# The resilient executor (tests/test_faults.py's cases on the port)
-# ---------------------------------------------------------------------------
 
 def _matrix_spec():
     return P.ExperimentSpec(

@@ -22,7 +22,11 @@ the CPU under the same rules, with ``times`` bit for bit.  Coded SGD:
 the FRC update under two masks that keep one replica of every cluster is
 equal bit for bit on the card; three coded steps on the card match the
 same steps on the CPU to rel 1e-4 of the loss; the combine above 2^31
-elements matches its plain version on column slices to rel 1e-5.
+elements matches its plain version on column slices to rel 1e-5.  Past
+one pass (FWHT and SRHT above N = 32 768, the fused gradient above
+p = 16 384) the kernels hold to the same tolerances, and the fused
+gradient's column-split form keeps batched rows equal to single calls bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -75,11 +79,24 @@ def test_fwht_kernel(cuda, n, dtype):
 
 def test_fwht_kernel_rejects(cuda):
     with pytest.raises(ValueError):
-        fwht_kernel_call(torch.ones((2, 65536), device=cuda))
+        fwht_kernel_call(torch.ones((2, 3 * 32768), device=cuda))
     with pytest.raises(ValueError):
         fwht_kernel_call(torch.ones((8, 4), device=cuda).t())
     with pytest.raises(TypeError):
         fwht_kernel_call(torch.ones((2, 8), device=cuda, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n", [65536, 131072, 262144, 1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_kernel_multi_pass(cuda, n, dtype):
+    """Past one pass (n > 32768): the one-pass kernel over segments, then
+    the strided passes; one launch counted a call."""
+    x = _randn((3, n), n, cuda, dtype)
+    before = launches["fwht"]
+    out = fwht_kernel_call(x)
+    torch.cuda.synchronize()
+    assert launches["fwht"] == before + 1 and out.dtype == dtype
+    _close(out, fwht_plain(x), 1e-5 if dtype == torch.float32 else 2 ** -7)
 
 
 @pytest.mark.parametrize("n,N,lo,hi", [(48, 128, 0, 128), (48, 128, 32, 64),
@@ -96,6 +113,46 @@ def test_srht_kernel(cuda, n, N, lo, hi):
     kw = dict(N=N, lo=lo, hi=hi, scale=n ** -0.5)
     out = srht_encode_call(xt, cols, signs, **kw)
     _close(out, srht_encode_plain(xt, cols, signs, **kw), 1e-5)
+
+
+@pytest.mark.parametrize("n,N,lo,hi", [(20000, 65536, 0, 65536),
+                                       (32768, 65536, 2560, 3072),
+                                       (40000, 65536, 100, 65000),
+                                       (100000, 262144, 0, 262144),
+                                       (130000, 262144, 10240, 12288)])
+def test_srht_kernel_multi_pass(cuda, n, N, lo, hi):
+    """Past one pass (N > 32768): pass 1 gathers through the slot map, the
+    last pass scales and windows; one launch counted a call."""
+    rng = np.random.default_rng(n)
+    cols = torch.tensor(rng.choice(N, n, replace=False).astype(np.int32),
+                        device=cuda)
+    signs = torch.tensor(rng.choice([-1.0, 1.0], n).astype(np.float32),
+                         device=cuda)
+    xt = _randn((5, n), n + 1, cuda)
+    kw = dict(N=N, lo=lo, hi=hi, scale=n ** -0.5)
+    before = launches["srht_encode"]
+    out = srht_encode_call(xt, cols, signs, **kw)
+    torch.cuda.synchronize()
+    assert launches["srht_encode"] == before + 1
+    _close(out, srht_encode_plain(xt, cols, signs, **kw), 1e-5)
+
+
+def test_srht_kernel_partial_window_in_chunks(cuda, monkeypatch):
+    """A partial window past one pass takes its data columns a chunk at a
+    time (here two frames a chunk, over 5 columns): the same result."""
+    import repro_torch.kernels.encode as encode
+    N, n = 65536, 30000
+    monkeypatch.setattr(encode, "CHUNK_BYTES", 2 * N * 4)
+    assert encode.srht_chunk_rows(5, N) == 2
+    rng = np.random.default_rng(3)
+    cols = torch.tensor(rng.choice(N, n, replace=False).astype(np.int32),
+                        device=cuda)
+    signs = torch.tensor(rng.choice([-1.0, 1.0], n).astype(np.float32),
+                         device=cuda)
+    xt = _randn((5, n), 4, cuda)
+    kw = dict(N=N, lo=4096, hi=4608, scale=n ** -0.5)
+    _close(srht_encode_call(xt, cols, signs, **kw),
+           srht_encode_plain(xt, cols, signs, **kw), 1e-5)
 
 
 def _fused(dev, m, r, p, R, dtype=torch.float32, seed=0):
@@ -169,9 +226,50 @@ def test_fused_kernel_row_counts(cuda, r):
 
 
 def test_fused_kernel_rejects_rows_wider_than_registers(cuda):
+    """Rows wider than the one-read form's registers (p = 16385) take the
+    column-split form: one launch counted, the plain version's result."""
     SX, Sy, W, masks = _fused(cuda, 2, 2, 16385, R=1)
-    with pytest.raises(ValueError):
-        fused_masked_gradient(SX, Sy, W, masks, n=2, beta=2.0)
+    masks[:, 0] = 1.0
+    before = launches["fused_masked_gradient"]
+    out = fused_masked_gradient(SX, Sy, W, masks, n=2, beta=2.0)
+    torch.cuda.synchronize()
+    assert launches["fused_masked_gradient"] == before + 1
+    _close(out, fused_masked_gradient_plain(SX, Sy, W, masks, n=2,
+                                            beta=2.0), 1e-4)
+
+
+@pytest.mark.parametrize("m,r,p", [(4, 8, 16385), (5, 24, 20000),
+                                   (8, 512, 100000), (3, 7, 16385)])
+@pytest.mark.parametrize("R", [1, 4, 9])
+def test_fused_kernel_wide_batched_and_single(cuda, m, r, p, R):
+    """The column-split form: batched rows equal single calls bit for bit;
+    worker 1 is masked out in every realization and, for R > 1, the last
+    realization is all-masked."""
+    SX, Sy, W, masks = _fused(cuda, m, r, p, R, seed=p + R)
+    W *= 0.01
+    masks[:, 1] = 0.0
+    masks[:, 0] = 1.0
+    if R > 1:
+        masks[-1] = 0.0
+    kw = dict(n=m * r // 2, beta=2.0)
+    out = fused_masked_gradient(SX, Sy, W, masks, **kw)
+    _close(out, fused_masked_gradient_plain(SX, Sy, W, masks, **kw), 1e-4)
+    for q in range(R):
+        assert torch.equal(out[q], fused_masked_gradient(SX, Sy, W[q],
+                                                         masks[q], **kw))
+    if R > 1:
+        assert torch.count_nonzero(out[-1]) == 0
+
+
+def test_fused_kernel_wide_bf16(cuda):
+    SX, Sy, W, masks = _fused(cuda, 4, 8, 16385, R=3, dtype=torch.bfloat16)
+    kw = dict(n=16, beta=2.0)
+    out = fused_masked_gradient(SX, Sy, W, masks, **kw)
+    assert out.dtype == torch.bfloat16
+    _close(out, fused_masked_gradient_plain(SX, Sy, W, masks, **kw), 2 ** -7)
+    for q in range(3):
+        assert torch.equal(out[q], fused_masked_gradient(SX, Sy, W[q],
+                                                         masks[q], **kw))
 
 
 def test_fused_kernel_bf16_and_all_masked(cuda):
@@ -367,8 +465,10 @@ def test_runners_combine_branch_on_card(cuda, monkeypatch):
 
 
 def test_runners_refuse_past_max_cols_and_name_the_switch(cuda, monkeypatch):
-    """At p = MAX_COLS + 1 the fused branch raises with an error that names
-    REPRO_FUSED=0; under it the same run takes the combine path."""
+    """At p = MAX_COLS + 1 the fused branch launches the fused kernel's
+    column-split form (the refusal that named REPRO_FUSED=0 is gone); its
+    trace matches the same run under REPRO_FUSED=0 (the combine path) and
+    on the CPU."""
     from repro_torch.core import run_encoded_gd
     p = MAX_COLS + 1
     SX, Sy, _, _ = _fused(cuda, 4, 2, p, R=1, seed=1)
@@ -376,15 +476,18 @@ def test_runners_refuse_past_max_cols_and_name_the_switch(cuda, monkeypatch):
                           y=_randn((8,), 3, cuda), lam=0.1, beta=1.0, n=8)
     masks = np.ones((3, 4), np.float32)
     monkeypatch.delenv("REPRO_FUSED", raising=False)
-    with pytest.raises(ValueError, match="REPRO_FUSED=0"):
-        run_encoded_gd(prob, masks, 1e-4)
+    before = dict(launches)
+    w_f, tr_f = run_encoded_gd(prob, masks, 1e-4)
+    assert _launched(before) == {FUSED: 3}
     monkeypatch.setenv("REPRO_FUSED", "0")
     before = dict(launches)
     w, tr = run_encoded_gd(prob, masks, 1e-4)
     assert _launched(before) == {COMB: 3}
     assert w.is_cuda and np.isfinite(tr).all()
+    _close(torch.as_tensor(tr_f), torch.as_tensor(tr), 1e-5)
+    _close(w_f.cpu(), w.cpu(), 1e-5)
     w_c, tr_c = run_encoded_gd(prob, masks, 1e-4, device="cpu")
-    _close(torch.as_tensor(tr), torch.as_tensor(tr_c), 1e-5)
+    _close(torch.as_tensor(tr_f), torch.as_tensor(tr_c), 1e-5)
 
 
 @pytest.mark.parametrize("wrapper", ["run_encoded_gd",
@@ -430,9 +533,10 @@ def test_logistic_fast_hadamard_through_harness_on_card(cuda):
 
 
 def test_harness_cells_past_max_cols_on_card(cuda, monkeypatch):
-    """Through ``execute`` on the card, GD cells at p = MAX_COLS + 1 come
-    out as skip records naming REPRO_FUSED=0; under it they run on the
-    combine kernel."""
+    """Through ``execute`` on the card, GD cells at p = MAX_COLS + 1 run on
+    the fused kernel's column-split form (they were skip records naming
+    REPRO_FUSED=0), and their objectives match the same cells under
+    REPRO_FUSED=0, on the combine kernel."""
     from repro_torch.experiments import (DelayAxis, ExperimentSpec,
                                          ProblemAxis, StrategyAxis, execute,
                                          plan)
@@ -444,19 +548,20 @@ def test_harness_cells_past_max_cols_on_card(cuda, monkeypatch):
         delays=DelayAxis.of("bimodal", m=4), steps=2)
     monkeypatch.delenv("REPRO_FUSED", raising=False)
     before = dict(launches)
-    out = execute(plan(spec), record_to=False)
-    assert FUSED not in _launched(before)
-    for rec in out.records:
-        assert "REPRO_FUSED=0" in rec["skipped"]
+    fused = execute(plan(spec), record_to=False)
+    torch.cuda.synchronize()
+    assert _launched(before).get(FUSED, 0) >= 2 * 2
     monkeypatch.setenv("REPRO_FUSED", "0")
     before = dict(launches)
     out = execute(plan(spec), record_to=False)
     torch.cuda.synchronize()
     assert _launched(before).get(COMB, 0) >= 2 * 2
     assert FUSED not in _launched(before)
-    for rec in out.records:
-        assert "skipped" not in rec
-        assert np.isfinite(rec["objective"]).all()
+    for f, rec in zip(fused.records, out.records):
+        assert "skipped" not in f and "skipped" not in rec
+        assert f["times"] == rec["times"]
+        _close(torch.tensor(f["objective"]), torch.tensor(rec["objective"]),
+               1e-5)
 
 
 def _spec():
