@@ -13,7 +13,16 @@ Phases, each of which ends the run with a non-zero exit on failure:
              (the build's host time as ``obs.CompileWatch`` splits it);
 3. kernels - hold every kernel against its plain PyTorch version on the
              card at the main path's shapes (FWHT (6001, 8192); SRHT full
-             frame and one worker window of the (4096, 6001) data; fused
+             frame and one worker window of the (4096, 6001) data; the
+             Hadamard routes past one pass, one launch each, route printed:
+             FWHT over a thread-block cluster at 2^16, 2^17 and 2^18 and
+             by the strided passes at 2^19, in float32 and bfloat16, SRHT
+             at N = 8192, 65 536 and 262 144, full frame, an aligned
+             window (worker 5's at 8192 and 65 536), a misaligned one and
+             one straddling N / 2, and by the passes at 2^19, full frame
+             and a window too wide to prune; a row of a batched call == a
+             one-row call bit for bit; the timed SRHT calls take a signed
+             slot map built once, as an encoder's caller does; fused
              gradient at (32, 256, 6000), single, batched R = 4, all
              masked, and batched row r == single call r bit for bit, also
              at R = 4 and R = 16 with one worker masked out in every
@@ -106,7 +115,7 @@ Phases, each of which ends the run with a non-zero exit on failure:
              preset's p = 100 000, m = 128, k = 80, lam = 0.6, sparsity
              7695, noise 40, multimodal delays, seed 0; fast-Hadamard,
              beta 2) with n cut from 130 000 to 32 768 (20 000 where the
-             host has under 70 GB free), so N = 65 536 (two FWHT passes)
+             host has under 70 GB free), so N = 65 536 (one cluster launch)
              and S X (128, 512, 100 000) float32 is 26.2 GB; 20 steps, the
              step size 1 / (1.3 L + lam) with L from a power iteration on
              the card (the workload's build, its eigvalsh and FISTA ground
@@ -123,9 +132,15 @@ Phases, each of which ends the run with a non-zero exit on failure:
              to single calls bit for bit), and their times beside bound,
              plain version and library call, with the fused step at the
              path's (128, 512, 100 000) and the path's full SRHT encode;
+             the Hadamard rows also print their route, the card's own time
+             a call (CUDA graph replay) and the launch floor (an empty
+             kernel through the same ctypes path), and worker 5's window
+             against torch.matmul with the dense window;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
-             same function (the fused gradient also batched at R = 4 and
+             same function (the SRHT also at worker 5's window beside
+             torch.matmul with the dense window; the fused gradient also
+             batched at R = 4 and
              R = 16; the combine also by the profiler's device time, and at
              (32, 4194304), the coded-SGD flat gradient's width); step
              times (CUDA events around a 100-step GD loop, a 50-step L-BFGS
@@ -219,6 +234,136 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps: int = 20, calls: int = 10) -> float:
+    """Device time of one call of ``fn`` with the host taken out: ``calls``
+    calls captured in a CUDA graph, the graph replayed ``reps`` times
+    between CUDA events.  For a call that the host's launch path paces,
+    this is the card's share and ``time_ms`` the caller's."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * calls)
+
+
+def launch_floor_ms() -> float:
+    """Event time a call of an empty kernel launched through the kernels'
+    own ctypes path: the floor under every small shape's time."""
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.load_library()
+    probe = torch.zeros(1, device="cuda")
+    return time_ms(lambda: lib.repro_empty(_build.stream_of(probe)), 200)
+
+
+def route_of(kname: str, **shape) -> str:
+    """The route a FWHT (n) or SRHT (n, N, lo, hi) call takes, as printed."""
+    from repro_torch.kernels.encode import srht_plan
+    from repro_torch.kernels.fwht import fwht_plan
+    plan = fwht_plan(**shape) if kname == "fwht" else srht_plan(**shape)
+    extra = (f", C {plan.C}, {plan.slots} slots a CTA" if plan.C > 1 else
+             f", r' {plan.rp}, b {plan.b}" if plan.route == "pruned" else
+             f", staged {plan.stage}" if kname == "srht" and
+             plan.route == "one-pass" else "")
+    return f"route {plan.route}{extra}"
+
+
+def hadamard_routes(dev, gen, table: dict) -> None:
+    """The FWHT and SRHT routes past one pass against their plain versions
+    on the card: FWHT over a cluster at 2^16, 2^17 and 2^18 and by the
+    strided passes at 2^19, in float32 and bfloat16; SRHT at PAPER_RIDGE's
+    N = 8192 (full, worker 5's rows [1280, 1536)), at 65 536 and at
+    262 144 (full frame, an aligned window, a misaligned one and one
+    straddling N / 2) and by the passes at 2^19 (full frame, a window too
+    wide to prune).  Each must take its expected route in one launch; its
+    route is printed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.encode import (srht_encode_call,
+                                            srht_encode_plain, srht_plan)
+    from repro_torch.kernels.fwht import (fwht_kernel_call, fwht_plain,
+                                          fwht_plan)
+    for nf in (1 << 16, 1 << 17, 1 << 18, 1 << 19):
+        want = "cluster" if nf <= 1 << 18 else "passes"
+        require(fwht_plan(nf).route == want, f"fwht {nf}: "
+                f"{route_of('fwht', n=nf)}, expected {want}")
+        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+            x = torch.randn((4, nf), device=dev, generator=gen).to(dt)
+            _build.launches.clear()
+            out = fwht_kernel_call(x)
+            torch.cuda.synchronize()
+            require(_build.launches["fwht"] == 1, f"fwht ({4}, {nf}): "
+                    f"{_build.launches['fwht']} launches")
+            err, rel = rel_err(out, fwht_plain(x))
+            # f32 butterflies in another stage order; bf16 one output ulp
+            require(rel <= tol, f"fwht (4, {nf}) {dt}: rel {rel:.2e}")
+            require(torch.equal(fwht_kernel_call(x[1:2].contiguous())[0],
+                                out[1]),
+                    f"fwht (4, {nf}) {dt}: row 1 != a one-row call")
+            print(f"check fwht (4, {nf}) {str(dt)[6:]}, "
+                  f"{route_of('fwht', n=nf)}, one launch: max|d| {err:.3e} "
+                  f"({rel:.2e} of max|ref|, tol {tol:.1e}); row 1 == a "
+                  f"one-row call bitwise")
+            if dt == torch.float32:
+                table["fwht"]["max_abs_err"] = max(
+                    table["fwht"]["max_abs_err"], err)
+    rng = np.random.default_rng(19)
+    for n, N, windows in ((4096, 8192, ((0, 8192), (1280, 1536),
+                                        (1000, 1300), (4000, 4200))),
+                          (32768, 65536, ((0, 65536), (2560, 3072),
+                                          (2561, 3001), (32000, 33000))),
+                          (100000, 262144, ((0, 262144), (10240, 12288),
+                                            (10000, 10600),
+                                            (131000, 131500))),
+                          (300000, 1 << 19, ((0, 1 << 19),
+                                             (100000, 200000)))):
+        cols = torch.as_tensor(rng.choice(N, n, replace=False).astype(
+            np.int32), device=dev)
+        signs = torch.as_tensor(rng.choice([-1.0, 1.0], n).astype(
+            np.float32), device=dev)
+        xt = torch.randn((8, n), device=dev, generator=gen)
+        for lo, hi in windows:
+            if N > 1 << 18:
+                require(srht_plan(n, N, lo, hi).route == "passes",
+                        f"srht N {N} [{lo}, {hi}): "
+                        f"{route_of('srht', n=n, N=N, lo=lo, hi=hi)}, "
+                        f"expected passes")
+            kw = dict(N=N, lo=lo, hi=hi, scale=1.0 / math.sqrt(n))
+            _build.launches.clear()
+            out = srht_encode_call(xt, cols, signs, **kw)
+            torch.cuda.synchronize()
+            require(_build.launches["srht_encode"] == 1, f"srht N {N} "
+                    f"[{lo}, {hi}): {_build.launches['srht_encode']} launches")
+            err, rel = rel_err(out, srht_encode_plain(xt, cols, signs, **kw))
+            require(rel <= 1e-5, f"srht N {N} [{lo}, {hi}): rel {rel:.2e}")
+            require(torch.equal(srht_encode_call(
+                xt[5:6].contiguous(), cols, signs, **kw)[0], out[5]),
+                f"srht N {N} [{lo}, {hi}): column 5 != a one-column call")
+            print(f"check srht (8, {n}) -> [{lo}, {hi}) of {N}, "
+                  f"{route_of('srht', n=n, N=N, lo=lo, hi=hi)}, one launch: "
+                  f"max|d| {err:.3e} ({rel:.2e} of max|ref|, tol 1e-5); "
+                  f"column 5 == a one-column call bitwise")
+            table["srht_encode"]["max_abs_err"] = max(
+                table["srht_encode"]["max_abs_err"], err)
 
 
 def device_ms(fn, reps: int) -> float:
@@ -995,13 +1140,14 @@ def wide_phase(smi: str, drive, table: dict) -> None:
     from repro_torch.core import (FastHadamardEncoder, hadamard_ensemble,
                                   hadamard_matrix, make_encoded_problem)
     from repro_torch.data.pipeline import lsq_rows
-    from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
+    from repro_torch.kernels.encode import (srht_encode_call,
+                                            srht_encode_plain,
+                                            srht_signed_slot_map)
     from repro_torch.kernels.fused_step import (MAX_COLS,
                                                 fused_masked_gradient,
                                                 fused_masked_gradient_plain,
                                                 fused_wide_scratch_bytes)
-    from repro_torch.kernels.fwht import (fwht_kernel_call, fwht_passes,
-                                          fwht_plain)
+    from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
     from repro_torch.kernels.ref import fused_masked_gradient_ref
     from repro_torch.runtime import (FastestK, ProblemSpec, get_strategy,
                                      scan_prox)
@@ -1032,8 +1178,9 @@ def wide_phase(smi: str, drive, table: dict) -> None:
           f"from a power iteration on the card.  Kept: p {p}, m {m}, k {k}, "
           f"lam {lam}, sparsity {ps.dims['sparse']}, noise "
           f"{ps.dims['noise']}, {ps.delay} delays, seed {ps.seed}, "
-          f"fast-Hadamard encoder, beta {beta}: N {N} ({len(fwht_passes(N))}"
-          f" FWHT passes), r {r} rows a worker, S X ({m}, {r}, {p}) float32 "
+          f"fast-Hadamard encoder, beta {beta}: N {N} (FWHT "
+          f"{route_of('fwht', n=N)}), r {r} rows a worker, S X ({m}, {r}, "
+          f"{p}) float32 "
           f"{m * r * p * 4 / 1e9:.1f} GB")
 
     # the data: the port's chunk-deterministic generator (the LASSO
@@ -1144,17 +1291,28 @@ def wide_phase(smi: str, drive, table: dict) -> None:
     # (4) each kernel against its plain version at the wide shapes
     wide = {kn: [] for kn in (fused, srht, fwht)}
 
-    def row(kname, shape, fn, plain, lib, nbytes, flops, reps):
+    def row(kname, shape, fn, plain, lib, nbytes, flops, reps, route=None):
         out = {"shape": shape, "ms": time_ms(fn, reps),
                "plain_ms": time_ms(plain, 3) if plain else None,
                "library_ms": time_ms(lib, 3) if lib else None}
         out["bound_ms"], out["bound_by"] = bound_ms(nbytes, flops)
+        extra = ""
+        if route:
+            # the Hadamard rows: the route, and where the host's launch
+            # path paces the call, the card's own share
+            out["plan"] = route
+            extra = f"; {route}"
+            if reps >= 20:
+                out["device_ms"] = graph_ms(fn)
+                extra += (f"; device {out['device_ms']:.4f} ms a call "
+                          f"(CUDA graph replay)")
         wide[kname].append(out)
         plain_s = f"{out['plain_ms']:.4f} ms" if plain else "not measured"
         lib_s = f"{out['library_ms']:.4f} ms" if lib else "none"
         print(f"time {kname} {shape}: {out['ms']:.4f} ms; bound "
               f"{out['bound_ms']:.4f} ms ({out['bound_by']}); plain "
-              f"{plain_s}; library {lib_s}  [{smi}]")
+              f"{plain_s}; library {lib_s}{extra}  [{smi}]")
+        return out
 
     # the fused gradient on the encoded data: p = MAX_COLS + 1 and p, 8
     # workers, batched R = 4 rows equal to single calls bit for bit
@@ -1214,6 +1372,11 @@ def wide_phase(smi: str, drive, table: dict) -> None:
 
     # FWHT at decode_t's (8, N) and LASSO paper's N; the library yardstick
     # is the dense product with the Sylvester matrix where it fits the card
+    floor = launch_floor_ms()
+    print(f"launch floor: an empty kernel through the kernels' ctypes path "
+          f"takes {floor:.4f} ms a call (CUDA events, back to back)  [{smi}]")
+    for kname in (srht, fwht):
+        table[kname]["launch_floor_ms"] = floor
     H256 = torch.as_tensor(hadamard_matrix(256), dtype=torch.float32,
                            device=dev)
     H = torch.kron(H256, H256) if N == 65536 else None
@@ -1222,19 +1385,21 @@ def wide_phase(smi: str, drive, table: dict) -> None:
         err, rel = rel_err(fwht_kernel_call(x), fwht_plain(x))
         # f32 butterflies of log2(n) stages summed in another stage order
         require(rel <= 1e-5, f"fwht ({rows}, {nf}): rel {rel:.2e}")
-        print(f"check fwht ({rows}, {nf}), {len(fwht_passes(nf))} passes: "
+        print(f"check fwht ({rows}, {nf}), {route_of('fwht', n=nf)}: "
               f"max|d| {err:.3e} ({rel:.2e} of max|ref|, tol 1e-5)")
         table[fwht]["max_abs_err"] = max(table[fwht]["max_abs_err"], err)
         row(fwht, f"({rows}, {nf})", lambda: fwht_kernel_call(x),
             lambda: fwht_plain(x),
             (lambda: torch.matmul(x, H)) if nf == N and H is not None
-            else None, 2 * x.numel() * 4, x.numel() * math.log2(nf), 20)
+            else None, 2 * x.numel() * 4, x.numel() * math.log2(nf), 20,
+            route_of("fwht", n=nf))
 
     # SRHT of 64 data columns: full frame and worker 5's window; the
     # yardstick is the product with the dense S = H[:, cols] D / sqrt(n)
     _, cols, signs = hadamard_ensemble(n, beta, 0)
     cols_t = torch.as_tensor(cols.astype(np.int32), device=dev)
     signs_t = torch.as_tensor(signs.astype(np.float32), device=dev)
+    smap_t = srht_signed_slot_map(cols_t, signs_t, N)
     xt = torch.randn((64, n), device=dev, generator=gen)
     S = (H[:, cols_t.long()] * signs_t / math.sqrt(n)) if H is not None \
         else None
@@ -1248,19 +1413,29 @@ def wide_phase(smi: str, drive, table: dict) -> None:
               f"{err:.3e} ({rel:.2e} of max|ref|, tol 1e-5)")
         table[srht]["max_abs_err"] = max(table[srht]["max_abs_err"], err)
         Sw = S[lo:hi] if S is not None else None
-        row(srht, f"(64, {n}) -> [{lo}, {hi}) of {N}",
-            lambda: srht_encode_call(xt, cols_t, signs_t, **skw),
-            lambda: srht_encode_plain(xt, cols_t, signs_t, **skw),
-            (lambda: torch.matmul(Sw, xt.T)) if Sw is not None else None,
-            (64 * n + 64 * (hi - lo)) * 4 + n * 8,
-            64 * N * math.log2(N), 20)
+        got = row(srht, f"(64, {n}) -> [{lo}, {hi}) of {N}",
+                  lambda: srht_encode_call(xt, cols_t, signs_t,
+                                           smap=smap_t, **skw),
+                  lambda: srht_encode_plain(xt, cols_t, signs_t, **skw),
+                  (lambda: torch.matmul(Sw, xt.T)) if Sw is not None
+                  else None, (64 * n + 64 * (hi - lo)) * 4 + n * 8,
+                  64 * N * math.log2(N), 20,
+                  route_of("srht", n=n, N=N, lo=lo, hi=hi))
+        if got["library_ms"] is not None:
+            print(f"srht (64, {n}) -> [{lo}, {hi}) of {N}: the kernel "
+                  f"{got['ms']:.4f} ms vs torch.matmul with the dense "
+                  f"window {got['library_ms']:.4f} ms: the kernel is "
+                  f"{'faster' if got['ms'] < got['library_ms'] else 'slower'}"
+                  f"  [{smi}]")
     del S, Sw, xt
     # the path's encode: the (p + 1)-column frame
     xt = torch.randn((p + 1, n), device=dev, generator=gen)
     skw = dict(N=N, lo=0, hi=N, scale=1.0 / math.sqrt(n))
     row(srht, f"({p + 1}, {n}) -> {N} (the path's encode)",
-        lambda: srht_encode_call(xt, cols_t, signs_t, **skw), None, None,
-        ((p + 1) * (n + N)) * 4 + n * 8, (p + 1) * N * math.log2(N), 3)
+        lambda: srht_encode_call(xt, cols_t, signs_t, smap=smap_t, **skw),
+        None, None, ((p + 1) * (n + N)) * 4 + n * 8,
+        (p + 1) * N * math.log2(N), 3,
+        route_of("srht", n=n, N=N, lo=0, hi=N))
     del xt
     for kname, rows_ in wide.items():
         table[kname]["wide"] = rows_
@@ -1286,7 +1461,9 @@ def main() -> int:
     from repro_torch.kernels.coded_reduce import (coded_combine_call,
                                                   coded_combine_ref,
                                                   combine_row_groups)
-    from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
+    from repro_torch.kernels.encode import (srht_encode_call,
+                                            srht_encode_plain,
+                                            srht_signed_slot_map)
     from repro_torch.kernels.fused_step import (
         MAX_COLS, fused_masked_gradient, fused_masked_gradient_plain,
         pick_fused_realization_tile)
@@ -1339,8 +1516,8 @@ def main() -> int:
     err, rel = rel_err(fwht_kernel_call(x), fwht_plain(x))
     # f32 butterflies of 13 stages summed in another stage order
     require(rel <= 1e-5, f"fwht: max|d| {err:.3e} = {rel:.2e} max|ref|")
-    print(f"check fwht {tuple(x.shape)}: max|d| {err:.3e} "
-          f"({rel:.2e} of max|ref|, tol 1e-5)")
+    print(f"check fwht {tuple(x.shape)}, {route_of('fwht', n=N)}: max|d| "
+          f"{err:.3e} ({rel:.2e} of max|ref|, tol 1e-5)")
     table["fwht"] = {"max_abs_err": err}
 
     # SRHT of the (n, p + 1) data: full frame and worker 5's window
@@ -1348,6 +1525,9 @@ def main() -> int:
     xt = X.t().contiguous()
     cols_t = torch.as_tensor(cols.astype(np.int32), device=dev)
     signs_t = torch.as_tensor(signs.astype(np.float32), device=dev)
+    # the signed slot map, built once as an encoder's caller does: the
+    # timed calls below are then one launch each
+    smap_t = srht_signed_slot_map(cols_t, signs_t, N)
     scale = 1.0 / math.sqrt(n)
     srht_err = 0.0
     for lo, hi in ((0, N), (5 * r, 6 * r)):
@@ -1356,10 +1536,12 @@ def main() -> int:
                            srht_encode_plain(xt, cols_t, signs_t, **kw))
         require(rel <= 1e-5, f"srht [{lo},{hi}): max|d| {err:.3e} = "
                              f"{rel:.2e} max|ref|")
-        print(f"check srht window [{lo}, {hi}): max|d| {err:.3e} "
-              f"({rel:.2e} of max|ref|, tol 1e-5)")
+        print(f"check srht window [{lo}, {hi}), "
+              f"{route_of('srht', n=n, N=N, lo=lo, hi=hi)}: max|d| "
+              f"{err:.3e} ({rel:.2e} of max|ref|, tol 1e-5)")
         srht_err = max(srht_err, err)
     table["srht_encode"] = {"max_abs_err": srht_err}
+    hadamard_routes(dev, gen, table)
 
     # fused gradient at the slice's shapes
     SX = torch.randn((m, r, p), device=dev, generator=gen)
@@ -1678,6 +1860,7 @@ def main() -> int:
     fw["library_ms"] = time_ms(lambda: torch.matmul(x, H), 3)
     fw["bound_ms"], fw["bound_by"] = bound_ms(
         2 * x.numel() * 4, x.numel() * math.log2(N))
+    fw["plan"] = route_of("fwht", n=N)
     del H
 
     # SRHT full frame: read the (p + 1, n) data and (cols, signs), write the
@@ -1686,14 +1869,39 @@ def main() -> int:
                         math.sqrt(n), dtype=torch.float32, device=dev)
     se = table["srht_encode"]
     kw = dict(N=N, lo=0, hi=N, scale=scale)
-    se["ms"] = time_ms(lambda: srht_encode_call(xt, cols_t, signs_t, **kw),
-                       20)
+    se["ms"] = time_ms(lambda: srht_encode_call(xt, cols_t, signs_t,
+                                                smap=smap_t, **kw), 20)
     se["plain_ms"] = time_ms(
         lambda: srht_encode_plain(xt, cols_t, signs_t, **kw), 5)
     se["library_ms"] = time_ms(lambda: torch.matmul(S, X), 3)
     se["bound_ms"], se["bound_by"] = bound_ms(
         (xt.numel() + (p + 1) * N) * 4 + n * 8, (p + 1) * N * math.log2(N))
-    del S
+    se["plan"] = route_of("srht", n=n, N=N, lo=0, hi=N)
+    # worker 5's window of the same data: read the (p + 1, n) data and
+    # (cols, signs), write r rows; the yardstick is the product with the
+    # dense window of S
+    lo, hi = 5 * r, 6 * r
+    kw = dict(N=N, lo=lo, hi=hi, scale=scale)
+    Sw = S[lo:hi].contiguous()
+    win = {"shape": f"({p + 1}, {n}) -> [{lo}, {hi}) of {N}",
+           "plan": route_of("srht", n=n, N=N, lo=lo, hi=hi),
+           "ms": time_ms(lambda: srht_encode_call(xt, cols_t, signs_t,
+                                                  smap=smap_t, **kw), 20),
+           "plain_ms": time_ms(lambda: srht_encode_plain(
+               xt, cols_t, signs_t, **kw), 5),
+           "library_ms": time_ms(lambda: torch.matmul(Sw, X), 20)}
+    win["bound_ms"], win["bound_by"] = bound_ms(
+        (xt.numel() + (p + 1) * r) * 4 + n * 8,
+        (p + 1) * (N + r * math.log2(r)))
+    win["device_ms"] = graph_ms(lambda: srht_encode_call(
+        xt, cols_t, signs_t, smap=smap_t, **kw))
+    se["window"] = win
+    print(f"time srht_encode {win['shape']}: {win['ms']:.4f} ms; bound "
+          f"{win['bound_ms']:.4f} ms ({win['bound_by']}); plain "
+          f"{win['plain_ms']:.4f} ms; library (torch.matmul, dense window) "
+          f"{win['library_ms']:.4f} ms; {win['plan']}; device "
+          f"{win['device_ms']:.4f} ms a call (CUDA graph replay)  [{smi}]")
+    del S, Sw
 
     # fused gradient, single (the run() step): the active workers' blocks
     # are what this mask needs read; 2 flops an element in each of 2 passes
@@ -1779,9 +1987,12 @@ def main() -> int:
     for kname in ("fused_masked_gradient", "srht_encode", "fwht",
                   "coded_combine"):
         row = table[kname]
+        # "plan" is the Hadamard kernels' route among their own forms;
+        # "route" in the line below is the contract's: cuda or triton
+        route = f"; {row['plan']}" if "plan" in row else ""
         print(f"time {kname}: {row['ms']:.4f} ms; bound {row['bound_ms']:.4f}"
               f" ms ({row['bound_by']}); plain {row['plain_ms']:.4f} ms; "
-              f"library {row['library_ms']:.4f} ms  [{smi}]")
+              f"library {row['library_ms']:.4f} ms{route}  [{smi}]")
         kernels.append({"name": kname, "route": "cuda",
                         "source": meta[kname][0], "replaces": meta[kname][1],
                         "launches": counts[kname], **row})

@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
-"""Hold this checkout's fused-gradient and combine kernels against another
-checkout's (for example the parent commit, unpacked with ``git archive``
-into a git-ignored directory) on one NVIDIA card:
+"""Hold this checkout's kernels against another checkout's (for example
+the parent commit, unpacked with ``git archive`` into a git-ignored
+directory) on one NVIDIA card:
 
-    python3 kernel_ab.py OTHER_CHECKOUT
+    python3 kernel_ab.py OTHER_CHECKOUT [NAME_PART]
 
-Each checkout runs in its own process (each builds its own kernels), in
-the order other, this, this, other, on the same inputs at the PAPER_RIDGE
-shapes, made on the card from seed 0: the fused gradient at (32, 256, 6000)
-single and batched at R = 4 and R = 16 (24 of 32 workers a realization),
-and the combine at (32, 6000) and (32, 4194304).  It prints each case's
+(NAME_PART runs only the cases whose name holds it, e.g. "fwht".)  Each
+checkout runs in its own process (each builds its own kernels), in
+the order other, this, this, other, on the same inputs, made on the card
+from seed 0: at the PAPER_RIDGE shapes the fused gradient at (32, 256,
+6000) single and batched at R = 4 and R = 16 (24 of 32 workers a
+realization), the combine at (32, 6000) and (32, 4194304), the FWHT of
+decode_t's (6001, 8192) and the SRHT of the (6001, 4096) data into
+N = 8192, full frame and worker 5's rows [1280, 1536); at the wide path's
+shapes (LASSO §5.4, n 32 768, N 65 536) the FWHT at (8, 65536) and
+(2, 262144), and the SRHT of 64 columns, full frame and worker 5's rows
+[2560, 3072), and of the path's 100 001 columns; past the cluster's 2^18
+(the strided passes) the FWHT at (4, 2^19) and the SRHT of 8 columns of
+300 000 into N = 2^19.  The SRHT's signed slot map, where the checkout's
+wrapper takes one, is built before the cases.  It prints each case's
 time in every run (CUDA events, mean over back-to-back calls after
-warm-up; the combine at (32, 6000) also the profiler's device time a call)
-and whether the two checkouts' outputs are equal bit for bit, then the
-same as one JSON line.  Exits 2 without a card, 1 if a run fails.
+warm-up; the combine at (32, 6000) also the profiler's device time a
+call; the FWHT and SRHT cases that the host's launch path paces also the
+card's own time a call, by CUDA graph replay, as "device_ms")
+and whether the two checkouts' outputs are equal bit for bit (else their
+largest difference over the other's largest magnitude; the 100 001-column
+encode is compared on every 1000th column), then the same as one JSON
+line.  Exits 2 without a card, 1 if a run fails.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -56,6 +70,43 @@ def _cases(torch, np, dev):
         c = torch.rand(M, device=dev, generator=gen)
         cases.append((f"combine (32, {cp})",
                       lambda g=g, c=c: coded_combine_call(g, c)))
+    cases += _hadamard_cases(torch, np, dev, gen)
+    return cases
+
+
+def _hadamard_cases(torch, np, dev, gen):
+    """The FWHT and SRHT cases: the main path's one-pass shapes and worker
+    5's window, then the wide path's, then past the cluster's 2^18 (the
+    strided passes).  Where the checkout's SRHT wrapper takes a signed slot
+    map, it is built once beforehand, as an encoder's caller does."""
+    import inspect
+
+    from repro_torch.kernels import encode
+    from repro_torch.kernels.fwht import fwht_kernel_call
+    call = encode.srht_encode_call
+    takes_map = "smap" in inspect.signature(call).parameters
+    cases = []
+    for rows, nf in ((P + 1, 2 * N), (8, 65536), (2, 262144), (4, 1 << 19)):
+        x = torch.randn((rows, nf), device=dev, generator=gen)
+        cases.append((f"fwht ({rows}, {nf})",
+                      lambda x=x: fwht_kernel_call(x)))
+    rng = np.random.default_rng(0)
+    for n, NN, p, windows in ((N, 2 * N, P + 1, ((0, 2 * N), (1280, 1536))),
+                              (32768, 65536, 64, ((0, 65536), (2560, 3072))),
+                              (32768, 65536, 100001, ((0, 65536),)),
+                              (300000, 1 << 19, 8, ((0, 1 << 19),))):
+        cols = torch.as_tensor(rng.choice(NN, n, replace=False).astype(
+            np.int32), device=dev)
+        signs = torch.as_tensor(rng.choice([-1.0, 1.0], n).astype(
+            np.float32), device=dev)
+        extra = ({"smap": encode.srht_signed_slot_map(cols, signs, NN)}
+                 if takes_map else {})
+        xt = torch.randn((p, n), device=dev, generator=gen)
+        for lo, hi in windows:
+            kw = dict(N=NN, lo=lo, hi=hi, scale=1.0 / math.sqrt(n), **extra)
+            cases.append((f"srht ({p}, {n}) -> [{lo}, {hi}) of {NN}",
+                          lambda xt=xt, cols=cols, signs=signs, kw=kw:
+                          call(xt, cols, signs, **kw)))
     return cases
 
 
@@ -87,18 +138,54 @@ def _device_us(torch, fn, reps: int) -> float:
                if ev.device_type == torch.autograd.DeviceType.CUDA) / reps
 
 
-def worker(src: str, out: str) -> int:
-    """Run every case with the package under ``src``; save the outputs and
-    times to ``out`` (a torch file)."""
+def _graph_ms(torch, fn, reps: int = 20, calls: int = 10) -> float:
+    """The card's own time a call: ``calls`` calls captured in a CUDA graph,
+    replayed ``reps`` times between CUDA events (the host's launch path
+    taken out)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (reps * calls)
+
+
+def worker(src: str, out: str, only: str) -> int:
+    """Run every case whose name holds ``only`` with the package under
+    ``src``; save the outputs and times to ``out`` (a torch file)."""
     sys.path.insert(0, src)
     import numpy as np
     import torch
     dev = torch.device("cuda")
     outputs, times = {}, {}
     for name, fn in _cases(torch, np, dev):
-        outputs[name] = fn().cpu()
-        reps = 20 if "fused" in name or "4194304" in name else 200
+        if only not in name:
+            continue
+        res = fn()
+        # the 100 001-column encode's frame is 26 GB: every 1000th column
+        outputs[name] = (res[::1000] if res.shape[0] > 10**5 else res).cpu()
+        del res
+        reps = (3 if "100001" in name else
+                20 if any(k in name for k in ("fused", "4194304", "6001"))
+                else 200)
         times[name] = _time_ms(torch, fn, reps)
+        if reps == 200 and name.startswith(("fwht", "srht")):
+            # paced by the host's launch path: the card's own share too
+            times[name + " device_ms"] = _graph_ms(torch, fn)
         if name == f"combine (32, {P})":
             times[name + " device_us"] = _device_us(torch, fn, 50)
     torch.save({"outputs": outputs, "times": times}, out)
@@ -106,11 +193,12 @@ def worker(src: str, out: str) -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
-        return worker(sys.argv[2], sys.argv[3])
-    if len(sys.argv) != 2:
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker":
+        return worker(sys.argv[2], sys.argv[3], sys.argv[4])
+    if len(sys.argv) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 1
+    only = sys.argv[2] if len(sys.argv) == 3 else ""
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device; nothing run", file=sys.stderr)
@@ -122,7 +210,7 @@ def main() -> int:
         for i, who in enumerate(("other", "this", "this", "other")):
             out = Path(tmp) / f"{i}.pt"
             proc = subprocess.run([sys.executable, __file__, "--worker",
-                                   srcs[who], str(out)], cwd=ROOT)
+                                   srcs[who], str(out), only], cwd=ROOT)
             if proc.returncode:
                 print(f"kernel_ab: run {i} ({who}) failed", file=sys.stderr)
                 return 1
@@ -133,10 +221,17 @@ def main() -> int:
         print(f"{name}: " + ", ".join(
             f"{who} {r['times'][name]:.4f}" for who, r in runs)
             + (" us" if name.endswith("device_us") else " ms"))
+    report["rel_diff"] = {}
     for name, ref in runs[0][1]["outputs"].items():
-        same = torch.equal(ref, runs[1][1]["outputs"][name])
+        got = runs[1][1]["outputs"][name]
+        same = torch.equal(ref, got)
         report["bitwise"][name] = same
-        print(f"{name}: this == other bit for bit: {same}")
+        rel = float((got.float() - ref.float()).abs().max()
+                    / ref.float().abs().max().clamp_min(1e-30))
+        report["rel_diff"][name] = rel
+        print(f"{name}: this == other bit for bit: {same}"
+              + ("" if same else f" (max|this - other| = {rel:.3e} of "
+                 f"max|other|)"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

@@ -117,7 +117,7 @@ def _hadamard_blocks(X, y, enc: FastHadamardEncoder, dtype, dev):
     and SX (about 2 |SX|) and the host no float64 copy of the data.  The
     values equal those of stacking ``enc.encode_partitioned`` of the
     float32 [X y] and splitting off its last column."""
-    from repro_torch.kernels.encode import srht_encode_call
+    from repro_torch.kernels.encode import srht_encode_call, srht_operands
     X = np.asarray(X)
     n, p = X.shape
     xt = torch.empty((p + 1, n), dtype=torch.float32, device=dev)
@@ -126,10 +126,9 @@ def _hadamard_blocks(X, y, enc: FastHadamardEncoder, dtype, dev):
         xt[:p, r0:r0 + _STAGE_ROWS] = rows.t()
         del rows
     xt[p] = torch.as_tensor(np.asarray(y)).to(dev, torch.float32)
-    frame = srht_encode_call(
-        xt, torch.as_tensor(enc.cols.astype(np.int32), device=dev),
-        torch.as_tensor(np.asarray(enc.signs, np.float32), device=dev),
-        N=enc.N, lo=0, hi=enc.N, scale=1.0 / math.sqrt(n))
+    cols, signs, smap = srht_operands(enc.cols, enc.signs, enc.N, dev)
+    frame = srht_encode_call(xt, cols, signs, N=enc.N, lo=0, hi=enc.N,
+                             scale=1.0 / math.sqrt(n), smap=smap)
     del xt
     m, r = enc.m, enc.rows_per_worker
     SX = torch.empty((m, r, p), dtype=dtype, device=dev)

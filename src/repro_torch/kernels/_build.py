@@ -111,14 +111,25 @@ _SIGNATURES = {
                            ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
                            ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "repro_srht_encode": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    "repro_fwht_cluster": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p],
+    "repro_empty": [ctypes.c_void_p],
+    "repro_srht_onepass": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                           ctypes.c_int, ctypes.c_void_p],
+    "repro_srht_pruned": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_float, ctypes.c_void_p],
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "repro_srht_cluster": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
     "repro_srht_segments": [ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                            ctypes.c_void_p],
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
     "repro_fused_masked_gradient_wide": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,

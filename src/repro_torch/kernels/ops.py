@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .coded_reduce import coded_combine_call
-from .encode import srht_encode_call
+from .encode import srht_encode_call, srht_operands
 from .fused_step import fused_masked_gradient
 from .fwht import fwht_kernel_call
 
@@ -42,10 +42,9 @@ def srht_encode(X: torch.Tensor, cols: np.ndarray, signs: np.ndarray, N: int,
     if cols.shape != (n,) or cols.min(initial=0) < 0 or \
             cols.max(initial=0) >= N or np.unique(cols).size != n:
         raise ValueError(f"cols must be {n} distinct slots in [0, {N})")
-    cols_t = torch.as_tensor(cols.astype(np.int32), device=X.device)
-    signs_t = torch.as_tensor(np.asarray(signs, np.float32), device=X.device)
+    cols_t, signs_t, smap = srht_operands(cols, signs, N, X.device)
     out = srht_encode_call(X.t().contiguous(), cols_t, signs_t, N=N, lo=lo,
-                           hi=hi, scale=1.0 / math.sqrt(n))
+                           hi=hi, scale=1.0 / math.sqrt(n), smap=smap)
     return out.t()
 
 

@@ -26,7 +26,13 @@ elements matches its plain version on column slices to rel 1e-5.  Past
 one pass (FWHT and SRHT above N = 32 768, the fused gradient above
 p = 16 384) the kernels hold to the same tolerances, and the fused
 gradient's column-split form keeps batched rows equal to single calls bit
-for bit.
+for bit.  The Hadamard kernels' routes (``fwht_plan``, ``srht_plan``):
+FWHT and SRHT over a thread-block cluster up to N = 2^18 and the SRHT's
+pruned window, each one launch a call, against their plain versions, a
+column of a batched call equal bit for bit to a one-column call, two calls
+equal bit for bit; the strided passes past 2^18; a cluster launch the card
+refuses raises and counts no launch; the signed slot map the card builds
+equals the host's, and a sign other than +-1 raises on every route.
 """
 import numpy as np
 import pytest
@@ -38,11 +44,13 @@ from repro_torch.kernels._build import load_library
 from repro_torch.kernels.coded_reduce import (coded_combine_call,
                                               coded_combine_ref,
                                               combine_row_groups)
-from repro_torch.kernels.encode import srht_encode_call, srht_encode_plain
+from repro_torch.kernels.encode import (srht_encode_call, srht_encode_plain,
+                                        srht_plan)
 from repro_torch.kernels.fused_step import (MAX_COLS, fused_masked_gradient,
                                             fused_masked_gradient_plain,
                                             pick_fused_realization_tile)
-from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
+from repro_torch.kernels.fwht import (Plan, fwht_kernel_call, fwht_plain,
+                                      fwht_plan)
 from repro_torch.runtime import scan_gd, scan_prox
 from repro_torch.workloads import get_workload
 
@@ -86,17 +94,21 @@ def test_fwht_kernel_rejects(cuda):
         fwht_kernel_call(torch.ones((2, 8), device=cuda, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("n", [65536, 131072, 262144, 1 << 20])
+@pytest.mark.parametrize("n", [65536, 131072, 262144, 1 << 19, 1 << 20])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fwht_kernel_multi_pass(cuda, n, dtype):
-    """Past one pass (n > 32768): the one-pass kernel over segments, then
-    the strided passes; one launch counted a call."""
+    """Past one pass (n > 32768): a thread-block cluster up to 2^18, the
+    strided passes past it; one launch counted a call; a row of a batched
+    call equals a one-row call, and two calls are equal, bit for bit."""
+    assert fwht_plan(n).route == ("cluster" if n <= 1 << 18 else "passes")
     x = _randn((3, n), n, cuda, dtype)
     before = launches["fwht"]
     out = fwht_kernel_call(x)
     torch.cuda.synchronize()
     assert launches["fwht"] == before + 1 and out.dtype == dtype
     _close(out, fwht_plain(x), 1e-5 if dtype == torch.float32 else 2 ** -7)
+    assert torch.equal(fwht_kernel_call(x[1:2].contiguous())[0], out[1])
+    assert torch.equal(fwht_kernel_call(x), out)
 
 
 @pytest.mark.parametrize("n,N,lo,hi", [(48, 128, 0, 128), (48, 128, 32, 64),
@@ -121,8 +133,9 @@ def test_srht_kernel(cuda, n, N, lo, hi):
                                        (100000, 262144, 0, 262144),
                                        (130000, 262144, 10240, 12288)])
 def test_srht_kernel_multi_pass(cuda, n, N, lo, hi):
-    """Past one pass (N > 32768): pass 1 gathers through the slot map, the
-    last pass scales and windows; one launch counted a call."""
+    """Past one pass (N > 32768): the cluster route for the full frame and
+    windows past 32 768 rows, the pruned route for the narrower windows;
+    one launch counted a call."""
     rng = np.random.default_rng(n)
     cols = torch.tensor(rng.choice(N, n, replace=False).astype(np.int32),
                         device=cuda)
@@ -138,21 +151,128 @@ def test_srht_kernel_multi_pass(cuda, n, N, lo, hi):
 
 
 def test_srht_kernel_partial_window_in_chunks(cuda, monkeypatch):
-    """A partial window past one pass takes its data columns a chunk at a
-    time (here two frames a chunk, over 5 columns): the same result."""
+    """A partial window past the cluster's capacity, too wide to prune,
+    takes its data columns a chunk at a time (here two frames a chunk, over
+    5 columns): the same result."""
     import repro_torch.kernels.encode as encode
-    N, n = 65536, 30000
+    N, n = 1 << 19, 300000
     monkeypatch.setattr(encode, "CHUNK_BYTES", 2 * N * 4)
     assert encode.srht_chunk_rows(5, N) == 2
+    kw = dict(N=N, lo=4096, hi=70000, scale=n ** -0.5)
+    assert srht_plan(n, N, kw["lo"], kw["hi"]).route == "passes"
     rng = np.random.default_rng(3)
     cols = torch.tensor(rng.choice(N, n, replace=False).astype(np.int32),
                         device=cuda)
     signs = torch.tensor(rng.choice([-1.0, 1.0], n).astype(np.float32),
                          device=cuda)
     xt = _randn((5, n), 4, cuda)
-    kw = dict(N=N, lo=4096, hi=4608, scale=n ** -0.5)
     _close(srht_encode_call(xt, cols, signs, **kw),
            srht_encode_plain(xt, cols, signs, **kw), 1e-5)
+
+
+def _srht_inputs(n, N, p, seed, dev):
+    rng = np.random.default_rng(seed)
+    cols = torch.tensor(rng.choice(N, n, replace=False).astype(np.int32),
+                        device=dev)
+    signs = torch.tensor(rng.choice([-1.0, 1.0], n).astype(np.float32),
+                         device=dev)
+    return _randn((p, n), seed + 1, dev), cols, signs
+
+
+@pytest.mark.parametrize("n,N,lo,hi,route", [
+    (32768, 1 << 16, 0, 1 << 16, "cluster"),          # full frame
+    (20001, 1 << 16, 0, 1 << 16, "cluster"),          # odd n
+    (32768, 1 << 16, 2560, 3072, "pruned"),           # worker 5's window
+    (32768, 1 << 16, 2561, 3001, "pruned"),           # misaligned
+    (32768, 1 << 16, 32000, 33000, "cluster"),        # straddles N / 2
+    (65536, 1 << 17, 0, 1 << 17, "cluster"),
+    (65535, 1 << 17, 8192, 16384, "pruned"),          # aligned, odd n
+    (65536, 1 << 17, 65000, 66000, "cluster"),
+    (100000, 1 << 18, 0, 1 << 18, "cluster"),
+    (130000, 1 << 18, 10240, 12288, "pruned"),        # aligned
+    (100000, 1 << 18, 131000, 131500, "cluster"),
+    (4096, 8192, 1280, 1536, "pruned"),               # PAPER_RIDGE worker 5
+    (4096, 8192, 0, 8192, "one-pass"),
+    (4096, 8192, 4000, 4200, "one-pass")])
+def test_srht_kernel_routes(cuda, n, N, lo, hi, route):
+    """Each route against the plain SRHT, one launch a call; column 2 of a
+    batched call equals a one-column call, and two calls are equal, bit
+    for bit."""
+    assert srht_plan(n, N, lo, hi).route == route
+    xt, cols, signs = _srht_inputs(n, N, 4, n + lo, cuda)
+    kw = dict(N=N, lo=lo, hi=hi, scale=n ** -0.5)
+    before = launches["srht_encode"]
+    out = srht_encode_call(xt, cols, signs, **kw)
+    torch.cuda.synchronize()
+    assert launches["srht_encode"] == before + 1
+    _close(out, srht_encode_plain(xt, cols, signs, **kw), 1e-5)
+    assert torch.equal(srht_encode_call(xt[2:3].contiguous(), cols, signs,
+                                        **kw)[0], out[2])
+    assert torch.equal(srht_encode_call(xt, cols, signs, **kw), out)
+
+
+@pytest.mark.parametrize("N,lo,hi", [(1 << 19, 0, 1 << 19),
+                                     (1 << 20, 0, 1 << 20),
+                                     (1 << 20, 1 << 18, 3 << 18)])
+def test_srht_kernel_strided_route(cuda, N, lo, hi):
+    """Past the cluster's 2^18 the segment and strided passes remain the
+    route for a window too wide to prune."""
+    n = N // 2 + 3
+    assert srht_plan(n, N, lo, hi).route == "passes"
+    xt, cols, signs = _srht_inputs(n, N, 2, N, cuda)
+    kw = dict(N=N, lo=lo, hi=hi, scale=n ** -0.5)
+    _close(srht_encode_call(xt, cols, signs, **kw),
+           srht_encode_plain(xt, cols, signs, **kw), 1e-5)
+
+
+def test_refused_cluster_launch_raises(cuda, monkeypatch):
+    """A cluster of 16 CTAs is past the portable size, and no kernel here
+    opts in to more: the card refuses the launch, and each wrapper raises
+    and counts no launch rather than take another route."""
+    import importlib
+    encode = importlib.import_module("repro_torch.kernels.encode")
+    # the package's name ``fwht`` is the op, not the module
+    fwht = importlib.import_module("repro_torch.kernels.fwht")
+    N = 1 << 18
+    sixteen = Plan("cluster", 16, N // 16)
+    monkeypatch.setattr(fwht, "fwht_plan", lambda n: sixteen)
+    monkeypatch.setattr(encode, "srht_plan", lambda n, N, lo, hi: sixteen)
+    x = _randn((2, N), 1, cuda)
+    before = dict(launches)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        fwht_kernel_call(x)
+    xt, cols, signs = _srht_inputs(1000, N, 2, 5, cuda)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        srht_encode_call(xt, cols, signs, N=N, lo=0, hi=N, scale=1.0)
+    assert dict(launches) == before
+
+
+@pytest.mark.parametrize("n,N,lo,hi", [(4096, 8192, 0, 8192),
+                                       (4096, 8192, 1280, 1536),
+                                       (32768, 1 << 16, 0, 1 << 16),
+                                       (300000, 1 << 19, 0, 1 << 19)])
+def test_srht_kernel_signed_slot_map(cuda, n, N, lo, hi):
+    """On every route (one pass, pruned, cluster, passes): the map built on
+    the card equals the one built on the host; a call given it equals a
+    call that builds its own, bit for bit, and counts one launch; a sign
+    other than +-1 raises before any launch."""
+    import repro_torch.kernels.encode as encode
+    xt, cols, signs = _srht_inputs(n, N, 3, n, cuda)
+    smap = encode.srht_signed_slot_map(cols, signs, N)
+    assert torch.equal(smap.cpu(), encode.srht_signed_slot_map(
+        cols.cpu(), signs.cpu(), N))
+    kw = dict(N=N, lo=lo, hi=hi, scale=n ** -0.5)
+    before = launches["srht_encode"]
+    out = srht_encode_call(xt, cols, signs, smap=smap, **kw)
+    torch.cuda.synchronize()
+    assert launches["srht_encode"] == before + 1
+    assert torch.equal(out, srht_encode_call(xt, cols, signs, **kw))
+    bad = signs.clone()
+    bad[n // 2] = 0.5
+    before = launches["srht_encode"]
+    with pytest.raises(ValueError, match="signs of"):
+        srht_encode_call(xt, cols, bad, **kw)
+    assert launches["srht_encode"] == before
 
 
 def _fused(dev, m, r, p, R, dtype=torch.float32, seed=0):

@@ -1,9 +1,10 @@
 """The port past its kernels' one-pass widths, against the JAX package, on
-the CPU: the fast-Hadamard encoder at N = 65 536 (two FWHT passes on the
-card), coded GD / ISTA at p = 16 385 (the fused gradient's column-split
-form on the card), the multi-pass plans the card's wrappers follow (the
-FWHT split and the SRHT slot map, against numpy), and the fast-Hadamard
-``make_encoded_problem`` that builds the worker blocks with one copy.
+the CPU: the fast-Hadamard encoder at N = 65 536 (a thread-block cluster
+on the card), coded GD / ISTA at p = 16 385 (the fused gradient's
+column-split form on the card), the multi-pass plans the card's wrappers
+follow (the FWHT split and the SRHT's signed slot map, against numpy),
+and the fast-Hadamard ``make_encoded_problem`` that builds the worker
+blocks with one copy.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: the encoder's outputs rel 1e-5 of the reference's largest
@@ -22,7 +23,7 @@ import repro.runtime as jrt
 import repro_torch.core as tcore
 import repro_torch.runtime as trt
 from repro_torch.kernels.encode import (CHUNK_BYTES, srht_chunk_rows,
-                                        srht_slot_map)
+                                        srht_operands)
 from repro_torch.kernels.fused_step import (MAX_COLS, fused_wide_scratch_bytes,
                                             pick_wide_block_rows)
 from repro_torch.kernels.fwht import MAX_ONE_PASS, MAX_STRIDED, fwht_passes
@@ -165,11 +166,19 @@ def test_fwht_split_takes_three_passes_past_one_strided_pass():
 
 @pytest.mark.parametrize("n,N", [(5, 8), (20000, 65536), (100, 262144)])
 def test_srht_slot_map_against_numpy(n, N):
-    cols = np.random.default_rng(n).choice(N, n, replace=False)
+    """The operands the encoders hand the kernel, from host arrays: cols
+    and signs as given, and the signed slot map the passes gather
+    through."""
+    rng = np.random.default_rng(n)
+    cols = rng.choice(N, n, replace=False)
+    signs = rng.choice([-1.0, 1.0], n)
     want = np.full(N, -1, np.int32)
-    want[cols] = np.arange(n)
-    got = srht_slot_map(torch.as_tensor(cols.astype(np.int32)), N)
-    assert got.dtype == torch.int32
+    want[cols] = (np.arange(n) << 1) | (signs < 0)
+    cols_t, signs_t, got = srht_operands(cols, signs, N, "cpu")
+    assert (cols_t.dtype, signs_t.dtype, got.dtype) == (
+        torch.int32, torch.float32, torch.int32)
+    np.testing.assert_array_equal(cols_t.numpy(), cols)
+    np.testing.assert_array_equal(signs_t.numpy(), signs)
     np.testing.assert_array_equal(got.numpy(), want)
 
 
