@@ -135,7 +135,39 @@ Phases, each of which ends the run with a non-zero exit on failure:
              the Hadamard rows also print their route, the card's own time
              a call (CUDA graph replay) and the launch floor (an empty
              kernel through the same ctypes path), and worker 5's window
-             against torch.matmul with the dense window;
+             against torch.matmul with the dense window; the fused step at
+             the path's shape also beside its library form, two torch.bmm
+             calls (the masked residual of every worker's rows, then
+             (S X)^T times it), held to the kernel's output (rel 1e-4);
+   serve   - the model zoo's serve path (``repro_torch.models``' prefill
+             and decode_step, ``repro_torch.serve``), which runs no kernel
+             of the port: the launch counters are cleared before the
+             phase and must read 0 after it.  (1) every architecture at
+             its smoke variant: prefill (batch 2, 64 tokens, cache 72) and
+             8 teacher-forced decode steps on the card and on the CPU from
+             the same port-initialized float32 parameters (TF32 off),
+             logits to rel 1e-4 of the largest |logit|, cache trees of
+             equal structure and shapes; (2) gemma2-27b at its published
+             width (arXiv:2408.00118) with one period of 2 layers of 46
+             (the local layer, window 4096, and the global one; a
+             ``reduced:`` line), 2 312 151 552 parameters in bfloat16:
+             batch 4, prompt 8192 (the local ring keeps the last 4096
+             keys), 32 greedy decode steps; prefill ms and decode ms a
+             token (CUDA events, five samples after the warm-up, every
+             sample), tokens/s, peak device memory, profiler breakdowns
+             of the prefill and of one decode step with the idle share;
+             then in float32 at batch 1 prefill's last logits and the
+             first decode step's against ``forward`` over 8193 tokens,
+             within 1e-3 of the largest |logit|; (3) phi3.5-moe-42b-a6.6b
+             at its published width (hf:microsoft/Phi-3.5-MoE-instruct),
+             1 layer of 32, 1 431 646 208 parameters in bfloat16, batch 2,
+             prompt 4096, 16 decode steps, the same times and the
+             assignments the prefill drops for capacity; (4) xlstm-350m
+             whole (arXiv:2405.04517), 393 131 104 parameters, batch 2,
+             prompt 1024, 16 decode steps, the same times; (5)
+             ``python -m repro_torch.serve --arch gemma2-27b`` through
+             ``main(argv)`` on the card, in-process; the phase's host
+             seconds;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
              same function (the SRHT also at worker 5's window beside
@@ -1365,9 +1397,28 @@ def wide_phase(smi: str, drive, table: dict) -> None:
     print(f"fused scratch a realization at ({m}, {r}, {p}): "
           f"{scratch / 1e9:.3f} GB = 1/{active_bytes / scratch:.1f} of the "
           f"{act} active workers' S X ({active_bytes / 1e9:.2f} GB)")
+    # the library yardstick at the path's shape: two torch.bmm calls, the
+    # masked residual of every worker's rows, then (S X)^T times it summed
+    # over the workers; each reads all of S X once, and neither copies it
+    cw = mask * (m / act) / (n * beta)
+
+    def fused_library():
+        u = torch.bmm(SX, w.view(1, p, 1).expand(m, p, 1)) - Sy[..., None]
+        u = u * cw[:, None, None]
+        return torch.bmm(SX.view(1, m * r, p).transpose(1, 2),
+                         u.view(1, m * r, 1)).view(p)
+
+    err, rel = rel_err(fused_library(), fused_masked_gradient(SX, Sy, w,
+                                                              mask, **fkw))
+    # f32 dot products of p and m r terms in other orders
+    require(rel <= 1e-4, f"fused library form at the path's shape: rel "
+                         f"{rel:.2e}")
+    print(f"fused library form (two torch.bmm) at ({m}, {r}, {p}) vs the "
+          f"kernel: max|d| {err:.3e} ({rel:.2e} of max|ref|, tol 1e-4)")
     row(fused, f"({m}, {r}, {p}) single, {act} active (the path's step)",
-        lambda: fused_masked_gradient(SX, Sy, w, mask, **fkw), None, None,
-        (act * r * (p + 1) + 2 * p + m) * 4, 4 * act * r * p, 10)
+        lambda: fused_masked_gradient(SX, Sy, w, mask, **fkw), None,
+        fused_library, (act * r * (p + 1) + 2 * p + m) * 4, 4 * act * r * p,
+        10)
     del SX, Sy, SX8, Sy8
 
     # FWHT at decode_t's (8, N) and LASSO paper's N; the library yardstick
@@ -1442,6 +1493,259 @@ def wide_phase(smi: str, drive, table: dict) -> None:
     print(f"wide phase: {time.perf_counter() - t_phase:.1f} s host clock "
           f"(data {t_data:.1f}, L {t_L:.1f}, fused run {t_run:.1f}, "
           f"REPRO_FUSED=0 run {t_ora:.1f}, encode {t_enc:.1f})")
+
+
+def tree_layout(tree):
+    """A cache tree's nesting, NamedTuple class names and leaf shapes and
+    dtypes, for comparing two trees' structure."""
+    if isinstance(tree, tuple):
+        return (type(tree).__name__, tuple(tree_layout(t) for t in tree))
+    return (tuple(tree.shape), str(tree.dtype))
+
+
+def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
+                   dev, count_drops: bool = False) -> dict:
+    """One architecture served on the card at ``cfg``'s width through the
+    port's entry points (``init_params``, ``prefill``, ``decode_step``):
+    parameters from seed 0, a batch of B random prompts of S tokens, a
+    greedy continuation of ``new`` tokens (the result), then the times:
+    prefill ms and decode ms a token (CUDA events; five samples after the
+    warm-up that the greedy run is, every sample printed), tokens/s and
+    peak device memory (this model's own: what was allocated before its
+    parameters is not counted).  With ``count_drops`` the MoE layers'
+    capacity drops in the prefill are counted in one more, untimed
+    prefill, which must reach every MoE layer.
+    Returns the parameters, the prompts, the greedy tokens and the
+    prefill as a function."""
+    import numpy as np
+    import torch
+    from repro_torch.models import count_params, decode_step, init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import prefill
+    from repro_torch.models import transformer as T
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                              dtype=torch.int32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def pre():
+        return prefill(params, cfg, prompts, cache_len=S + new)
+
+    def greedy(lg, caches):
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        out = [tok]
+        for i in range(new):
+            lg, caches = decode_step(params, cfg, tok, caches, S + i)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1), lg
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lg0, caches = pre()
+        toks, lg_last = greedy(lg0, caches)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        require(bool(torch.isfinite(lg0).all()) and
+                bool(torch.isfinite(lg_last).all()),
+                f"{label}: non-finite logits")
+        pre_ms = samples_ms(pre, 5, warmup=0)
+        lg1, caches = pre()
+        dec_ms = [t / new for t in samples_ms(lambda: greedy(lg1, caches), 5,
+                                              warmup=0)]
+        drops = None
+        if count_drops:
+            seen = []
+            apply = T.moe_apply
+
+            def counting(p, x, c):
+                seen.append(int(moe_mod.capacity_drops(p, x, c)))
+                return apply(p, x, c)
+            T.moe_apply = counting
+            try:
+                pre()
+            finally:
+                T.moe_apply = apply
+            n_moe = sum(spec.moe for spec in cfg.period) * cfg.n_periods
+            require(len(seen) == n_moe, f"{label}: the drop count reached "
+                    f"{len(seen)} of {n_moe} MoE layers")
+            drops = sum(seen)
+    peak = torch.cuda.max_memory_allocated() - base
+    med_dec = sorted(dec_ms)[2]
+    n_params = int(count_params(cfg))
+    print(f"serve {label}: {n_params} parameters ({cfg.param_dtype}), "
+          f"batch {B}, prompt {S}, {new} greedy tokens; init {t_init:.1f} s,"
+          f" first prefill + decode {t_first:.2f} s host clock  [{smi}]")
+    print(f"serve {label} prefill {B}x{S}: {spread(pre_ms, 'ms')}  [{smi}]")
+    print(f"serve {label} decode a token (batch {B}): {spread(dec_ms, 'ms')};"
+          f" {B * 1e3 / med_dec:.1f} tokens/s; peak device memory "
+          f"{(peak + base - before) / 1e9:.2f} GB ({peak / 1e9:.2f} GB above"
+          f" the parameters)  [{smi}]")
+    if drops is not None:
+        C = moe_mod.moe_capacity(cfg, S)
+        print(f"serve {label}: {drops} of {B * S * cfg.top_k * n_moe}"
+              f" assignments dropped for capacity in the prefill (capacity "
+              f"{C} a row and expert, factor {cfg.capacity_factor})")
+    print(f"serve {label}: continuation of prompt 0: "
+          f"{toks[0, :12].tolist()}")
+    del caches
+    return {"params": params, "prompts": prompts, "tokens": toks,
+            "prefill": pre}
+
+
+def serve_consistency(g: dict, cfg, S: int) -> None:
+    """prefill's last logits and the first decode step's against
+    ``forward`` over S + 1 tokens, in float32 at batch 1, from
+    ``serve_at_width``'s parameters (cast), prompt 0 and its first greedy
+    token: both within 1e-3 of the largest |logit|, the reference's own
+    tolerance (tests/test_decode_consistency.py)."""
+    import torch
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.common import cast
+
+    p32 = cast(g["params"], torch.float32)
+    f32 = cfg.with_overrides(dtype="float32", param_dtype="float32")
+    seq = torch.cat([g["prompts"][:1], g["tokens"][:1, :1].int()], dim=1)
+    g.clear()          # the bfloat16 parameters and closures go
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        full = forward(p32, f32, seq)[0][:, S - 1:].clone()
+        torch.cuda.empty_cache()
+        lp, caches = prefill(p32, f32, seq[:, :S], cache_len=S + 8)
+        ld, _ = decode_step(p32, f32, seq[:, S:], caches, S)
+    scale = float(full.abs().max())
+    e_pre = float((lp[:, 0] - full[:, 0]).abs().max()) / scale
+    e_dec = float((ld[:, 0] - full[:, 1]).abs().max()) / scale
+    require(e_pre <= 1e-3 and e_dec <= 1e-3,
+            f"{cfg.name} float32 consistency: prefill {e_pre:.2e}, decode "
+            f"{e_dec:.2e} of max|logit| > 1e-3")
+    print(f"{cfg.name} float32 consistency (batch 1, {S} + 1 tokens): "
+          f"prefill's last logits vs forward at {S - 1}: {e_pre:.2e}, the "
+          f"first decode step vs forward at {S}: {e_dec:.2e} of max|logit| "
+          f"{scale:.3f} (tol 1e-3)")
+
+
+def serve_phase(smi: str) -> None:
+    """The model zoo's serve path on the card (module docstring, phase
+    "serve"): no kernel of the port runs here, and the launch counters,
+    cleared at the start, must read zero at the end."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import _build
+    from repro_torch.models import (count_params, decode_step, init_params,
+                                    prefill)
+    from repro_torch.serve import main as serve_main
+    from repro_torch.serve import serve_inputs
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _build.launches.clear()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+
+    # (1) every architecture at its smoke variant, card against CPU, from
+    # the same port-initialized float32 parameters (TF32 off: main())
+    B, S, new = 2, 64, 8
+    for arch in sorted(ARCHS):
+        cfg = ARCHS[arch].smoke_variant()
+        host = init_params(cfg, 0, device="cpu")
+        runs = {}
+        for d in (dev, cpu):
+            params = tree_map(lambda t: t.to(d), host)
+            rng = np.random.default_rng(0)
+            prompts, kw = serve_inputs(cfg, B, S, rng, d)
+            forced = torch.as_tensor(rng.integers(0, cfg.vocab, (B, new)),
+                                     device=d)
+            with torch.no_grad():
+                lg, caches = prefill(params, cfg, prompts, cache_len=S + new,
+                                     **kw)
+                logits = [lg]
+                for i in range(new):         # teacher-forced: no argmax
+                    lg, caches = decode_step(params, cfg,
+                                             forced[:, i:i + 1], caches,
+                                             S + i)
+                    logits.append(lg)
+            runs[d.type] = (torch.cat(logits, dim=1).cpu(), caches)
+        (lc, cc), (lh, ch) = runs["cuda"], runs["cpu"]
+        err, rel = rel_err(lc, lh)
+        # float32 sums in another order on the card (cuBLAS, reductions)
+        require(rel <= 1e-4, f"serve {arch}: card vs CPU logits rel "
+                             f"{rel:.2e} > 1e-4")
+        require(tree_layout(cc) == tree_layout(ch),
+                f"serve {arch}: cache trees differ card vs CPU")
+        print(f"serve {arch} smoke: prefill {B}x{S} + {new} decode steps, "
+              f"card vs CPU logits max|d| {err:.3e} ({rel:.2e} of max|ref|, "
+              f"tol 1e-4); caches: {len(tree_leaves(cc))} leaves, structure "
+              f"and shapes equal")
+    del runs, host, params, caches
+
+    # (2) gemma2-27b at its published width, depth cut to one period
+    gcfg = ARCHS["gemma2-27b"].with_overrides(n_layers=2)
+    n_g = int(count_params(gcfg))
+    require(n_g == 2312151552, f"gemma2-27b 2 layers: {n_g} parameters")
+    print(f"reduced: gemma2-27b (arXiv:2408.00118) layers 46 -> 2 (one "
+          f"period: the local layer, window 4096, and the global one); kept: "
+          f"d_model 4608, 32 heads (16 KV) of 128, d_ff 36864, vocab 256000, "
+          f"soft-caps 50 / 30, bfloat16; {n_g} parameters")
+    g = serve_at_width("gemma2-27b", gcfg, 4, 8192, 32, smi, dev)
+    with torch.no_grad():
+        lg, caches = g["prefill"]()
+        device_breakdown(g["prefill"], "gemma2-27b prefill 4x8192")
+        tok = g["tokens"][:, :1]
+        device_breakdown(lambda: decode_step(g["params"], gcfg, tok, caches,
+                                             8192),
+                         "gemma2-27b decode step (batch 4)")
+    del lg, caches
+    # the consistency check in float32 at B = 1 on the same width and depth
+    serve_consistency(g, gcfg, 8192)
+    del g
+    torch.cuda.empty_cache()
+
+    # (3) phi3.5-moe at its published width, one layer
+    pcfg = ARCHS["phi3.5-moe-42b-a6.6b"].with_overrides(n_layers=1)
+    n_p = int(count_params(pcfg))
+    require(n_p == 1431646208, f"phi3.5-moe 1 layer: {n_p} parameters")
+    print(f"reduced: phi3.5-moe-42b-a6.6b (hf:microsoft/Phi-3.5-MoE-instruct)"
+          f" layers 32 -> 1; kept: d_model 4096, 32 heads (8 KV), 16 experts "
+          f"top-2 of d_ff 6400, vocab 32064, capacity factor 1.25, bfloat16;"
+          f" {n_p} parameters")
+    serve_at_width("phi3.5-moe", pcfg, 2, 4096, 16, smi, dev,
+                   count_drops=True)
+    torch.cuda.empty_cache()
+
+    # (4) xlstm-350m whole
+    xcfg = ARCHS["xlstm-350m"]
+    n_x = int(count_params(xcfg))
+    require(n_x == 393131104, f"xlstm-350m: {n_x} parameters")
+    print(f"xlstm-350m (arXiv:2405.04517) whole: 24 layers (12 mLSTM, 12 "
+          f"sLSTM), d_model 1024, bfloat16, {n_x} parameters; the sLSTM "
+          f"layers run a Python loop of one step a token (host-paced)")
+    serve_at_width("xlstm-350m", xcfg, 2, 1024, 16, smi, dev)
+    torch.cuda.empty_cache()
+
+    # (5) the serve CLI, in-process, on the card
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(["--arch", "gemma2-27b"])
+    lines = buf.getvalue().splitlines()
+    require(rc == 0 and len(lines) == 3 and lines[0].startswith("prefill:")
+            and lines[1].startswith("decoded "),
+            f"python -m repro_torch.serve: rc {rc}, output {lines}")
+    for line in lines:
+        print(f"python -m repro_torch.serve --arch gemma2-27b: {line}")
+
+    got = {k: v for k, v in _build.launches.items() if v}
+    require(not got, f"serve phase launched kernels of the port: {got}")
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f} s host clock; "
+          f"no kernel of the port launched (counters read 0)  [{smi}]")
 
 
 def main() -> int:
@@ -1780,6 +2084,8 @@ def main() -> int:
     # coded-prox at LASSO §5.4's published width ---------------------------
     wide_phase(smi, drive, table)
     print(f"launches by path: {json.dumps(by_path)}")
+    # the model zoo's serve path ----------------------------------------------
+    serve_phase(smi)
 
     # 5. times ---------------------------------------------------------------
     masks_run = torch.as_tensor(res.schedule.masks, device=dev)

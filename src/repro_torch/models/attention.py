@@ -1,24 +1,28 @@
-"""GQA attention with chunked online-softmax, sliding windows and
-soft-capping (port of ``repro.models.attention``'s full-sequence path).
+"""GQA attention with chunked online-softmax, sliding windows, soft-capping,
+ring-buffer KV caches and cross-attention (port of
+``repro.models.attention``).
 
-Plain PyTorch, as the reference's is plain XLA outside any Pallas kernel.
-KV is processed in chunks of ``cfg.attn_chunk`` with a running (max, denom,
-acc) carry — the flash-attention recurrence — whenever the KV length is a
-multiple of the chunk above one chunk; shorter or ragged lengths take the
-direct softmax.  Scores and the softmax run in float32 whatever the
-activations' dtype (the reference's ``preferred_element_type``).  The
-banded sliding-window path, the KV caches and ``decode_attend`` belong to
-the serve path, which the port does not have yet (ROADMAP Queue 1 item 5).
+Plain PyTorch, as the reference's is plain XLA outside any Pallas kernel;
+no fused library attention, which would keep neither the soft-cap nor the
+float32 score order.  KV is processed in chunks of ``cfg.attn_chunk`` with
+a running (max, denom, acc) carry — the flash-attention recurrence —
+whenever the KV length is a multiple of the chunk above one chunk (decode
+over a long cache included); shorter or ragged lengths take the direct
+softmax.  Scores and the softmax run in float32 whatever the activations'
+dtype (the reference's ``preferred_element_type``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+
 from .common import pdef, softcap
 
-__all__ = ["attn_defs", "qkv_proj", "out_proj", "attention"]
+__all__ = ["attn_defs", "qkv_proj", "out_proj", "attention", "init_kv_cache",
+           "ring_slot_positions", "decode_attend", "AttnCache"]
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -65,7 +69,7 @@ def _scores(q, k, scale, cap):
 
 def attention(q, k, v, *, causal: bool, window: Optional[int],
               cap: Optional[float], qpos, kpos, kvalid,
-              chunk: int = 1024) -> torch.Tensor:
+              chunk: int = 1024, banded: bool = False) -> torch.Tensor:
     """Online-softmax GQA attention.
 
     q: (B, Sq, H, hd);  k, v: (B, Skv, K, hd);  qpos: (Sq,) int;
@@ -84,6 +88,12 @@ def attention(q, k, v, *, causal: bool, window: Optional[int],
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgsc,bckh->bkgsh", p, v.float())
         return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+    if (banded and window is not None and causal and Sq == Skv
+            and Skv >= 4 * window and window % chunk == 0):
+        return _banded_attention(qh, k, v, window=window, cap=cap,
+                                 scale=scale, chunk=chunk, qpos=qpos,
+                                 out_dtype=q.dtype)
 
     m_run = torch.full((B, K, G, Sq), _NEG, dtype=torch.float32,
                        device=q.device)
@@ -107,3 +117,101 @@ def attention(q, k, v, *, causal: bool, window: Optional[int],
         m_run = m_new
     o = acc / torch.clamp(l_run, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _banded_attention(qh, k, v, *, window, cap, scale, chunk, qpos,
+                      out_dtype):
+    """Sliding-window self-attention without the O(S^2) masked waste.
+
+    q blocks of size ``chunk`` only visit the ``window/chunk + 1`` KV blocks
+    that can fall inside the window — compute drops from S*S to
+    S*(window+chunk).
+
+    qh: (B, K, G, S, hd) grouped queries; k, v: (B, S, K, hd).
+    """
+    B, K, G, S, hd = qh.shape
+    dev = qh.device
+    nq = S // chunk
+    nb = window // chunk + 1                     # KV blocks per q block
+    qb = qh.reshape(B, K, G, nq, chunk, hd)
+    kb = k.reshape(B, nq, chunk, K, hd)
+    vb = v.reshape(B, nq, chunk, K, hd)
+    # for q block i, kv blocks i-nb+1 .. i (clamped; out-of-range masked)
+    offs = (torch.arange(nq, device=dev)[:, None]
+            - torch.arange(nb - 1, -1, -1, device=dev)[None, :])
+    valid_blk = offs >= 0
+    gather = offs.clamp(0, nq - 1)                       # (nq, nb)
+    kg = kb[:, gather]                                   # (B, nq, nb, C, K, hd)
+    vg = vb[:, gather]
+    s = torch.einsum("bkgiqh,binckh->bkgiqnc", qb.float(),
+                     kg.float()) * scale
+    s = softcap(s, cap)                                  # (B,K,G,nq,Cq,nb,Ckv)
+    qp = qpos.reshape(nq, chunk)[:, :, None, None]       # (nq, Cq, 1, 1)
+    kp = (gather[:, :, None] * chunk
+          + torch.arange(chunk, device=dev)[None, None, :])  # (nq, nb, Ckv)
+    kp = kp[:, None, :, :]                               # (nq, 1, nb, Ckv)
+    msk = ((kp <= qp) & (kp > qp - window)
+           & valid_blk[:, None, :, None])                # (nq, Cq, nb, Ckv)
+    s = torch.where(msk[None, None, None], s, _NEG)
+    sh = s.shape
+    p = torch.softmax(s.reshape(sh[:-2] + (nb * chunk,)),
+                      dim=-1).reshape(sh)
+    o = torch.einsum("bkgiqnc,binckh->bkgiqh", p, vg.float())
+    o = o.reshape(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
+    return o.reshape(B, S, K * G, hd).to(out_dtype)
+
+
+class AttnCache(NamedTuple):
+    """KV cache for one attention layer (ring buffer when windowed)."""
+    k: torch.Tensor   # (B, C, K, hd)
+    v: torch.Tensor   # (B, C, K, hd)
+
+
+def init_kv_cache(B: int, cache_len: int, K: int, hd: int, dtype, *,
+                  device=None) -> AttnCache:
+    """Zero KV cache on ``device`` (unset: the CUDA card)."""
+    device = resolve_device(device)
+    return AttnCache(
+        torch.zeros((B, cache_len, K, hd), dtype=dtype, device=device),
+        torch.zeros((B, cache_len, K, hd), dtype=dtype, device=device))
+
+
+def ring_slot_positions(cache_len: int, index: int, *, device=None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Positions and validity of ring-buffer slots given current length.
+
+    Slot s holds the largest position p < index with p = s (mod cache_len);
+    valid iff p >= 0.  For a non-ring (full) cache this reduces to
+    pos = s, valid = s < index.  ``index`` is a Python int; the tensors
+    lie on ``device`` (unset: the CUDA card).
+    """
+    s = torch.arange(cache_len, dtype=torch.int32,
+                     device=resolve_device(device))
+    # floor modulo (``%`` on a tensor): idx - 1 - s is negative for most
+    # slots, where fmod would keep the sign
+    p = index - 1 - torch.remainder(index - 1 - s, cache_len)
+    return p, p >= 0
+
+
+def decode_attend(p, x, cache: AttnCache, index: int, *, cfg, window, cap,
+                  rope_fn, pre: str = "") -> tuple[torch.Tensor, AttnCache]:
+    """Single-token decode: write (k, v) at slot index % C, attend over cache.
+
+    x: (B, 1, d); index: the current position, a Python int (the serve
+    loop knows it, so nothing is read back from the card).  rope_fn(q_or_k,
+    pos) applies rotary for this arch (identity for non-rope archs).  The
+    new key and value are written INTO ``cache`` (no cache is copied per
+    token); the returned ``AttnCache`` holds the same tensors.
+    """
+    q, k_new, v_new = qkv_proj(p, x, pre)
+    pos = torch.arange(index, index + 1, dtype=torch.int32, device=x.device)
+    q = rope_fn(q, pos)
+    k_new = rope_fn(k_new, pos)
+    C = cache.k.shape[1]
+    slot = index % C
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    kpos, kvalid = ring_slot_positions(C, index + 1, device=x.device)
+    o = attention(q, cache.k, cache.v, causal=True, window=window, cap=cap,
+                  qpos=pos, kpos=kpos, kvalid=kvalid, chunk=cfg.attn_chunk)
+    return out_proj(p, o, pre), cache

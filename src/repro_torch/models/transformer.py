@@ -1,22 +1,29 @@
-"""Model driver: the full-sequence decoder of the model zoo (port of
-``repro.models.transformer``'s train path).
+"""Model driver: builds any architecture of the zoo from its ArchConfig
+(port of ``repro.models.transformer``).
+
+Decoder-only, MoE, hybrid (attn+mamba), xLSTM, encoder-decoder (whisper) and
+VLM (qwen2-vl, patch inputs with M-RoPE) share the same machinery:
 
   * parameters: descriptor trees (models.common) — one period of blocks,
     stacked over ``n_periods`` in the reference's layout, so a parameter
-    tree converts one array at a time (``models.convert``); ``forward``
-    walks the periods with a Python loop where the reference scans;
+    tree converts one array at a time (``models.convert``); the paths walk
+    the periods with a Python loop where the reference scans;
+  * three execution paths: ``forward`` (full-seq, train), ``prefill``
+    (full-seq + cache build), ``decode_step`` (one token + cache);
   * logits are tied to the token embedding and computed in float32.
 
-What runs: ``attn`` blocks with a dense MLP — rmsnorm or layernorm, silu
-or gelu, GQA, sliding windows, attention and final soft-capping,
-``post_block_norm`` and the gemma embedding scale.  ``remat_policy`` only
-trades memory for recomputation in the reference and changes no value: the
-port ignores it and keeps every activation.  MoE, mamba, mLSTM/sLSTM
-blocks, the encoder and patch inputs, and ``prefill`` / ``decode_step`` /
-``init_caches`` wait for the rest of the model zoo (ROADMAP Queue 1 item 5).
+Caches are per-period-position NamedTuples stacked over n_periods, the
+reference's scan layout, so a cache tree also converts one array at a time.
+``decode_step`` writes into the caches it is given and returns them (no
+cache is copied per token); ``init_caches`` materializes every period's
+own zeros.  ``remat_policy`` only trades memory for recomputation in the
+reference, and the ``seq_parallel_*`` sharding constraints only place data
+on a mesh: neither changes a value, and the port, on one device, ignores
+both.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -24,21 +31,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, BlockSpec
 
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
 from . import attention as attn
+from . import mamba as mb
+from . import xlstm as xl
 from .common import (Dtype, layernorm, pdef, rmsnorm, softcap, stack_defs,
                      tree_axes, tree_init)
 from .mlp import mlp_apply, mlp_defs
-from .rope import apply_rope, rope_angles
+from .moe import moe_apply, moe_defs
+from .rope import (apply_rope, mrope_angles, rope_angles,
+                   sinusoidal_positions)
 
-__all__ = ["param_defs", "init_params", "param_axes", "forward", "lm_loss",
-           "count_params"]
-
-_LATER = "ROADMAP Queue 1 item 5"
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_LATER}); the "
-                               f"port runs attention blocks with a dense MLP")
+__all__ = ["param_defs", "init_params", "param_axes", "forward", "prefill",
+           "decode_step", "init_caches", "lm_loss", "count_params", "Model"]
 
 
 # ------------------------------------------------------------ param defs ---
@@ -57,23 +64,25 @@ def _apply_norm(cfg, p, name, x):
     return layernorm(x, p[name], p[name + "_b"])
 
 
-def _check_block(spec: BlockSpec) -> None:
-    if spec.kind != "attn":
-        raise _unported(f"the {spec.kind} block")
-    if spec.moe:
-        raise _unported("the MoE MLP")
-    if spec.cross_attn:
-        raise _unported("cross-attention (encoder-decoder)")
-
-
 def _block_defs(cfg, spec: BlockSpec):
-    _check_block(spec)
     d = {}
     d.update(_norm_defs(cfg, "norm1"))
-    d.update(attn.attn_defs(cfg))
+    if spec.kind == "attn":
+        d.update(attn.attn_defs(cfg))
+        if spec.cross_attn:
+            d.update(_norm_defs(cfg, "normc"))
+            d.update(attn.attn_defs(cfg, cross=True))
+    elif spec.kind == "mamba":
+        d.update(mb.mamba_defs(cfg))
+    elif spec.kind == "mlstm":
+        d.update(xl.mlstm_defs(cfg))
+    elif spec.kind == "slstm":
+        d.update(xl.slstm_defs(cfg))
+    else:
+        raise ValueError(spec.kind)
     if spec.mlp:
         d.update(_norm_defs(cfg, "norm2"))
-        d.update(mlp_defs(cfg))
+        d.update(moe_defs(cfg) if spec.moe else mlp_defs(cfg))
     if cfg.post_block_norm:
         d.update(_norm_defs(cfg, "postn1"))
         if spec.mlp:
@@ -82,10 +91,6 @@ def _block_defs(cfg, spec: BlockSpec):
 
 
 def param_defs(cfg: ArchConfig):
-    if cfg.n_enc_layers:
-        raise _unported("the encoder")
-    if cfg.n_patches:
-        raise _unported("the patch-embedding projector")
     defs: dict = {
         "embed": pdef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                       scale=1.0),
@@ -93,6 +98,15 @@ def param_defs(cfg: ArchConfig):
                    for i, s in enumerate(cfg.period)},
     }
     defs.update(_norm_defs(cfg, "final_norm"))
+    if cfg.n_enc_layers:
+        enc_spec = BlockSpec("attn")
+        defs["encoder"] = {
+            "blocks": stack_defs(_block_defs(cfg, enc_spec), cfg.n_enc_layers),
+        }
+        defs["encoder"].update(_norm_defs(cfg, "enc_norm"))
+    if cfg.n_patches:
+        defs["projector"] = pdef((cfg.d_vision, cfg.d_model),
+                                 (None, "embed"))
     return defs
 
 
@@ -108,50 +122,220 @@ def param_axes(cfg: ArchConfig):
     return tree_axes(param_defs(cfg))
 
 
+# ------------------------------------------------------------- rope ctx ----
+
+def _rope_ctx(cfg: ArchConfig, positions, mrope_positions):
+    """cos/sin for the given positions (S,), or None (no rotary)."""
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        return mrope_angles(mrope_positions, cfg.hd, cfg.mrope_sections,
+                            cfg.rope_theta)                # (B, S, half)
+    if cfg.learned_pos:  # whisper-style: additive sinusoidal, no rotary
+        return None
+    cos, sin = rope_angles(positions, cfg.hd, cfg.rope_theta)  # (S, half)
+    return cos[None], sin[None]
+
+
+def _make_rope_fn(ctx):
+    if ctx is None:
+        return lambda t, pos=None: t
+    cos, sin = ctx
+    return lambda t, pos=None: apply_rope(t, cos, sin)
+
+
 # ----------------------------------------------------------- block apply ---
 
-def _attn_full(bp, spec, x, cfg, rope, causal):
-    """Full-sequence self-attention sublayer -> delta."""
+def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
+               cache_len=None):
+    """Full-sequence attention sublayer. Returns (delta, cache|None)."""
     S = x.shape[1]
+    dev = x.device
     q, k, v = attn.qkv_proj(bp, x)
-    if rope is not None:
-        cos, sin = rope
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    pos = torch.arange(S, dtype=torch.int32, device=x.device)
-    valid = torch.ones((S,), dtype=torch.bool, device=x.device)
+    rope_fn = _make_rope_fn(rope_ctx)
+    q, k = rope_fn(q), rope_fn(k)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    valid = torch.ones((S,), dtype=torch.bool, device=dev)
     o = attn.attention(q, k, v, causal=causal, window=spec.window,
                        cap=cfg.attn_softcap, qpos=pos, kpos=pos, kvalid=valid,
-                       chunk=cfg.attn_chunk)
-    return attn.out_proj(bp, o)
+                       chunk=cfg.attn_chunk, banded=cfg.banded_window)
+    delta = attn.out_proj(bp, o)
+    cache = None
+    if want_cache:
+        W = spec.window
+        if W is not None and S > W:
+            if S % W:
+                raise ValueError(f"ring-buffer prefill needs S % window == 0 "
+                                 f"(S {S}, window {W})")
+            k, v = k[:, S - W:].contiguous(), v[:, S - W:].contiguous()
+        else:
+            # Pre-allocate decode headroom (ring size capped at the window).
+            target = cache_len if cache_len is not None else S
+            if W is not None:
+                target = min(target, W)
+            if target > S:
+                pad = (0, 0, 0, 0, 0, target - S)
+                k, v = F.pad(k, pad), F.pad(v, pad)
+        cache = attn.AttnCache(k, v)
+    if spec.cross_attn:
+        xc = _apply_norm(cfg, bp, "normc", x)
+        qc, _, _ = attn.qkv_proj(bp, xc, pre="c")
+        Fr = enc_out.shape[1]
+        ck = torch.einsum("bfd,dhk->bfhk", enc_out, _promoted(bp["cwk"],
+                                                              enc_out))
+        cv = torch.einsum("bfd,dhk->bfhk", enc_out, _promoted(bp["cwv"],
+                                                              enc_out))
+        oc = attn.attention(
+            qc, ck, cv, causal=False, window=None, cap=None, qpos=pos,
+            kpos=torch.arange(Fr, dtype=torch.int32, device=dev),
+            kvalid=torch.ones((Fr,), dtype=torch.bool, device=dev),
+            chunk=cfg.attn_chunk)
+        delta = delta + attn.out_proj(bp, oc, pre="c")
+        if want_cache:
+            cache = (cache, attn.AttnCache(ck, cv))
+    return delta, cache
 
 
-def _block_full(bp, spec: BlockSpec, x, cfg, rope, *, causal=True):
-    """One block, full-sequence -> x."""
-    h = _apply_norm(cfg, bp, "norm1", x)
-    delta = _attn_full(bp, spec, h, cfg, rope, causal)
-    if cfg.post_block_norm:
-        delta = _apply_norm(cfg, bp, "postn1", delta)
-    x = x + delta
+def _mlp_sublayer(bp, spec, x, cfg, aux):
+    """The block's (dense or MoE) MLP residual branch. Returns (x, aux)."""
     if spec.mlp:
         h2 = _apply_norm(cfg, bp, "norm2", x)
-        delta2 = mlp_apply(bp, h2, cfg)
+        if spec.moe:
+            delta2, losses = moe_apply(bp, h2, cfg)
+            if aux is not None:
+                aux = {k: aux.get(k, 0.0) + v for k, v in losses.items()}
+        else:
+            delta2 = mlp_apply(bp, h2, cfg)
         if cfg.post_block_norm:
             delta2 = _apply_norm(cfg, bp, "postn2", delta2)
         x = x + delta2
-    return x
+    return x, aux
+
+
+def _block_full(bp, spec: BlockSpec, x, cfg, rope_ctx, aux, *, causal=True,
+                want_cache=False, enc_out=None, cache_len=None):
+    """One block, full-sequence. Returns (x, cache, aux)."""
+    h = _apply_norm(cfg, bp, "norm1", x)
+    cache = None
+    if spec.kind == "attn":
+        delta, cache = _attn_full(bp, spec, h, cfg, rope_ctx, causal,
+                                  want_cache, enc_out, cache_len=cache_len)
+    else:
+        apply = {"mamba": mb.mamba_apply, "mlstm": xl.mlstm_apply,
+                 "slstm": xl.slstm_apply}[spec.kind]
+        out = apply(bp, h, cfg, return_cache=want_cache)
+        delta, cache = out if want_cache else (out, None)
+    if cfg.post_block_norm:
+        delta = _apply_norm(cfg, bp, "postn1", delta)
+    x = x + delta
+    x, aux = _mlp_sublayer(bp, spec, x, cfg, aux)
+    return x, cache, aux
+
+
+def _block_decode(bp, spec: BlockSpec, x, cfg, cache, index, rope_decode):
+    """One block, single-token decode. Returns (x, new_cache)."""
+    h = _apply_norm(cfg, bp, "norm1", x)
+    if spec.kind == "attn":
+        if spec.cross_attn:
+            self_cache, cross_cache = cache
+        else:
+            self_cache = cache
+        delta, new_self = attn.decode_attend(
+            bp, h, self_cache, index, cfg=cfg, window=spec.window,
+            cap=cfg.attn_softcap, rope_fn=rope_decode)
+        if spec.cross_attn:
+            xc = _apply_norm(cfg, bp, "normc", x)
+            qc = torch.einsum("bsd,dhk->bshk", xc, bp["cwq"])
+            Fr = cross_cache.k.shape[1]
+            oc = attn.attention(
+                qc, cross_cache.k, cross_cache.v, causal=False, window=None,
+                cap=None, qpos=torch.zeros((1,), dtype=torch.int32,
+                                           device=x.device),
+                kpos=torch.arange(Fr, dtype=torch.int32, device=x.device),
+                kvalid=torch.ones((Fr,), dtype=torch.bool, device=x.device),
+                chunk=cfg.attn_chunk)
+            delta = delta + attn.out_proj(bp, oc, pre="c")
+            new_cache = (new_self, cross_cache)
+        else:
+            new_cache = new_self
+    else:
+        step = {"mamba": mb.mamba_decode, "mlstm": xl.mlstm_decode,
+                "slstm": xl.slstm_decode}[spec.kind]
+        delta, new_cache = step(bp, h, cache, cfg)
+    if cfg.post_block_norm:
+        delta = _apply_norm(cfg, bp, "postn1", delta)
+    x = x + delta
+    x, _ = _mlp_sublayer(bp, spec, x, cfg, None)
+    return x, new_cache
+
+
+def _unstack(tree, n: int):
+    """A tree of (n, ...) stacked leaves -> n trees of views, one a period
+    (one ``unbind`` a leaf: its backward stacks the periods' gradients in
+    one copy)."""
+    unbound = [x.unbind(0) for x in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[t] for u in unbound]) for t in range(n)]
+
+
+def _per_period(stacked, n: int):
+    """Trees stacked over the n periods, one a period position -> per
+    period, the list of that period's trees (views), in period order."""
+    parts = [_unstack(tree, n) for tree in stacked]
+    return [[part[t] for part in parts] for t in range(n)]
+
+
+def _periods(params, cfg: ArchConfig):
+    """Per period, the period's block parameters in period order."""
+    return _per_period([params["blocks"][str(i)]
+                        for i in range(len(cfg.period))], cfg.n_periods)
+
+
+def _stack(trees):
+    """Per-period cache trees -> one tree of (n_periods, ...) leaves."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+# -------------------------------------------------------------- encoder ----
+
+def _promoted(w, x):
+    """``w`` in the dtype JAX promotes (w, x) to: frame embeddings wider
+    than the parameters (float32 frames into a bfloat16 model) run the
+    encoder and the cross-attention keys in float32, as the reference's
+    mixed-dtype products do."""
+    return w.to(torch.promote_types(w.dtype, x.dtype))
+
+
+def _encode(params, cfg: ArchConfig, enc_embeds):
+    """Whisper-style encoder over stub frame embeddings (B, F, d)."""
+    ep = params["encoder"]
+    Fr = enc_embeds.shape[1]
+    x = enc_embeds + sinusoidal_positions(
+        torch.arange(Fr, device=enc_embeds.device),
+        cfg.d_model)[None].to(enc_embeds.dtype)
+    spec = BlockSpec("attn")
+    for bp in _unstack(ep["blocks"], cfg.n_enc_layers):
+        bp = {k: _promoted(w, x) for k, w in bp.items()}
+        x, _, _ = _block_full(bp, spec, x, cfg, None, None,
+                              causal=cfg.causal_encoder)
+    return _apply_norm(cfg, ep, "enc_norm", x)
 
 
 # ---------------------------------------------------------- embed/logits ---
 
-def _embed_inputs(params, cfg: ArchConfig, tokens):
+def _embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds,
+                  positions=None):
     dt = Dtype.of(cfg.dtype)
     # F.embedding's backward sums each row's gradient in a fixed order on
     # the card (sorted indices), where indexing's accumulates with atomics
     x = F.embedding(tokens.long(), params["embed"]).to(dt)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    if cfg.n_patches and patch_embeds is not None:
+        proj = torch.matmul(patch_embeds.to(dt), params["projector"].to(dt))
+        # patches occupy the first n_patches positions of the stream
+        x = torch.cat([proj, x[:, cfg.n_patches:]], dim=1)
     if cfg.learned_pos:
-        raise _unported("additive sinusoidal positions (whisper)")
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(dt)
     return x
 
 
@@ -162,38 +346,124 @@ def _logits(params, cfg: ArchConfig, x):
     return softcap(logits, cfg.final_softcap)
 
 
-# ------------------------------------------------------------ main path ----
+def _prelude(params, cfg, tokens, patch_embeds, mrope_positions,
+             enc_embeds):
+    """Embedded inputs, rotary tables and encoder output of a full pass."""
+    x = _embed_inputs(params, cfg, tokens, patch_embeds)
+    S = x.shape[1]
+    rope_ctx = _rope_ctx(cfg, torch.arange(S, dtype=torch.int32,
+                                           device=x.device), mrope_positions)
+    enc_out = _encode(params, cfg, enc_embeds) if cfg.n_enc_layers else None
+    return x, rope_ctx, enc_out
+
+
+# ------------------------------------------------------------ main paths ---
 
 def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
             mrope_positions=None, enc_embeds=None):
     """Full-sequence forward -> (logits (B, S, V) float32, aux dict).
 
-    ``aux`` carries the reference's router terms (zero without MoE) so the
-    coded train step adds them as the reference does."""
-    if patch_embeds is not None or enc_embeds is not None:
-        raise _unported("patch and encoder inputs")
-    if cfg.mrope_sections is not None and mrope_positions is not None:
-        raise _unported("M-RoPE positions")
-    x = _embed_inputs(params, cfg, tokens)
-    S = x.shape[1]
-    rope = None
-    if not cfg.learned_pos:
-        cos, sin = rope_angles(torch.arange(S, dtype=torch.int32,
-                                            device=x.device),
-                               cfg.hd, cfg.rope_theta)
-        rope = (cos[None], sin[None])
-    # unbind once: its backward stacks the periods' gradients in one copy
-    periods = [{name: tree.unbind(0) for name, tree in bp.items()}
-               for bp in (params["blocks"][str(i)]
-                          for i in range(len(cfg.period)))]
-    for spec in cfg.period:
-        _check_block(spec)
-    for t in range(cfg.n_periods):
-        for i, spec in enumerate(cfg.period):
-            bp = {name: leaves[t] for name, leaves in periods[i].items()}
-            x = _block_full(bp, spec, x, cfg, rope)
+    ``aux`` carries the router terms (zero without MoE), summed over the
+    MoE layers, so a train step adds them as the reference does."""
+    x, rope_ctx, enc_out = _prelude(params, cfg, tokens, patch_embeds,
+                                    mrope_positions, enc_embeds)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(params, cfg, x), {"load_balance": zero, "router_z": zero}
+    aux = {"load_balance": zero, "router_z": zero}
+    for bps in _periods(params, cfg):
+        for bp, spec in zip(bps, cfg.period):
+            x, _, aux = _block_full(bp, spec, x, cfg, rope_ctx, aux,
+                                    enc_out=enc_out)
+    return _logits(params, cfg, x), aux
+
+
+def prefill(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
+            mrope_positions=None, enc_embeds=None, cache_len=None):
+    """Full-sequence forward building caches -> (last-pos logits, caches).
+
+    ``cache_len`` > S pre-allocates decode headroom in non-windowed caches.
+    """
+    x, rope_ctx, enc_out = _prelude(params, cfg, tokens, patch_embeds,
+                                    mrope_positions, enc_embeds)
+    per_period = []
+    for bps in _periods(params, cfg):
+        caches = []
+        for bp, spec in zip(bps, cfg.period):
+            x, cache, _ = _block_full(bp, spec, x, cfg, rope_ctx, None,
+                                      want_cache=True, enc_out=enc_out,
+                                      cache_len=cache_len)
+            caches.append(cache)
+        per_period.append(tuple(caches))
+    logits = _logits(params, cfg, x[:, -1:])
+    return logits, _stack(per_period)
+
+
+def _write_back(dst, src) -> None:
+    """Copy a block's new cache into its period's slot of the stacked
+    caches (an attention cache was written in place already)."""
+    for d, x in zip(tree_leaves(dst), tree_leaves(src)):
+        if d.data_ptr() != x.data_ptr():
+            d.copy_(x)
+
+
+def decode_step(params, cfg: ArchConfig, token, caches, index: int, *,
+                mrope_positions=None):
+    """One decode step. token: (B, 1) int; index: the current position, a
+    Python int.  ``mrope_positions`` is accepted for the reference's
+    signature: at decode every M-RoPE stream takes ``index``, as there.
+
+    Writes the step's keys, values and states INTO ``caches`` (a tree as
+    ``prefill`` or ``init_caches`` returns) and returns (logits (B, 1, V),
+    the same caches).
+    """
+    index = int(index)
+    dev = token.device
+    x = _embed_inputs(params, cfg, token, None,
+                      positions=torch.arange(index, index + 1, device=dev))
+
+    if cfg.mrope_sections is not None:
+        pos3 = torch.full((3, token.shape[0], 1), index, dtype=torch.int32,
+                          device=dev)
+        rope_decode = _make_rope_fn(mrope_angles(
+            pos3, cfg.hd, cfg.mrope_sections, cfg.rope_theta))
+    elif cfg.learned_pos:
+        rope_decode = lambda t, pos=None: t
+    else:
+        def rope_decode(t, pos):
+            cos, sin = rope_angles(pos, cfg.hd, cfg.rope_theta)
+            return apply_rope(t, cos[None], sin[None])
+
+    for bps, cps in zip(_periods(params, cfg),
+                        _per_period(caches, cfg.n_periods)):
+        for bp, spec, cache in zip(bps, cfg.period, cps):
+            x, new = _block_decode(bp, spec, x, cfg, cache, index,
+                                   rope_decode)
+            _write_back(cache, new)
+    return _logits(params, cfg, x), caches
+
+
+def init_caches(cfg: ArchConfig, B: int, cache_len: int, *, device=None):
+    """Zero caches matching prefill's structure (stacked over n_periods),
+    on ``device`` (unset: the CUDA card); every period has its own
+    tensors, as ``decode_step`` writes into them."""
+    device = resolve_device(device)
+    dt = Dtype.of(cfg.dtype)
+    per_pos = []
+    for spec in cfg.period:
+        if spec.kind == "attn":
+            C = min(cache_len, spec.window) if spec.window else cache_len
+            c = attn.init_kv_cache(B, C, cfg.n_kv, cfg.hd, dt, device=device)
+            if spec.cross_attn:
+                c = (c, attn.init_kv_cache(B, max(cfg.n_enc_frames, 1),
+                                           cfg.n_kv, cfg.hd, dt,
+                                           device=device))
+        elif spec.kind == "mamba":
+            c = mb.init_mamba_cache(cfg, B, dt, device=device)
+        elif spec.kind == "mlstm":
+            c = xl.init_mlstm_cache(cfg, B, dt, device=device)
+        elif spec.kind == "slstm":
+            c = xl.init_slstm_cache(cfg, B, dt, device=device)
+        per_pos.append(c)
+    return _stack([tuple(per_pos)] * cfg.n_periods)
 
 
 # ---------------------------------------------------------- param counts ---
@@ -232,3 +502,26 @@ def lm_loss(logits, labels, weights=None):
     if weights is None:
         weights = torch.ones_like(ll)
     return -(ll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """Convenience bundle of the functional API for one architecture."""
+    cfg: ArchConfig
+
+    def init(self, key, *, device=None):
+        return init_params(self.cfg, key, device=device)
+
+    def axes(self):
+        return param_axes(self.cfg)
+
+    forward = staticmethod(forward)
+
+    def __call__(self, params, tokens, **kw):
+        return forward(params, self.cfg, tokens, **kw)
+
+    def prefill(self, params, tokens, **kw):
+        return prefill(params, self.cfg, tokens, **kw)
+
+    def decode(self, params, token, caches, index, **kw):
+        return decode_step(params, self.cfg, token, caches, index, **kw)

@@ -32,7 +32,11 @@ pruned window, each one launch a call, against their plain versions, a
 column of a batched call equal bit for bit to a one-column call, two calls
 equal bit for bit; the strided passes past 2^18; a cluster launch the card
 refuses raises and counts no launch; the signed slot map the card builds
-equals the host's, and a sign other than +-1 raises on every route.
+equals the host's, and a sign other than +-1 raises on every route.  The
+serve path (every architecture's smoke variant: prefill and decode on the
+card against the CPU, logits and caches to rel 1e-4, TF32 off) launches
+no kernel of the port; the coded step through the MoE dispatch launches
+one combine and matches the CPU's loss and gradient norm to rel 1e-4.
 """
 import numpy as np
 import pytest
@@ -857,3 +861,121 @@ def test_combine_above_2_31_elements(cuda, P):
     for lo in (0, P // 2 - 77, P - 4099):
         sl = slice(lo, lo + 4099)
         _close(out[sl], coded_combine_ref(g[:, sl].contiguous(), c), 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's serve path (no kernel of the port runs on it)
+# ---------------------------------------------------------------------------
+
+def _serve(cfg, host, dev, B=2, S=32, new=4):
+    """prefill + ``new`` teacher-forced decode steps on ``dev`` from the
+    host parameters -> (logits (B, 1 + new, V) on the host, caches)."""
+    from repro_torch.device import full_f32_matmul
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import serve_inputs
+    from repro_torch.tree import tree_map
+
+    @full_f32_matmul
+    def run():
+        params = tree_map(lambda t: t.to(dev), host)
+        rng = np.random.default_rng(0)
+        prompts, kw = serve_inputs(cfg, B, S, rng, dev)
+        forced = torch.as_tensor(rng.integers(0, cfg.vocab, (B, new)),
+                                 device=dev)
+        with torch.no_grad():
+            lg, caches = prefill(params, cfg, prompts, cache_len=S + new,
+                                 **kw)
+            out = [lg]
+            for i in range(new):
+                lg, caches = decode_step(params, cfg, forced[:, i:i + 1],
+                                         caches, S + i)
+                out.append(lg)
+        return torch.cat(out, dim=1).cpu(), caches
+    return run()
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-7b", "gemma2-27b",
+                                  "jamba-1.5-large-398b",
+                                  "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b",
+                                  "stablelm-12b", "starcoder2-3b",
+                                  "whisper-small", "xlstm-350m"])
+def test_serve_paths_on_card_match_cpu(cuda, arch):
+    """Every architecture's smoke variant: prefill and four decode steps on
+    the card against the same on the CPU from the same parameters (TF32
+    off), logits and every cache leaf to rel 1e-4 (float32 sums in other
+    orders), caches of equal structure; no kernel of the port launches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+    cfg = ARCHS[arch].smoke_variant()
+    host = init_params(cfg, 0, device="cpu")
+    before = dict(launches)
+    lc, cc = _serve(cfg, host, cuda)
+    torch.cuda.synchronize()
+    assert dict(launches) == before
+    lh, ch = _serve(cfg, host, torch.device("cpu"))
+    _close(lc, lh, 1e-4)
+    a, b = tree_leaves(cc), tree_leaves(ch)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.is_cuda and x.shape == y.shape and x.dtype == y.dtype
+        _close(x.cpu(), y, 1e-4)
+
+
+def test_serve_bfloat16_on_card_runs(cuda):
+    """gemma2's smoke variant in its own bfloat16: prefill and decode
+    finite on the card, the greedy tokens of a bfloat16 run equal on a
+    second run (the path is deterministic on one card)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    cfg = ARCHS["gemma2-27b"].smoke_variant().with_overrides(
+        dtype="bfloat16", param_dtype="bfloat16")
+    host = init_params(cfg, 0, device="cpu")
+    l1, _ = _serve(cfg, host, cuda)
+    l2, _ = _serve(cfg, host, cuda)
+    assert torch.isfinite(l1).all() and torch.equal(l1, l2)
+
+
+def test_serve_main_on_card(cuda, capsys):
+    from repro_torch.serve import main
+    assert main(["--arch", "phi3.5-moe-42b-a6.6b", "--prompt-len", "32",
+                 "--tokens", "4"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("prefill: 4x32 in ") and "tok/s" in out
+
+
+def test_coded_step_over_moe_on_card_matches_cpu(cuda):
+    """The coded step at phi3.5-moe's smoke variant (workers batched by
+    ``torch.func.vmap`` through the MoE dispatch): one combine launch, the
+    loss and the gradient norm on the card match the CPU's to rel 1e-4."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.gradient_coding import make_code
+    from repro_torch.data.pipeline import GroupBatcher, TokenStream
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.train import build_coded_train_step
+    from repro_torch.tree import tree_map
+    cfg = ARCHS["phi3.5-moe-42b-a6.6b"].smoke_variant().with_overrides(
+        vocab=64)
+    code = make_code("frc", 8, beta=2)
+    step = build_coded_train_step(cfg, cosine_schedule(1e-3, 2, 10),
+                                  rows_per_group=1,
+                                  num_groups=code.num_groups)
+    tokens, labels, coeff = GroupBatcher(TokenStream(64, seed=0), code, 1,
+                                         16, seed=0).next_batch()
+    d = code.decode_weights(np.array([1, 0, 1, 1, 1, 1, 0, 1], np.float64))
+    host = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev), host)
+        args = [torch.from_numpy(np.asarray(a)).to(dev) for a in
+                (tokens, labels, coeff, np.asarray(d, np.float32))]
+        before = launches["coded_combine"]
+        p2, _, m = step(params, adamw_init(params), *args)
+        out[dev.type] = (p2, m)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert launches["coded_combine"] == before + 1
+    mc, mh = out["cuda"][1], out["cpu"][1]
+    _close(mc["loss"].cpu(), mh["loss"], 1e-4)
+    _close(mc["grad_norm"].cpu(), mh["grad_norm"], 1e-4)

@@ -1,5 +1,7 @@
-"""The port's dense transformer (``repro_torch.models``) against the JAX
-package's ``repro.models``, on the CPU.
+"""The port's configs, model utilities and dense transformer
+(``repro_torch.models``) against the JAX package's ``repro.models``, on
+the CPU; descriptor trees and parameter counts for all ten architectures
+(the serve path and the other block kinds: ``test_torch_serve*.py``).
 
 Inputs come from a numpy seed and go through both packages; parameters are
 made by the reference's ``init_params`` and carried across by
@@ -188,7 +190,7 @@ def test_projections_and_mlp_match_reference():
 # the transformer
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+@pytest.mark.parametrize("arch", sorted(JC.ARCHS))
 def test_param_defs_axes_and_counts_equal_reference(arch):
     jcfg, pcfg = _cfgs(arch)
     assert PT.param_defs(pcfg) == JT.param_defs(jcfg)
@@ -284,14 +286,6 @@ def test_init_params_distributions_and_order():
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
                                                  tree_leaves(b)))
     assert not torch.equal(a["embed"], c["embed"])
-
-
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
-                                  "phi3.5-moe-42b-a6.6b", "whisper-small",
-                                  "qwen2-vl-7b"])
-def test_unported_blocks_raise_naming_the_queue(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        PT.param_defs(PC.get_config(arch).smoke_variant())
 
 
 def test_init_params_without_device_raises_when_no_card(monkeypatch):
