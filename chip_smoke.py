@@ -29,8 +29,9 @@ Phases, each of which ends the run with a non-zero exit on failure:
              realization and one realization all-masked; coded combine at
              (32, 6000) in float32 and bfloat16 and at the odd width
              (8, 6001), (m,) and (m, 1) weights bit for bit, all masked;
-             the kernels' realization tile and row groups equal the
-             wrappers' Python choices);
+             the kernels' realization tile and row groups and the fused
+             gradient's column-split plan equal the wrappers' Python
+             choices);
 4. main    - the paper's ridge problem at its published size (PAPER_RIDGE:
              n = 4096, p = 6000, m = 32, k = 24, beta = 2, bimodal delays)
              through the strategy entry points: coded-gd ``run`` and
@@ -129,16 +130,20 @@ Phases, each of which ends the run with a non-zero exit on failure:
              (2, 262 144); SRHT of 64 columns into N = 65 536, full frame
              and worker 5's window; the fused gradient on the encoded data
              at p = 16 385 and 100 000, 8 workers, batched R = 4 rows equal
-             to single calls bit for bit), and their times beside bound,
-             plain version and library call, with the fused step at the
-             path's (128, 512, 100 000) and the path's full SRHT encode;
+             to single calls bit for bit, its column-split route printed),
+             and their times beside bound, plain version and library call,
+             with the fused step at the path's (128, 512, 100 000) and the
+             path's full SRHT encode; the 5-step profile must name the
+             cluster route's kernel and not the two-read form's;
              the Hadamard rows also print their route, the card's own time
              a call (CUDA graph replay) and the launch floor (an empty
              kernel through the same ctypes path), and worker 5's window
              against torch.matmul with the dense window; the fused step at
              the path's shape also beside its library form, two torch.bmm
              calls (the masked residual of every worker's rows, then
-             (S X)^T times it), held to the kernel's output (rel 1e-4);
+             (S X)^T times it), held to the kernel's output (rel 1e-4),
+             with its route, the bytes it reads (each active row once)
+             and the rate it reached;
    serve   - the model zoo's serve path (``repro_torch.models``' prefill
              and decode_step, ``repro_torch.serve``), which runs no kernel
              of the port: the launch counters are cleared before the
@@ -173,7 +178,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              same function (the SRHT also at worker 5's window beside
              torch.matmul with the dense window; the fused gradient also
              batched at R = 4 and
-             R = 16; the combine also by the profiler's device time, and at
+             R = 16; the combine also by the profiler's device time and,
+             beside torch.matmul(c, g), by CUDA graph replay, and at
              (32, 4194304), the coded-SGD flat gradient's width); step
              times (CUDA events around a 100-step GD loop, a 50-step L-BFGS
              loop, the 20-step BCD loop and the 320-update async loop, five
@@ -307,9 +313,17 @@ def launch_floor_ms() -> float:
 
 
 def route_of(kname: str, **shape) -> str:
-    """The route a FWHT (n) or SRHT (n, N, lo, hi) call takes, as printed."""
+    """The route a FWHT (n), SRHT (n, N, lo, hi) or column-split fused
+    gradient (p, itemsize) call takes, as printed."""
     from repro_torch.kernels.encode import srht_plan
+    from repro_torch.kernels.fused_step import wide_plan
     from repro_torch.kernels.fwht import fwht_plan
+    if kname == "fused":
+        plan = wide_plan(**shape)
+        return (f"route {plan.route}" + (
+            f", C {plan.C}, {plan.slice_cols} columns a CTA, NV "
+            f"{plan.vectors}, RT {plan.tile}, {plan.slots} slots a CTA"
+            if plan.route == "cluster" else ""))
     plan = fwht_plan(**shape) if kname == "fwht" else srht_plan(**shape)
     extra = (f", C {plan.C}, {plan.slots} slots a CTA" if plan.C > 1 else
              f", r' {plan.rp}, b {plan.b}" if plan.route == "pruned" else
@@ -440,18 +454,20 @@ def profile_device(fn) -> tuple[float, list]:
     return wall_us, sorted(rows, reverse=True)
 
 
-def device_breakdown(fn, label: str) -> None:
+def device_breakdown(fn, label: str) -> list:
     """Print where the device time of ``fn`` goes, kernel by kernel, from
-    ``torch.profiler``, and the device's idle share of the wall time."""
+    ``torch.profiler``, and the device's idle share of the wall time;
+    return the rows (device us, count, kernel name), largest first."""
     wall_us, rows = profile_device(fn)
     if not rows:
         print(f"profile {label}: the profiler recorded no device time")
-        return
+        return rows
     busy = sum(r[0] for r in rows)
     print(f"profile {label}: wall {wall_us:.0f} us, device busy {busy:.0f} us"
           f" (idle share {max(0.0, 1 - busy / wall_us):.2f})")
     for us, count, key in rows[:8]:
         print(f"  {us:10.1f} us {count:5d}x  {key[:90]}")
+    return rows
 
 
 def rel_err(out, ref) -> tuple[float, float]:
@@ -1311,12 +1327,20 @@ def wide_phase(smi: str, drive, table: dict) -> None:
           f"peak device memory {enc_peak / 1e9:.2f} GB = "
           f"{enc_peak / sx_bytes:.3f} |S X| (|S X| {sx_bytes / 1e9:.2f} GB; "
           f"limit 2.1); X on the card {prob.X.numel() * 4 / 1e9:.2f} GB")
-    # where a step's device time goes: the column-split form's kernels
-    # and the objective on the original data
+    # where a step's device time goes: the column-split form's cluster
+    # kernel (the route p = 100 000 takes) and its second stage, and the
+    # objective on the original data; the two-read form's kernels must not
+    # appear
     masks5 = torch.as_tensor(res.schedule.masks[:5], device=dev)
-    device_breakdown(lambda: scan_prox(prob, masks5, step,
-                                       torch.zeros(p, device=dev)),
-                     "5 wide coded-prox steps")
+    prof = device_breakdown(lambda: scan_prox(prob, masks5, step,
+                                              torch.zeros(p, device=dev)),
+                            "5 wide coded-prox steps")
+    names = [key for _, _, key in prof]
+    require(not prof or any("fused_wide_cluster" in k for k in names),
+            "wide coded-prox profile: no fused_wide_cluster kernel")
+    require(not any("wide_residual" in k or "wide_gradient" in k
+                    for k in names),
+            "wide coded-prox profile: the two-read form ran")
     SX, Sy = prob.SX, prob.Sy
     del prob, spec, X, y
 
@@ -1366,7 +1390,8 @@ def wide_phase(smi: str, drive, table: dict) -> None:
             require(torch.equal(g4[q], fused_masked_gradient(
                 SX8, Sy8, W4[q], masks4[q], **fkw)),
                 f"fused p={pw}: batched row {q} != single call")
-        print(f"check fused (8, {r}, {pw}) batched R=4: max|d| {err:.3e} "
+        print(f"check fused (8, {r}, {pw}) batched R=4, "
+              f"{route_of('fused', p=pw, itemsize=4)}: max|d| {err:.3e} "
               f"({rel:.2e} of max|ref|, tol 1e-4); batched[q] == single(q) "
               f"bitwise; scratch a realization "
               f"{fused_wide_scratch_bytes(8, r, pw) / 1e6:.1f} MB")
@@ -1415,10 +1440,22 @@ def wide_phase(smi: str, drive, table: dict) -> None:
                          f"{rel:.2e}")
     print(f"fused library form (two torch.bmm) at ({m}, {r}, {p}) vs the "
           f"kernel: max|d| {err:.3e} ({rel:.2e} of max|ref|, tol 1e-4)")
-    row(fused, f"({m}, {r}, {p}) single, {act} active (the path's step)",
-        lambda: fused_masked_gradient(SX, Sy, w, mask, **fkw), None,
-        fused_library, (act * r * (p + 1) + 2 * p + m) * 4, 4 * act * r * p,
-        10)
+    # the bytes the cluster route reads (each active row of S X and Sy
+    # once, w, the masks) and writes (G)
+    path_bytes = (act * r * (p + 1) + 2 * p + m) * 4
+    got = row(fused, f"({m}, {r}, {p}) single, {act} active (the path's "
+              f"step)", lambda: fused_masked_gradient(SX, Sy, w, mask, **fkw),
+              None, fused_library, path_bytes, 4 * act * r * p, 10)
+    got["plan"] = route_of("fused", p=p, itemsize=4)
+    got["source"] = "src/repro_torch/kernels/csrc/fused_wide.cu"
+    got["bytes_per_s"] = path_bytes / (got["ms"] * 1e-3)
+    print(f"fused at the path's ({m}, {r}, {p}), {act} active, "
+          f"{got['plan']}: kernel {got['ms']:.4f} ms, {path_bytes / 1e9:.3f} "
+          f"GB (each active row once) at {got['bytes_per_s'] / 1e12:.2f} "
+          f"TB/s; two torch.bmm {got['library_ms']:.4f} ms; bound "
+          f"{got['bound_ms']:.4f} ms: the kernel is "
+          f"{got['library_ms'] / got['ms']:.2f}x the library's speed, "
+          f"{got['bound_ms'] / got['ms']:.2f} of its bound  [{smi}]")
     del SX, Sy, SX8, Sy8
 
     # FWHT at decode_t's (8, N) and LASSO paper's N; the library yardstick
@@ -1770,7 +1807,7 @@ def main() -> int:
                                             srht_signed_slot_map)
     from repro_torch.kernels.fused_step import (
         MAX_COLS, fused_masked_gradient, fused_masked_gradient_plain,
-        pick_fused_realization_tile)
+        pick_fused_realization_tile, wide_plan)
     from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
     from repro_torch.kernels.ref import fused_masked_gradient_ref
     from repro_torch.obs import CompileWatch
@@ -1915,12 +1952,26 @@ def main() -> int:
               pick_fused_realization_tile(q)]
     bad_g = [q for q in range(0, 257) if lib.repro_coded_combine_groups(q)
              != combine_row_groups(q)]
-    require(not bad_rt and not bad_g, f"kernel and wrapper disagree: tile "
-            f"at p {bad_rt[:5]}, row groups at m {bad_g[:5]}")
+    # the column-split form's plan, field by field, at every 61st width
+    # past MAX_COLS to 2^20 in both dtypes
+    bad_wide = []
+    for q in range(MAX_COLS + 1, (1 << 20) + 1, 61):
+        for itemsize in (4, 2):
+            pl = wide_plan(q, itemsize)
+            want = [int(pl.route == "cluster"), pl.C, pl.slice_cols,
+                    pl.threads, pl.vectors, pl.tile, pl.slots]
+            if [lib.repro_fused_wide_plan(q, itemsize, fld)
+                    for fld in range(7)] != want:
+                bad_wide.append((q, itemsize))
+    require(not bad_rt and not bad_g and not bad_wide, f"kernel and wrapper "
+            f"disagree: tile at p {bad_rt[:5]}, row groups at m {bad_g[:5]}, "
+            f"wide plan at (p, itemsize) {bad_wide[:5]}")
     print(f"check shape choices: realization tile at p = {p}: "
           f"{pick_fused_realization_tile(p)} (kernel == wrapper for every "
           f"p <= {MAX_COLS}); combine row groups at m = {m}: "
-          f"{combine_row_groups(m)} (kernel == wrapper for m <= 256)")
+          f"{combine_row_groups(m)} (kernel == wrapper for m <= 256); the "
+          f"column-split plan kernel == wrapper at every 61st p to 2^20, "
+          f"float32 and bfloat16")
 
     # coded combine at the L-BFGS step's (m, p), an odd width, bfloat16
     comb_err = 0.0
@@ -2269,6 +2320,21 @@ def main() -> int:
             print(f"coded_combine (32, {cp}) device time a call (profiler, "
                   f"host gaps excluded): kernel {dev_us[0]:.2f} us, plain "
                   f"{dev_us[1]:.2f} us, library {dev_us[2]:.2f} us  [{smi}]")
+            # the card's own time a call by CUDA graph replay, the kernel
+            # and torch.matmul(c, g) in turns (kernel, library, library,
+            # kernel), so neither gains from the card's state
+            gk, gl = [graph_ms(lambda: coded_combine_call(g, c))], []
+            gl += [graph_ms(lambda: torch.matmul(c, g)) for _ in range(2)]
+            gk.append(graph_ms(lambda: coded_combine_call(g, c)))
+            co["graph_ms"], co["library_graph_ms"] = (sorted(gk)[0],
+                                                      sorted(gl)[0])
+            verdict = ("faster" if co["graph_ms"] < co["library_graph_ms"]
+                       else "not faster")
+            print(f"coded_combine (32, {cp}) device time a call (CUDA graph "
+                  f"replay, kernel, library, library, kernel): kernel "
+                  f"{gk[0]:.5f} / {gk[1]:.5f} ms, torch.matmul(c, g) "
+                  f"{gl[0]:.5f} / {gl[1]:.5f} ms: the kernel is {verdict} "
+                  f"on the card's own time  [{smi}]")
         else:
             co.update({f"wide_{key}": v for key, v in row.items()
                        if key != "bound_by"})

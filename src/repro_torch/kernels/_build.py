@@ -146,6 +146,7 @@ _SIGNATURES = {
     # the kernels' own shape choices, for the tests to hold against the
     # wrappers' Python versions
     "repro_fused_realization_tile": [ctypes.c_int],
+    "repro_fused_wide_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "repro_coded_combine_groups": [ctypes.c_int],
 }
 

@@ -42,9 +42,10 @@
 // of 8, 4, 2, 1 with NE (1 + RT) <= 200 registers and the tile's iterates
 // (RT p floats, staged in shared memory once a block) beside two row
 // buffers inside 227 KB; NE <= 64 caps this form at p = 16384 (wider rows
-// take the column-split form below).  A single call takes a tile of one (fewer registers, so
-// more blocks an SM); its sums are the same.  Rows reach shared memory
-// through a ring of 2-4 row buffers filled by asynchronous copies (one 1D
+// take the column-split form, below).  A single call takes a tile of one
+// (fewer registers, so more blocks an SM); its sums are the same.  Rows
+// reach shared memory through a ring of 2-4 row buffers filled by
+// asynchronous copies (one 1D
 // bulk copy of the Tensor Memory Accelerator a row, completing on an
 // mbarrier, where a row is a whole number of aligned 16-byte units; 4-byte
 // cp.async copies arriving on the same mbarrier where rows are whole
@@ -61,38 +62,16 @@
 // rows' bytes a realization.
 //
 // Past p = 16384 (a row no longer fits a thread's registers) the call takes
-// the column-split form, three kernels and the same invariants:
-//   wide_residual - a grid of (row groups of each worker, column chunks of
-//             kChunk, realization tiles of kWideTile): a block keeps its
-//             tile's iterates over one chunk in registers and walks its rows,
-//             each row's chunk dot product reduced as stage 1 reduces a row
-//             (a thread's columns t, t + kThreads, ... in order, a shuffle
-//             tree a warp, the warps' sums in order) into partial[q, i, k,
-//             chunk];
-//   wide_gradient - a grid of (units of bw rows, column tiles of kWideCols,
-//             realization tiles): a block forms u_qk = (the row's chunk sums
-//             added in chunk order) - Sy_k for its unit's rows, then
-//             c_qi sum_k u_qk SX_k[cols] over the rows in order into
-//             scratch[q, unit, cols];
-//   stage 2 as above, over the units of bw rows.
-// Realization q's operations depend on neither R nor the tile, so batched
-// rows equal single calls bit for bit; a block whose worker is masked out in
-// every realization of its tile exits before it reads a row.  This form
-// reads the active SX twice (once a kernel), so its bound is twice one read:
-// a one-read form would keep a row's 4p bytes across a thread-block
-// cluster's distributed shared memory.  The scratch takes one p-row a unit
-// of bw rows (bw the largest divisor of r up to 64), 1/bw of SX a
-// realization.
-#include "hadamard.cuh"
+// the column-split form of fused_wide.cu, entry
+// repro_fused_masked_gradient_wide; both forms share the row ring's copies
+// and the second stage (fused_common.cuh).
+#include "fused_common.cuh"
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlockRows = 64;
-constexpr int kMaxCols = 64 * kThreads;   // 16384: a row in registers
 constexpr int kRegBudget = 200;           // NE * (1 + RT) registers
 constexpr int kMaxTile = 8;
 constexpr int kMaxBuf = 4;
@@ -100,15 +79,11 @@ constexpr int kMinBuf = 2;
 // rows a step of the first stage reduces together: two where their
 // registers, NE (RT + 2), stay within this budget
 constexpr int kPairBudget = 160;
-// dynamic shared memory a block may use: the 227 KB opt-in maximum less
-// 3 KB kept for the static arrays of fused_stage1
-constexpr int kSmemBudget = 227 * 1024 - 3072;
 // shared memory of one SM that blocks may share (228 KB), and what the
 // runtime reserves for each resident block
 constexpr int kSmemPerSM = 228 * 1024;
 constexpr int kSmemPerBlock = 1024;
 constexpr int kMaxDevices = 64;
-constexpr int kMaxUnits = 256;            // row blocks a first-stage block
 
 // fused_stage1's static shared memory stays inside what kSmemBudget leaves
 static_assert(2 * 2 * kMaxTile * kWarps * sizeof(float) +
@@ -117,9 +92,6 @@ static_assert(2 * 2 * kMaxTile * kWarps * sizeof(float) +
                   kMaxBuf * sizeof(uint64_t) <=
               227 * 1024 - kSmemBudget,
               "static shared memory of the first stage over its share");
-
-// How a row block reaches the shared-memory ring.
-enum CopyMode { kBulk = 0, kWords = 1, kPlain = 2 };
 
 __host__ __device__ constexpr int round16(int bytes) {
   return (bytes + 15) & ~15;
@@ -153,63 +125,6 @@ inline int regs_for(int p) {
   for (int ne : kRegSteps)
     if (need <= ne) return ne;
   return 0;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// Row k of the slab into ring slot `dst`; completes phase of `bar`.
-//   kBulk  - thread 0 posts the byte count and one bulk copy (1 arrival);
-//   kWords - every thread copies its 4-byte words with cp.async and
-//            arrives when they land (kThreads arrivals);
-//   kPlain - every thread loads and stores its elements, then arrives.
-template <typename T, int kMode>
-__device__ __forceinline__ void fetch_row(const T* src, T* dst, int p,
-                                          uint64_t* bar) {
-  const int t = threadIdx.x;
-  if constexpr (kMode == kBulk) {
-    if (t == 0) {
-      const uint32_t bytes = static_cast<uint32_t>(p) * sizeof(T);
-      asm volatile(
-          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-              smem_addr(bar)), "r"(bytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)), "l"(src),
-          "r"(bytes), "r"(smem_addr(bar)) : "memory");
-    }
-  } else if constexpr (kMode == kWords) {
-    const int words = p * static_cast<int>(sizeof(T)) / 4;
-    const uint32_t d = smem_addr(dst);
-    const char* s = reinterpret_cast<const char*>(src);
-    for (int w = t; w < words; w += kThreads)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                       d + 4 * w), "l"(s + 4 * w) : "memory");
-    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                     "r"(smem_addr(bar)) : "memory");
-  } else {
-    for (int col = t; col < p; col += kThreads) dst[col] = src[col];
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                     smem_addr(bar)) : "memory");
-  }
 }
 
 // In the first stage a block stages the iterates of its tile of
@@ -424,40 +339,6 @@ fused_stage1(const T* __restrict__ SX, const T* __restrict__ Sy,
   }
 }
 
-// A block reduces kCols columns; each column's partials are split kSplit
-// ways (block b goes to lane group b % kSplit, in increasing b), and the
-// kSplit sums are added in a fixed order: deterministic, and many loads in
-// flight instead of one long serial chain a column.
-constexpr int kCols = 32, kSplit = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kCols * kSplit)
-fused_stage2(const float* __restrict__ scratch,
-             const float* __restrict__ masks, T* __restrict__ G, int m,
-             int nrb, int p) {
-  __shared__ float part[kSplit][kCols];
-  const int tx = threadIdx.x % kCols, ty = threadIdx.x / kCols;
-  const int q = blockIdx.y;
-  const int col = blockIdx.x * kCols + tx;
-  const float* mrow = masks + static_cast<size_t>(q) * m;
-  const int nblk = m * nrb;
-  float acc = 0.f;
-  if (col < p) {
-    const float* base = scratch + static_cast<size_t>(q) * nblk * p + col;
-#pragma unroll 4
-    for (int blk = ty; blk < nblk; blk += kSplit)
-      if (mrow[blk / nrb] != 0.f) acc += base[static_cast<size_t>(blk) * p];
-  }
-  part[ty][tx] = acc;
-  __syncthreads();
-  if (ty == 0 && col < p) {
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < kSplit; ++j) s += part[j][tx];
-    G[static_cast<size_t>(q) * p + col] = repro::from_f32<T>(s);
-  }
-}
-
 // What the first stage's launch needs of a kernel and the card, read once
 // per kernel and device.
 struct Resident {
@@ -556,10 +437,7 @@ cudaError_t launch(const void* SX, const void* Sy, const void* W,
       ws_bytes, row_stride, nbeta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid2((p + kCols - 1) / kCols, R);
-  fused_stage2<T><<<grid2, kCols * kSplit, 0, stream>>>(
-      scratch, masks, static_cast<T*>(G), m, nrb, p);
-  return cudaGetLastError();
+  return launch_stage2<T>(scratch, masks, G, R, m, nrb, p, stream);
 }
 
 // The tile a launch takes: one realization for a single call (its block
@@ -617,211 +495,6 @@ cudaError_t dispatch(const void* SX, const void* Sy, const void* W,
   return cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// The column-split form (p > kMaxCols).
-constexpr int kChunk = 4096;                // columns of one partial dot
-constexpr int kChunkRegs = kChunk / kThreads;
-constexpr int kWideCols = 1024;             // columns of a gradient block
-constexpr int kWideRegs = kWideCols / kThreads;
-constexpr int kWideTile = 4;                // realizations a block
-constexpr int kWideRows = 32;               // rows a residual block walks
-constexpr int kMaxWideRows = 64;            // rows of a gradient unit
-
-// partial[q, i, k, chunk] = the chunk's share of SX_ik . W[q], for each
-// realization q of the tile with worker i active.  Grid: (m * groups,
-// chunks, tiles), groups = ceil(r / kWideRows).
-template <typename T, int RT>
-__global__ void __launch_bounds__(kThreads)
-wide_residual(const T* __restrict__ SX, const T* __restrict__ W,
-              const float* __restrict__ masks, float* __restrict__ partial,
-              int R, int m, int r, int p, int nchunks) {
-  __shared__ float red[2][RT][kWarps];
-  const int groups = (r + kWideRows - 1) / kWideRows;
-  const int i = blockIdx.x / groups, grp = blockIdx.x % groups;
-  const int chunk = blockIdx.y, q0 = blockIdx.z * RT;
-  const int nq = R - q0 < RT ? R - q0 : RT;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  bool act[RT];
-  bool any = false;
-#pragma unroll
-  for (int q = 0; q < RT; ++q) {
-    act[q] = q < nq && masks[static_cast<size_t>(q0 + q) * m + i] != 0.f;
-    any = any || act[q];
-  }
-  if (!any) return;                         // worker i's rows are not read
-  const int c0 = chunk * kChunk;
-  float wv[RT][kChunkRegs];
-#pragma unroll
-  for (int q = 0; q < RT; ++q)
-#pragma unroll
-    for (int j = 0; j < kChunkRegs; ++j) {
-      const int col = c0 + t + j * kThreads;
-      wv[q][j] = act[q] && col < p
-          ? repro::to_f32(W[static_cast<size_t>(q0 + q) * p + col]) : 0.f;
-    }
-  const int k0 = grp * kWideRows;
-  const int k1 = r < k0 + kWideRows ? r : k0 + kWideRows;
-  for (int k = k0; k < k1; ++k) {
-    const T* row = SX + (static_cast<size_t>(i) * r + k) * p;
-    float x[kChunkRegs];
-#pragma unroll
-    for (int j = 0; j < kChunkRegs; ++j) {
-      const int col = c0 + t + j * kThreads;
-      x[j] = col < p ? repro::to_f32(row[col]) : 0.f;
-    }
-    const int par = k & 1;
-#pragma unroll
-    for (int q = 0; q < RT; ++q) {
-      float d = 0.f;
-      if (act[q]) {
-#pragma unroll
-        for (int j = 0; j < kChunkRegs; ++j)
-          if (c0 + t + j * kThreads < p) d += x[j] * wv[q][j];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          d += __shfl_down_sync(0xffffffffu, d, off);
-      }
-      if (lane == 0) red[par][q][warp] = d;
-    }
-    // red[par] is rewritten two rows on, after the next barrier, by which
-    // time its readers below are done with it
-    __syncthreads();
-    if (t < nq && masks[static_cast<size_t>(q0 + t) * m + i] != 0.f) {
-      float sum = 0.f;
-#pragma unroll
-      for (int v = 0; v < kWarps; ++v) sum += red[par][t][v];
-      partial[((static_cast<size_t>(q0 + t) * m + i) * r + k) * nchunks +
-              chunk] = sum;
-    }
-  }
-}
-
-// scratch[q, unit, cols] = c_qi sum_k u_qk SX_k[cols] over the unit's bw
-// rows in order, u_qk = (partial[q, i, k, :] added in chunk order) - Sy_k.
-// Grid: (m * r / bw units, column tiles of kWideCols, tiles).
-template <typename T, int RT>
-__global__ void __launch_bounds__(kThreads)
-wide_gradient(const T* __restrict__ SX, const T* __restrict__ Sy,
-              const float* __restrict__ masks,
-              const float* __restrict__ partial, float* __restrict__ scratch,
-              int R, int m, int r, int p, int bw, int nchunks, float nbeta) {
-  __shared__ float us[RT][kMaxWideRows];
-  __shared__ float mk[RT];
-  const int nrb = r / bw;
-  const int unit = blockIdx.x, i = unit / nrb, kb = (unit % nrb) * bw;
-  const int c0 = blockIdx.y * kWideCols, q0 = blockIdx.z * RT;
-  const int nq = R - q0 < RT ? R - q0 : RT;
-  const int t = threadIdx.x;
-  bool act[RT];
-  bool any = false;
-#pragma unroll
-  for (int q = 0; q < RT; ++q) {
-    act[q] = q < nq && masks[static_cast<size_t>(q0 + q) * m + i] != 0.f;
-    any = any || act[q];
-  }
-  if (!any) return;                         // worker i's rows are not read
-  for (int idx = t; idx < RT * bw; idx += kThreads) {
-    const int q = idx / bw, kk = idx % bw;
-    if (act[q]) {
-      const float* pp = partial +
-          ((static_cast<size_t>(q0 + q) * m + i) * r + kb + kk) * nchunks;
-      float u = 0.f;
-      for (int c = 0; c < nchunks; ++c) u += pp[c];
-      us[q][kk] = u - repro::to_f32(Sy[static_cast<size_t>(i) * r + kb + kk]);
-    }
-  }
-  // m / k_q, k_q summing the masks in the reference's order
-  if (t < nq) {
-    const float* mrow = masks + static_cast<size_t>(q0 + t) * m;
-    float kq = 0.f;
-    for (int a = 0; a < m; ++a) kq += mrow[a];
-    mk[t] = static_cast<float>(m) / fmaxf(kq, 1.f);
-  }
-  __syncthreads();
-  float acc[RT][kWideRegs];
-#pragma unroll
-  for (int q = 0; q < RT; ++q)
-#pragma unroll
-    for (int j = 0; j < kWideRegs; ++j) acc[q][j] = 0.f;
-  const T* base = SX + (static_cast<size_t>(i) * r + kb) * p;
-#pragma unroll 4
-  for (int kk = 0; kk < bw; ++kk) {
-    const T* row = base + static_cast<size_t>(kk) * p;
-    float x[kWideRegs];
-#pragma unroll
-    for (int j = 0; j < kWideRegs; ++j) {
-      const int col = c0 + t + j * kThreads;
-      x[j] = col < p ? repro::to_f32(row[col]) : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < RT; ++q) {
-      if (!act[q]) continue;
-      const float uk = us[q][kk];
-#pragma unroll
-      for (int j = 0; j < kWideRegs; ++j) acc[q][j] += uk * x[j];
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < RT; ++q) {
-    if (!act[q]) continue;
-    const float mq = masks[static_cast<size_t>(q0 + q) * m + i];
-    const float ci = mq * mk[q] / nbeta;
-    float* out = scratch + (static_cast<size_t>(q0 + q) * m * nrb + unit) * p;
-#pragma unroll
-    for (int j = 0; j < kWideRegs; ++j) {
-      const int col = c0 + t + j * kThreads;
-      if (col < p) out[col] = ci * acc[q][j];
-    }
-  }
-}
-
-template <typename T, int RT>
-cudaError_t launch_wide(const void* SX, const void* Sy, const void* W,
-                        const float* masks, float* partial, float* scratch,
-                        void* G, int R, int m, int r, int p, int bw,
-                        float nbeta, cudaStream_t stream) {
-  const int nchunks = (p + kChunk - 1) / kChunk;
-  const int ntiles = (R + RT - 1) / RT;
-  const int groups = (r + kWideRows - 1) / kWideRows;
-  const int nrb = r / bw;
-  const int64_t rblocks = static_cast<int64_t>(m) * groups;
-  const int64_t units = static_cast<int64_t>(m) * nrb;
-  const int ctiles = (p + kWideCols - 1) / kWideCols;
-  if (rblocks > 0x7fffffffLL || units > 0x7fffffffLL || nchunks > 65535 ||
-      ctiles > 65535 || ntiles > 65535)
-    return cudaErrorInvalidValue;
-  wide_residual<T, RT><<<dim3(static_cast<unsigned>(rblocks), nchunks,
-                              ntiles), kThreads, 0, stream>>>(
-      static_cast<const T*>(SX), static_cast<const T*>(W), masks, partial, R,
-      m, r, p, nchunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wide_gradient<T, RT><<<dim3(static_cast<unsigned>(units), ctiles, ntiles),
-                         kThreads, 0, stream>>>(
-      static_cast<const T*>(SX), static_cast<const T*>(Sy), masks, partial,
-      scratch, R, m, r, p, bw, nchunks, nbeta);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 grid2((p + kCols - 1) / kCols, R);
-  fused_stage2<T><<<grid2, kCols * kSplit, 0, stream>>>(
-      scratch, masks, static_cast<T*>(G), m, nrb, p);
-  return cudaGetLastError();
-}
-
-// A single call takes a tile of one (fewer registers); its sums are the
-// same in a tile of kWideTile.
-template <typename T>
-cudaError_t dispatch_wide(const void* SX, const void* Sy, const void* W,
-                          const float* masks, float* partial, float* scratch,
-                          void* G, int R, int m, int r, int p, int bw,
-                          float nbeta, cudaStream_t stream) {
-  if (R == 1)
-    return launch_wide<T, 1>(SX, Sy, W, masks, partial, scratch, G, R, m, r,
-                             p, bw, nbeta, stream);
-  return launch_wide<T, kWideTile>(SX, Sy, W, masks, partial, scratch, G, R,
-                                   m, r, p, bw, nbeta, stream);
-}
-
 }  // namespace
 
 // scratch: (R, m * r / br, p) float32.  dtype: 0 = float32, 1 = bfloat16
@@ -844,30 +517,6 @@ extern "C" int repro_fused_masked_gradient(const void* SX, const void* Sy,
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(SX, Sy, W, mk, sc, G, R, m, r, p, br,
                                    nbeta, st);
-  return cudaErrorInvalidValue;
-}
-
-// The column-split form for p > 16384.  partial: (R, m, r, ceil(p / 4096))
-// float32; scratch: (R, m * r / bw, p) float32, bw dividing r, at most 64.
-// dtype: 0 = float32, 1 = bfloat16 (SX, Sy, W and G).  Returns
-// cudaGetLastError() after the launches.
-extern "C" int repro_fused_masked_gradient_wide(
-    const void* SX, const void* Sy, const void* W, const void* masks,
-    void* partial, void* scratch, void* G, int R, int m, int r, int p,
-    int bw, float nbeta, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || m <= 0 || r <= 0 || p <= kMaxCols || bw <= 0 ||
-      bw > kMaxWideRows || r % bw || R > 65535)
-    return cudaErrorInvalidValue;
-  const float* mk = static_cast<const float*>(masks);
-  float* pa = static_cast<float*>(partial);
-  float* sc = static_cast<float*>(scratch);
-  if (dtype == 0)
-    return dispatch_wide<float>(SX, Sy, W, mk, pa, sc, G, R, m, r, p, bw,
-                                nbeta, st);
-  if (dtype == 1)
-    return dispatch_wide<__nv_bfloat16>(SX, Sy, W, mk, pa, sc, G, R, m, r, p,
-                                        bw, nbeta, st);
   return cudaErrorInvalidValue;
 }
 

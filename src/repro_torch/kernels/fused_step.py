@@ -8,18 +8,25 @@ Port of the TPU kernel ``src/repro/kernels/fused_step.py`` (``_fused_body``)
 
 in one batched entry: W (R, p) iterates and (R, m) masks over one shared
 encoded problem.  The single form is the same entry at R = 1.  On CUDA
-tensors the wrapper launches ``csrc/fused_step.cu``: up to p = MAX_COLS a
-deterministic two-stage reduction whose first stage reads each row of SX
-once for a tile of realizations, and past it the column-split form (the
-rows' dot products by column chunks, then the gradient by column tiles,
-then the same second stage); in both, realization r of a batched call
-equals the single call bit for bit.  On CPU tensors it runs the plain
-version, which loops over realizations for the same reason.
+tensors the wrapper launches the kernel: up to p = MAX_COLS
+``csrc/fused_step.cu``, a deterministic two-stage reduction whose first
+stage holds a row in one block's registers and reads each row of SX once
+for a tile of realizations; past it the column-split form of
+``csrc/fused_wide.cu`` along ``wide_plan(p, itemsize)``'s route: "cluster"
+(the 8 CTAs of a thread-block cluster each hold one column slice of a row
+in shared memory, share the row's dot products through distributed shared
+memory and add the same staged slice into the gradient, so each active row
+is read once), or "two-read" past the cluster's capacity (the rows' dot
+products by column chunks, then the gradient by column tiles, reading the
+rows twice).  All end in the same second stage, and realization r of a
+batched call equals the single call bit for bit.  On CPU tensors it runs
+the plain version, which loops over realizations for the same reason.
 """
 from __future__ import annotations
 
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -31,8 +38,8 @@ __all__ = ["fused_enabled", "fused_masked_gradient",
            "fused_masked_gradient_plain",
            "pick_fused_block_rows", "pick_fused_realization_tile",
            "pick_wide_block_rows", "fused_wide_scratch_bytes",
-           "fused_row_registers", "fused_stage1_smem_bytes", "MAX_COLS",
-           "WIDE_CHUNK"]
+           "fused_row_registers", "fused_stage1_smem_bytes", "wide_plan",
+           "WidePlan", "MAX_COLS", "WIDE_CHUNK", "WIDE_CLUSTER"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_ROWS_CAP = 16
@@ -46,10 +53,35 @@ MAX_COLS = _REG_STEPS[-1] * _THREADS
 # 227 KB opt-in maximum less 3 KB for the static arrays)
 _REG_BUDGET = 200
 SMEM_BUDGET = 227 * 1024 - 3072
-# the column-split form: columns of one partial dot product (its chunks
-# are added in order), and the most rows of one scratch unit
-WIDE_CHUNK = 4096
+# the column-split form (csrc/fused_wide.cu): the most rows of one scratch
+# unit; on the cluster route the CTAs a row (the portable cluster size),
+# the vectors of 4 columns a thread may hold for its slice, the registers
+# its iterates and sums may take (2 * 4 NV * RT) and the ring's depths; on
+# the two-read route the columns of one partial dot product
 _WIDE_ROWS_CAP = 64
+WIDE_CLUSTER = 8
+_WIDE_VECTORS = (3, 4, 6, 8, 10, 13, 16, 19)
+_WIDE_REG_BUDGET = 208
+_WIDE_SLOTS = (3, 8)
+_WIDE_TILE = 4
+WIDE_CHUNK = 4096
+
+
+class WidePlan(NamedTuple):
+    """How the column-split form takes a width p: ``route`` ("cluster" or
+    "two-read"), ``C`` CTAs a row, ``slice_cols`` columns of each CTA's
+    slice but the last (which takes the rest of p), ``threads`` a CTA,
+    ``vectors`` (NV) of 4 columns a thread holds, ``tile`` (RT) the
+    realizations a cluster takes, ``slots`` the ring of staged slices a
+    CTA.  On the two-read route only ``tile`` is read (1 for a single
+    call)."""
+    route: str
+    C: int
+    slice_cols: int
+    threads: int
+    vectors: int
+    tile: int
+    slots: int
 
 
 def fused_enabled() -> bool:
@@ -85,11 +117,42 @@ def pick_wide_block_rows(r: int) -> int:
                if r % d == 0)
 
 
-def fused_wide_scratch_bytes(m: int, r: int, p: int) -> int:
+def wide_plan(p: int, itemsize: int) -> WidePlan:
+    """The column-split form's plan at width p > MAX_COLS for elements of
+    ``itemsize`` bytes (4 float32, 2 bfloat16), as ``csrc/fused_wide.cu``
+    makes it.  Each of the 8 CTAs takes a slice of S columns, ceil(p / 8)
+    rounded up to 16 bytes (the last takes the rest); a thread holds NV
+    vectors of 4 columns, the smallest listed NV with NV * 4 * 256 >= S;
+    the tile is the largest of 4, 2, 1 with 2 * 4 NV * RT <= 208 registers
+    (its iterates and sums); the ring as many slices as fit SMEM_BUDGET, up
+    to 8.  Where no listed NV holds S or fewer than 3 slices fit, the
+    two-read route takes the width.  A function of p and the dtype alone,
+    never of R, so a realization's sums never depend on its batch."""
+    if p <= MAX_COLS:
+        raise ValueError(f"the column-split form takes p > {MAX_COLS}, "
+                         f"got {p}")
+    if itemsize not in (4, 2):
+        raise ValueError(f"itemsize 4 or 2, got {itemsize}")
+    align = 16 // itemsize
+    S = -(-(-(-p // WIDE_CLUSTER)) // align) * align
+    need = -(-S // (4 * _THREADS))
+    nv = next((v for v in _WIDE_VECTORS if need <= v), 0)
+    slots = min(_WIDE_SLOTS[1], SMEM_BUDGET // (S * itemsize))
+    if nv == 0 or slots < _WIDE_SLOTS[0]:
+        return WidePlan("two-read", 1, 0, _THREADS, 0, _WIDE_TILE, 0)
+    rt = next(t for t in (4, 2, 1)
+              if t == 1 or 2 * 4 * nv * t <= _WIDE_REG_BUDGET)
+    return WidePlan("cluster", WIDE_CLUSTER, S, _THREADS, nv, rt, slots)
+
+
+def fused_wide_scratch_bytes(m: int, r: int, p: int, itemsize: int = 4) -> int:
     """Bytes of scratch a realization of the column-split form takes: one
-    float32 p-row a unit, and the rows' chunk sums."""
+    float32 p-row a unit of ``pick_wide_block_rows(r)`` rows, and on the
+    two-read route the rows' chunk sums."""
     units = m * (r // pick_wide_block_rows(r))
-    return 4 * (units * p + m * r * -(-p // WIDE_CHUNK))
+    chunks = (m * r * -(-p // WIDE_CHUNK)
+              if wide_plan(p, itemsize).route == "two-read" else 0)
+    return 4 * (units * p + chunks)
 
 
 def fused_row_registers(p: int) -> int:
@@ -183,14 +246,18 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
             "fused_masked_gradient")
     else:
         bw = pick_wide_block_rows(r)
-        partial = torch.empty((R, m, r, -(-p // WIDE_CHUNK)),
-                              dtype=torch.float32, device=w.device)
         scratch = torch.empty((R, m * (r // bw), p), dtype=torch.float32,
                               device=w.device)
+        # the two-read route's chunk sums; none on the cluster route
+        partial = None
+        if wide_plan(p, SX.element_size()).route == "two-read":
+            partial = torch.empty((R, m, r, -(-p // WIDE_CHUNK)),
+                                  dtype=torch.float32, device=w.device)
         check(load_library().repro_fused_masked_gradient_wide(
             SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
-            partial.data_ptr(), scratch.data_ptr(), out.data_ptr(), R, m, r,
-            p, bw, float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
+            None if partial is None else partial.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), R, m, r, p, bw,
+            float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
             "fused_masked_gradient")
     launches["fused_masked_gradient"] += 1
     return out

@@ -26,7 +26,11 @@ elements matches its plain version on column slices to rel 1e-5.  Past
 one pass (FWHT and SRHT above N = 32 768, the fused gradient above
 p = 16 384) the kernels hold to the same tolerances, and the fused
 gradient's column-split form keeps batched rows equal to single calls bit
-for bit.  The Hadamard kernels' routes (``fwht_plan``, ``srht_plan``):
+for bit on both its routes (a thread-block cluster, rows not whole 16-byte
+units and bfloat16 at p = 100 000 included; the two-read route past the
+cluster's capacity), one counted launch a call, its plan as the wrapper's
+``wide_plan`` says.  The Hadamard kernels' routes (``fwht_plan``,
+``srht_plan``):
 FWHT and SRHT over a thread-block cluster up to N = 2^18 and the SRHT's
 pruned window, each one launch a call, against their plain versions, a
 column of a batched call equal bit for bit to a one-column call, two calls
@@ -52,7 +56,8 @@ from repro_torch.kernels.encode import (srht_encode_call, srht_encode_plain,
                                         srht_plan)
 from repro_torch.kernels.fused_step import (MAX_COLS, fused_masked_gradient,
                                             fused_masked_gradient_plain,
-                                            pick_fused_realization_tile)
+                                            pick_fused_realization_tile,
+                                            wide_plan)
 from repro_torch.kernels.fwht import (Plan, fwht_kernel_call, fwht_plain,
                                       fwht_plan)
 from repro_torch.runtime import scan_gd, scan_prox
@@ -394,6 +399,87 @@ def test_fused_kernel_wide_bf16(cuda):
     for q in range(3):
         assert torch.equal(out[q], fused_masked_gradient(SX, Sy, W[q],
                                                          masks[q], **kw))
+
+
+def _wide_launch_checked(SX, Sy, W, masks, kw, tol):
+    """One counted launch a wrapper call; the plain version's result to
+    ``tol``; every batched row equal to its single call bit for bit."""
+    before = launches["fused_masked_gradient"]
+    out = fused_masked_gradient(SX, Sy, W, masks, **kw)
+    torch.cuda.synchronize()
+    assert launches["fused_masked_gradient"] == before + 1
+    _close(out, fused_masked_gradient_plain(SX, Sy, W, masks, **kw), tol)
+    for q in range(W.shape[0]):
+        before = launches["fused_masked_gradient"]
+        assert torch.equal(out[q], fused_masked_gradient(SX, Sy, W[q],
+                                                         masks[q], **kw))
+        assert launches["fused_masked_gradient"] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("p,dtype", [(16387, torch.float32),
+                                     (16386, torch.float32),
+                                     (50001, torch.float32),
+                                     (16387, torch.bfloat16),
+                                     (16390, torch.bfloat16)])
+def test_fused_kernel_wide_unaligned_rows(cuda, p, dtype):
+    """Rows that are not whole 16-byte units on the cluster route: the
+    slices still start on 16-byte boundaries, the rows reach the ring by
+    4-byte copies (float32, even bfloat16) or plain loads (odd bfloat16),
+    and the last CTA's slice ends mid-vector."""
+    assert wide_plan(p, torch.empty((), dtype=dtype).element_size()).route \
+        == "cluster"
+    SX, Sy, W, masks = _fused(cuda, 5, 12, p, R=3, dtype=dtype, seed=p)
+    masks[:, 0] = 1.0
+    masks[:, 3] = 0.0
+    _wide_launch_checked(SX, Sy, W, masks, dict(n=30, beta=2.0),
+                         1e-4 if dtype == torch.float32 else 2 ** -7)
+
+
+def test_fused_kernel_wide_bf16_at_path_width(cuda):
+    """bfloat16 at the wide path's p = 100 000 (a slice of 12 504 columns,
+    a ring of eight), batched over a tile and a half, the last realization
+    all-masked."""
+    SX, Sy, W, masks = _fused(cuda, 6, 16, 100000, R=3,
+                              dtype=torch.bfloat16, seed=5)
+    W = (W.float() * 0.01).to(torch.bfloat16)
+    masks[:, 0] = 1.0
+    masks[-1] = 0.0
+    out = _wide_launch_checked(SX, Sy, W, masks, dict(n=48, beta=2.0),
+                               2 ** -7)
+    assert out.dtype == torch.bfloat16
+    assert torch.count_nonzero(out[-1]) == 0
+
+
+@pytest.mark.parametrize("p,dtype", [(152897, torch.float32),
+                                     (155649, torch.bfloat16)])
+def test_fused_kernel_past_cluster_capacity(cuda, p, dtype):
+    """Past the cluster's capacity (three slices no longer fit one CTA, or
+    no listed vector count holds a slice) the width takes the two-read
+    route, one counted launch a call, no silent switch of forms."""
+    assert wide_plan(p, torch.empty((), dtype=dtype).element_size()).route \
+        == "two-read"
+    SX, Sy, W, masks = _fused(cuda, 2, 2, p, R=2, dtype=dtype, seed=7)
+    masks[:, 0] = 1.0
+    _wide_launch_checked(SX, Sy, W, masks, dict(n=2, beta=2.0),
+                         1e-4 if dtype == torch.float32 else 2 ** -7)
+
+
+def test_fused_wide_plan_matches_kernel(cuda):
+    """The kernel's own plan (``repro_fused_wide_plan``) equals the
+    wrapper's ``wide_plan`` field by field, at every 13th width from
+    MAX_COLS + 1 to 2^20 and at the capacity edges, in both dtypes."""
+    lib = load_library()
+    widths = list(range(MAX_COLS + 1, (1 << 20) + 1, 13)) + [
+        152896, 152897, 155648, 155649]
+    for p in widths:
+        for itemsize in (4, 2):
+            plan = wide_plan(p, itemsize)
+            want = [int(plan.route == "cluster"), plan.C, plan.slice_cols,
+                    plan.threads, plan.vectors, plan.tile, plan.slots]
+            got = [lib.repro_fused_wide_plan(p, itemsize, f)
+                   for f in range(7)]
+            assert got == want, (p, itemsize)
 
 
 def test_fused_kernel_bf16_and_all_masked(cuda):

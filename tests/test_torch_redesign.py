@@ -116,14 +116,16 @@ def test_fused_kernel_rejects_rows_wider_than_registers():
     """Rows wider than the one-read form's registers (p > MAX_COLS) have no
     register count of their own: they take the column-split form, whose
     operands the card's check accepts and whose scratch unit is the
-    largest divisor of r up to 64 rows."""
+    largest divisor of r up to 64 rows (one float32 p-row a unit on the
+    cluster route that p = MAX_COLS + 1 takes)."""
     SX, Sy, W, masks = _t(*_fused_operands(2, 2, MAX_COLS + 1, 1))
     with pytest.raises(ValueError):
         fused_row_registers(MAX_COLS + 1)
     fused_step._check_kernel_operands(SX, Sy, W, masks)
     assert fused_step.pick_wide_block_rows(2) == 2
+    assert fused_step.wide_plan(MAX_COLS + 1, 4).route == "cluster"
     assert fused_step.fused_wide_scratch_bytes(2, 2, MAX_COLS + 1) == \
-        4 * (2 * (MAX_COLS + 1) + 2 * 2 * 5)
+        4 * 2 * (MAX_COLS + 1)
 
 
 @pytest.mark.parametrize("which", ["Sy", "w", "all64"])

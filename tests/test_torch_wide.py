@@ -25,7 +25,7 @@ import repro_torch.runtime as trt
 from repro_torch.kernels.encode import (CHUNK_BYTES, srht_chunk_rows,
                                         srht_operands)
 from repro_torch.kernels.fused_step import (MAX_COLS, fused_wide_scratch_bytes,
-                                            pick_wide_block_rows)
+                                            pick_wide_block_rows, wide_plan)
 from repro_torch.kernels.fwht import MAX_ONE_PASS, MAX_STRIDED, fwht_passes
 
 RTOL, TRACE_RTOL = 1e-5, 1e-4
@@ -193,11 +193,17 @@ def test_srht_partial_window_chunk_stays_within_budget(p, N):
 def test_fused_wide_scratch_is_a_sixteenth_of_the_active_rows():
     """The column-split form's scratch a realization at the wide path's
     shape (LASSO §5.4 at n = 32 768: m = 128, r = 512, p = 100 000, 80
-    of 128 workers active) stays within 1/16 of the active S X bytes."""
+    of 128 workers active) stays within 1/16 of the active S X bytes: on
+    the cluster route that width takes, one float32 p-row a unit of 64
+    rows and no chunk sums, in float32 and bfloat16."""
     m, r, p, k = 128, 512, 100_000, 80
     assert pick_wide_block_rows(r) == 64
     assert [pick_wide_block_rows(v) for v in (1, 7, 96, 130)] == \
         [1, 7, 48, 26]
+    for itemsize in (4, 2):
+        assert wide_plan(p, itemsize).route == "cluster"
+        assert fused_wide_scratch_bytes(m, r, p, itemsize) == \
+            4 * m * (r // 64) * p
     assert fused_wide_scratch_bytes(m, r, p) <= k * r * p * 4 / 16
 
 
