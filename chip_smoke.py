@@ -173,6 +173,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
              ``python -m repro_torch.serve --arch gemma2-27b`` through
              ``main(argv)`` on the card, in-process; the phase's host
              seconds;
+   launch  - the launchers (``repro_torch.launch``, ``repro_torch.sharding``),
+             each entry driven with the launch counts cleared just before
+             and read just after: (1) ``python -m repro_torch.launch.train
+             --arch deepseek-7b --smoke --steps 10`` through ``main(argv)``,
+             in-process, on the card (one combine launch a coded step) and
+             with ``--device cpu`` (none), losses to rel 1e-4 and simulated
+             times bit for bit; (2) the CLI's body (``launch.train.train``)
+             at deepseek-7b's published width with one layer of 30 (a
+             ``reduced:`` line; 621 817 856 parameters, bfloat16), its
+             default flags, 4 steps: the step time by CUDA events between
+             steps 2-4 (median and every sample; the first step carries
+             the warm-up and is printed apart), the combine's time inside
+             those steps by CUDA events around its call and its share of
+             the step, peak device memory, finite losses and one combine a
+             step at (8, 621 817 856); (3)
+             ``grad_specs`` from ``make_shardings`` on a one-card
+             ``make_local_mesh()`` (NCCL): one ``build_train_step`` step
+             with it equal bit for bit to the step without it (parameters,
+             optimizer state, loss); (4) ``python -m
+             repro_torch.launch.dryrun`` in three processes started
+             together (deepseek-7b train_4k on both meshes, phi3.5-moe
+             decode_32k, jamba-1.5-large long_500k), each record's roofline
+             terms, argument bytes a device and host seconds; any failed
+             combination fails the phase;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
              same function (the SRHT also at worker 5's window beside
@@ -198,6 +222,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1785,6 +1810,201 @@ def serve_phase(smi: str) -> None:
           f"no kernel of the port launched (counters read 0)  [{smi}]")
 
 
+def launch_phase(smi: str, drive) -> None:
+    """The launchers (module docstring, phase "launch"): the coded training
+    CLI at smoke width on the card and the CPU, its body at deepseek-7b's
+    published width, ``grad_specs`` on a one-card mesh, and the meta-device
+    dry run in a process of its own.  ``drive`` runs one entry with the
+    launch counts cleared just before and read just after, and requires
+    its kernels."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import repro_torch.train.coded as coded
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import parser, train
+    from repro_torch.models import count_params, init_params, param_axes
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.sharding import make_shardings
+    from repro_torch.train.steps import build_train_step
+    from repro_torch.tree import tree_leaves
+
+    comb = "coded_combine"
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+
+    # (1) python -m repro_torch.launch.train at the smoke variant, in-process,
+    # on the card and with --device cpu
+    argv = ["--arch", "deepseek-7b", "--smoke", "--steps", "10"]
+    hists = {}
+    for label, extra, want in (("card", [], {comb: 10}),
+                               ("cpu", ["--device", "cpu"], {})):
+        out = tmp / f"{label}.json"
+        t0 = time.perf_counter()
+        rc, text = drive(f"launch.train --smoke {label}", lambda: quiet(
+            train_main, argv + extra + ["--history-out", str(out)]), want)
+        require(rc == 0, f"launch.train {label}: exit code {rc}")
+        hists[label] = json.loads(out.read_text())
+        print(f"python -m repro_torch.launch.train {' '.join(argv + extra)}: "
+              f"{text.strip().splitlines()[-1]}; {time.perf_counter() - t0:.1f}"
+              f" s host clock")
+    lc = np.asarray([h["loss"] for h in hists["card"]])
+    lh = np.asarray([h["loss"] for h in hists["cpu"]])
+    rel = float(np.max(np.abs(lc - lh) / np.abs(lh)))
+    require(np.isfinite(lc).all() and rel <= 1e-4,
+            f"launch.train card vs CPU losses: rel {rel:.2e}")
+    require([h["sim_time_s"] for h in hists["card"]]
+            == [h["sim_time_s"] for h in hists["cpu"]],
+            "launch.train card vs CPU: simulated times differ")
+    print(f"launch.train --smoke card vs CPU, 10 steps: losses max rel "
+          f"{rel:.2e} (tol 1e-4), simulated times bit for bit; 10 combine "
+          f"launches on the card, one a coded step")
+
+    # (2) the CLI's body at deepseek-7b's published width, one layer of 30
+    base = get_config("deepseek-7b")
+    cfg7 = base.with_overrides(n_layers=1)
+    p7 = int(count_params(cfg7))
+    print(f"reduced: n_layers {base.n_layers} -> 1 (deepseek-7b, "
+          f"arXiv:2401.02954: d_model {cfg7.d_model}, {cfg7.n_heads} heads, "
+          f"d_ff {cfg7.d_ff}, vocab {cfg7.vocab}, {cfg7.param_dtype}; "
+          f"{p7} parameters)")
+    # four steps: the first carries the warm-up and is not timed
+    args = parser().parse_args(["--arch", "deepseek-7b", "--steps", "4"])
+    shapes: list = []
+    comb_ev: list = []
+    plain_call = coded.coded_combine_call
+
+    def watch(g, c):
+        shapes.append(tuple(g.shape))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = plain_call(g, c)
+        ev[1].record()
+        comb_ev.append(ev)
+        return out
+
+    marks = []
+
+    def tick(rec):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg7, 0)       # the trainer's own seeded draw
+    coded.coded_combine_call = watch
+    try:
+        tick(None)
+        _, _, hist = drive("launch.train body deepseek-7b 1 layer",
+                           lambda: train(cfg7, args, params, callback=tick),
+                           {comb: 4})
+    finally:
+        coded.coded_combine_call = plain_call
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    comb_ms = [a.elapsed_time(b) for a, b in comb_ev]
+    losses = [h["loss"] for h in hist]
+    require(np.isfinite(losses).all(), "launch.train deepseek-7b 1 layer: "
+                                       "non-finite loss")
+    require(shapes == [(args.m_workers, p7)] * 4,
+            f"launch.train deepseek-7b combines at {shapes}")
+    share = sum(comb_ms[1:]) / sum(step_ms[1:])
+    print(f"launch.train body, deepseek-7b 1 layer (m {args.m_workers}, "
+          f"k {args.wait_k}, beta {args.beta}, {args.rows_per_worker} rows a "
+          f"group, seq {args.seq_len}, 4 steps): losses "
+          f"{[round(x, 4) for x in losses]}; warm-up step "
+          f"{step_ms[0]:.2f} ms; steps 2-4 (CUDA events between steps) "
+          f"{spread(step_ms[1:], 'ms', 2)}; the combine inside them (CUDA "
+          f"events around its call) {spread(comb_ms[1:], 'ms', 4)}, "
+          f"{share:.2%} of the step; 4 combine launches at "
+          f"({args.m_workers}, {p7}); peak device memory {peak:.2f} GB  "
+          f"[{smi}]")
+    del hist, params
+    torch.cuda.empty_cache()
+
+    # (3) grad_specs on a one-card mesh: bit for bit the step without it
+    mesh = make_local_mesh()
+    try:
+        params = init_params(cfg7, 0)
+        opt = adamw_init(params)
+        rng = np.random.default_rng(0)
+        tok = torch.as_tensor(rng.integers(0, cfg7.vocab, (2, 128)),
+                              dtype=torch.int32, device="cuda")
+        batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1),
+                 "weights": torch.ones(2, device="cuda")}
+        sh = make_shardings(mesh, params, param_axes(cfg7))
+        lr = cosine_schedule(3e-3, 2, 10)
+        a = build_train_step(cfg7, lr)(params, opt, batch)
+        b = build_train_step(cfg7, lr, grad_specs=sh)(params, opt, batch)
+        same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[:2]),
+                                                     tree_leaves(b[:2])))
+        require(same and torch.equal(a[2]["loss"], b[2]["loss"]),
+                "grad_specs on a 1 x 1 mesh changed the step")
+        print(f"grad_specs on a 1 x 1 mesh ({mesh.device_type}, "
+              f"{dist.get_backend()}): deepseek-7b 1 layer, batch 2 x 128, "
+              f"parameters, optimizer state and loss "
+              f"({float(a[2]['loss']):.6f}) equal bit for bit to the step "
+              f"without it")
+        del a, b, params, opt
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (4) the meta-device dry run, in processes of its own (their fake
+    # 512-rank groups never meet this process's groups), the three started
+    # together
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    runs = []
+    for arch, shape, mesh_flag in (
+            ("deepseek-7b", "train_4k", "both"),
+            ("phi3.5-moe-42b-a6.6b", "decode_32k", "single"),
+            ("jamba-1.5-large-398b", "long_500k", "single")):
+        out = tmp / f"dry_{arch}_{shape}"
+        runs.append((arch, shape, mesh_flag, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh_flag, "--quiet",
+             "--out", str(out)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)))
+    t0 = time.perf_counter()
+    try:
+        done = [(run, run[4].communicate(timeout=600)) for run in runs]
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for (arch, shape, mesh_flag, out, proc), (so, se) in done:
+        require(proc.returncode == 0, f"dryrun {arch} {shape}: exit code "
+                f"{proc.returncode}\n{so[-2000:]}\n{se[-2000:]}")
+        recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+        require(len(recs) == (2 if mesh_flag == "both" else 1),
+                f"dryrun {arch} {shape}: {len(recs)} records")
+        for rec in recs:
+            require("error" not in rec, f"dryrun {arch} {shape}: {rec}")
+            rl = rec["roofline"]
+            print(f"dryrun {arch} {shape} {rec['mesh']} ({rec['n_chips']} "
+                  f"chips, {rec['kind']}): argument bytes a device "
+                  f"{rec['memory']['argument_bytes_per_device']}, output "
+                  f"{rec['memory']['output_bytes_per_device']}; roofline "
+                  f"compute {rl['compute_s']:.6g} s, memory "
+                  f"{rl['memory_s']:.6g} s, collective "
+                  f"{rl['collective_s']:.6g} s -> {rl['bottleneck']}; flops "
+                  f"a device {rl['hlo_flops_per_device']:.6g}, useful ratio "
+                  f"{rl['useful_ratio']:.4f}; trace {rec['lower_s']} s host "
+                  f"clock")
+    print(f"dryrun (3 processes at once, H100 terms traced on meta): "
+          f"{wall:.1f} s host clock until the last ended")
+    shutil.rmtree(tmp)
+    print(f"launch phase: {time.perf_counter() - t_phase:.1f} s host clock"
+          f"  [{smi}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2134,9 +2354,11 @@ def main() -> int:
     train_phase(smi, drive, table["coded_combine"])
     # coded-prox at LASSO §5.4's published width ---------------------------
     wide_phase(smi, drive, table)
-    print(f"launches by path: {json.dumps(by_path)}")
     # the model zoo's serve path ----------------------------------------------
     serve_phase(smi)
+    # the launchers: the coded training CLI, grad_specs, the dry run ----------
+    launch_phase(smi, drive)
+    print(f"launches by path: {json.dumps(by_path)}")
 
     # 5. times ---------------------------------------------------------------
     masks_run = torch.as_tensor(res.schedule.masks, device=dev)

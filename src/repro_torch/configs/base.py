@@ -8,7 +8,9 @@ Every assigned architecture is a declarative ``ArchConfig``; the model code in
 model stacks period parameters with a leading ``n_periods`` axis and walks
 it, one period at a time.  Fields that steer only the reference's TPU
 sharding and compilation (the O1-O6 levers, ``remat_policy``) are kept so a
-configuration reads the same in both packages.
+configuration reads the same in both packages; the port's placement rules
+read ``fsdp_min_elems`` (``repro_torch.sharding``) and its dry run counts
+the recompute ``remat_policy`` implies (``repro_torch.launch.roofline``).
 """
 from __future__ import annotations
 

@@ -1,0 +1,262 @@
+"""Multi-pod dry run on the meta device: trace every (arch x shape) step on
+the production mesh's placements and extract H100 roofline terms (port of
+``repro.launch.dryrun``).
+
+The reference lowers and compiles each step for 512 placeholder devices.
+Here the step runs once on meta tensors (shapes and dtypes, no storage)
+under ``FlopCounterMode``, the parameters, optimizer state and inputs
+placed by ``sharding.make_shardings`` / ``launch.specs.input_shardings`` on
+a ``DeviceMesh`` of a fake 512-rank process group; nothing is allocated, so
+every configuration runs on the CPU.  ``launch.roofline`` says what each
+term counts and what it cannot see.
+
+Runs as its own process: ``main`` creates the fake group (which serves the
+16 x 16 and the 2 x 16 x 16 mesh), importing this module does not.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both --out runs/dryrun
+  (--mesh single|multi|both; one JSON record per combination)
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+import traceback
+
+import torch
+
+from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.models import transformer as T
+from repro_torch.models.common import Dtype
+from repro_torch.optim import adamw_init, cosine_schedule
+from repro_torch.sharding import make_shardings
+from repro_torch.train.steps import (batch_extras, build_decode_step,
+                                     build_prefill_step, build_train_step)
+from repro_torch.tree import tree_map
+
+from .mesh import make_production_mesh
+from .roofline import (COLLECTIVES, collective_bytes, count_flops,
+                       local_bytes, remat_flops, roofline, step_flops)
+from .specs import (input_shardings, input_specs, output_shardings,
+                    param_structs, shape_config)
+
+__all__ = ["dryrun_one", "trace_step", "fake_group", "main"]
+
+WORLD = 512
+
+
+def fake_group() -> None:
+    """A fake process group of 512 ranks in this process (rank 0), enough
+    for both production meshes; its collectives move no data."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=WORLD)
+
+
+def _scalar_bytes(metrics: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in metrics.values()
+               if isinstance(v, torch.Tensor))
+
+
+def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
+               grad_specs=None) -> tuple[dict, tuple]:
+    """Run one ``kind`` step ("train", "prefill" or "decode") on meta
+    ``params`` and ``inputs`` (``specs.input_specs``' structure; ``opt``
+    the AdamW state of a train step) under the flop counters -> (flops by
+    operator, with the global program's ``"total"`` and the ``"remat"``
+    recompute it includes, zero but for a train step; the step's
+    outputs).  The sLSTM
+    loop's ``seq_len`` tokens count as its trip count
+    (``roofline.step_flops``)."""
+    outs: dict = {}
+    forward = None
+    if kind == "train":
+        step = build_train_step(cfg, cosine_schedule(3e-4, 100, 10000),
+                                grad_specs=grad_specs)
+        run = lambda: step(params, opt, inputs)  # noqa: E731
+        pgrad = tree_map(lambda p: p.detach().requires_grad_(), params)
+        forward = lambda: T.forward(  # noqa: E731
+            pgrad, cfg, inputs["tokens"], **batch_extras(cfg, inputs))
+    elif kind == "prefill":
+        step = build_prefill_step(cfg, cache_len=seq_len)
+        run = lambda: step(params, inputs)  # noqa: E731
+    else:  # decode: position seq_len - 1 being generated
+        token, caches, _ = inputs
+        step = build_decode_step(cfg)
+        run = lambda: step(params, token, caches, seq_len - 1)  # noqa: E731
+
+    def trace() -> dict:
+        flops, by_op = count_flops(lambda: outs.update(out=run()))
+        re = remat_flops(cfg, forward) if forward else 0.0
+        return {"total": flops + re, "remat": re, **by_op}
+
+    counts = step_flops(cfg, trace, seq_len if kind != "decode" else 1)
+    return counts, outs["out"]
+
+
+def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
+               verbose: bool = True, extra_overrides: dict | None = None,
+               hotspots: bool = False) -> dict:
+    """Trace one (arch, shape, mesh) combination; return its record, with
+    the reference's keys.
+
+    ``lower_s`` is the host time of the traces on meta.  ``compile_s`` is
+    0.0: PyTorch compiles nothing here.  The memory entries a device holds
+    are each leaf's local shard bytes under its placements: arguments
+    (parameters; for a train step the AdamW moments, which take the
+    parameters' placements, and the replicated step count; the inputs)
+    and outputs (a train step's new parameters, state and replicated
+    metrics; prefill's last-position logits and caches; decode's logits
+    and caches).  ``temp_bytes_per_device`` and ``alias_bytes_per_device``
+    are null: PyTorch has no compiler memory plan for a program on meta.
+    """
+    cfg = shape_config(ARCHS[arch], shape_name)
+    if extra_overrides:
+        cfg = cfg.with_overrides(**extra_overrides)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    n_chips = mesh.size()
+    shp = SHAPES[shape_name]
+    B, S = shp["global_batch"], shp["seq_len"]
+    kind, inputs = input_specs(cfg, shape_name)
+    in_sh = input_shardings(cfg, shape_name, mesh)
+
+    params = param_structs(cfg)
+    axes = T.param_axes(cfg)
+    psh = make_shardings(mesh, params, axes,
+                         fsdp_min_elems=cfg.fsdp_min_elems)
+    arg_bytes = local_bytes(params, psh) + local_bytes(inputs, in_sh)
+    opt = None
+    if kind == "train":
+        opt = adamw_init(params, dtype=Dtype.of(cfg.optstate_dtype))
+        # the moments take the parameters' placements, the count replicated
+        arg_bytes += 2 * local_bytes(opt.m, psh) + opt.count.element_size()
+
+    t0 = time.perf_counter()
+    counts, out = trace_step(cfg, kind, params, inputs, S, opt=opt,
+                             grad_specs=psh)
+    t_lower = time.perf_counter() - t0
+    flops = counts.pop("total")
+
+    if kind == "train":
+        new_params, new_opt, metrics = out
+        out_bytes = (local_bytes(new_params, psh)
+                     + 2 * local_bytes(new_opt.m, psh)
+                     + new_opt.count.element_size() + _scalar_bytes(metrics))
+    else:
+        out_bytes = local_bytes(out, output_shardings(cfg, shape_name, mesh))
+
+    if hotspots:
+        print("--- top operators by flops (FlopCounterMode) ---")
+        for op, f in sorted(counts.items(), key=lambda kv: -kv[1])[:18]:
+            if f:
+                name = "remat recompute" if op == "remat" else op
+                print(f"  {name:30s} flops={f:.3e} ({f / flops:.1%})")
+
+    n_tokens = B * (S if kind in ("train", "prefill") else 1)
+    n_active = T.count_params(cfg, active_only=True)
+    mult = 6.0 if kind == "train" else 2.0
+    model_flops = mult * n_active * n_tokens
+    passes = 1
+    if kind == "train":
+        passes = 3 if cfg.remat_policy == "full" else 2
+    coll = collective_bytes(params, psh, axes, passes=passes,
+                            reduce_scatter=kind == "train")
+    rl = roofline(flops, arg_bytes + out_bytes, coll, n_chips,
+                  model_flops=model_flops)
+
+    rec = {
+        "arch": arch, "shape": shape_name, "kind": kind,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "n_chips": n_chips,
+        "lower_s": round(t_lower, 1), "compile_s": 0.0,
+        "param_count": T.count_params(cfg),
+        "param_count_active": n_active,
+        "memory": {
+            "argument_bytes_per_device": arg_bytes,
+            "output_bytes_per_device": out_bytes,
+            "temp_bytes_per_device": None,
+            "alias_bytes_per_device": None,
+        },
+        "roofline": rl,
+        "collectives": {**{k: coll[k] for k in COLLECTIVES},
+                        "count": coll["count"]},
+    }
+    if verbose:
+        print(json.dumps(rec, indent=2))
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default=None, help="directory for JSON records")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--override", default=None,
+                    help="JSON dict of ArchConfig overrides (perf iteration)")
+    ap.add_argument("--hotspots", action="store_true",
+                    help="print FlopCounterMode's top operators")
+    args = ap.parse_args(argv)
+
+    archs = sorted(ARCHS) if (args.all or not args.arch) else [args.arch]
+    shapes = sorted(SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    overrides = json.loads(args.override) if args.override else None
+
+    import logging
+
+    import torch.distributed as dist
+    # DTensor warns of sequential all-gathers on the two-pod FSDP axes;
+    # the fake group moves no data
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    own = not dist.is_initialized()
+    if own:
+        fake_group()
+    failures = []
+    try:
+        for arch in archs:
+            for shape in shapes:
+                for multi in meshes:
+                    tag = f"{arch}|{shape}|{'multi' if multi else 'single'}"
+                    try:
+                        rec = dryrun_one(arch, shape, multi,
+                                         verbose=not args.quiet,
+                                         extra_overrides=overrides,
+                                         hotspots=args.hotspots)
+                        status = "OK"
+                    except Exception as e:  # noqa: BLE001 — report, go on
+                        traceback.print_exc()
+                        rec = {"arch": arch, "shape": shape,
+                               "mesh": "2x16x16" if multi else "16x16",
+                               "error": repr(e)}
+                        failures.append(tag)
+                        status = "FAIL"
+                    print(f"[{status}] {tag}", flush=True)
+                    if args.out:
+                        os.makedirs(args.out, exist_ok=True)
+                        fname = tag.replace("|", "__") + ".json"
+                        with open(os.path.join(args.out, fname), "w") as f:
+                            json.dump(rec, f, indent=2)
+    finally:
+        if own:
+            dist.destroy_process_group()
+    if failures:
+        print("FAILURES:", failures)
+        return 1
+    print("all dry-runs passed")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

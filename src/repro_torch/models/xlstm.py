@@ -250,17 +250,26 @@ def _slstm_post(p, h, x, cfg):
     return torch.matmul(u, p["down"])
 
 
+def _slstm_loop(p, R, xz, xi, xf, xo, state: SLSTMCache):
+    """The recurrence over every position of the (B, S, H, dh) gate
+    inputs, one step a token -> (each step's hidden state, last state).
+    ``launch.roofline`` counts the flops of one step and multiplies them
+    by the trip count, as the reference's HLO analysis does a loop."""
+    hs = []
+    for t in range(xz.shape[1]):
+        state = _slstm_cell(p, R, xz[:, t], xi[:, t], xf[:, t], xo[:, t],
+                            state)
+        hs.append(state.h)
+    return hs, state
+
+
 def slstm_apply(p, x, cfg, return_cache: bool = False):
     """Full-sequence sLSTM by a sequential loop. x: (B, S, d)."""
     B, S, d = x.shape
     xz, xi, xf, xo = _slstm_inputs(p, x)
     R = _recurrent(p)
     state = init_slstm_cache(cfg, B, x.dtype, device=x.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_cell(p, R, xz[:, t], xi[:, t], xf[:, t], xo[:, t],
-                            state)
-        hs.append(state.h)
+    hs, state = _slstm_loop(p, R, xz, xi, xf, xo, state)
     h = torch.stack(hs, dim=1).reshape(B, S, d)
     out = _slstm_post(p, h, x, cfg)
     if return_cache:

@@ -20,6 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import full_f32_matmul
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_update
+from repro_torch.tree import tree_map
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
            "batch_extras"]
@@ -35,6 +36,39 @@ def batch_extras(cfg: ArchConfig, batch: dict) -> dict:
     return kw
 
 
+@torch.no_grad()
+def _lay_out(g: torch.Tensor, sharding) -> torch.Tensor:
+    """The mean of every rank's ``g``: reduce-scattered to ``sharding``'s
+    placements (each rank's ``g`` a partial sum over the whole mesh) and
+    gathered back, so every rank holds the same gradient."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = sharding.mesh
+    d = DTensor.from_local(g, mesh, [Partial("sum")] * mesh.ndim,
+                           run_check=False)
+    full = d.redistribute(mesh, sharding.placements).full_tensor()
+    return full / mesh.size()
+
+
+def _constrain(grads, specs):
+    """``grads`` laid out to the ``NamedSharding``s of ``specs``, a tree or
+    a prefix of one (``build_train_step``'s ``grad_specs``)."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import NamedSharding
+
+    if isinstance(specs, NamedSharding):
+        return tree_map(lambda g: _lay_out(g, specs), grads)
+    if isinstance(specs, dict) and isinstance(grads, dict):
+        return {k: _constrain(g, specs.get(k)) for k, g in grads.items()}
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        raise ValueError(
+            f"grad_specs leaves a gradient without a NamedSharding on a "
+            f"group of {dist.get_world_size()} ranks: it would stay each "
+            f"rank's own, and the ranks' parameters would drift apart")
+    return grads
+
+
 def build_train_step(cfg: ArchConfig, lr_fn: Callable,
                      weight_decay: float = 0.1,
                      z_loss_weight: float = 1e-3,
@@ -43,12 +77,21 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
 
     batch: tokens (B,S) int, labels (B,S) int, weights (B,) f32 coded
     decode weights, plus modality extras (patch/enc embeddings), all on the
-    parameters' device.  ``grad_specs`` constrains the gradients to a mesh
-    sharding in the reference; on one device it has no meaning, and the
-    port accepts it and ignores it.  Float32 products run in full float32
-    (TF32 off), as the reference computes.
+    parameters' device.  Float32 products run in full float32 (TF32 off),
+    as the reference computes.
+
+    grad_specs: a ``sharding.make_shardings`` tree matching params, or a
+    prefix of one (a ``NamedSharding`` stands for every leaf below it),
+    as ``with_sharding_constraint`` takes.  Each rank's gradient is taken
+    as its share of the mesh's gradient: it is reduce-scattered to its
+    placements (a DTensor over the sharding's ``DeviceMesh``), gathered
+    back and divided by the mesh's size before AdamW, so every rank steps
+    with the mean of all ranks' gradients.  That mean is the gradient of
+    the batch the ranks hold together where each rank's weights sum to
+    the same.  On a 1 x 1 mesh the step equals the step without it bit
+    for bit.  A part of the tree whose spec is not a ``NamedSharding`` is
+    left as it is on a group of one rank, and raises on a larger one.
     """
-    del grad_specs
 
     def loss_fn(p, batch):
         logits, aux = T.forward(p, cfg, batch["tokens"],
@@ -69,6 +112,8 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
     @full_f32_matmul
     def step(params, opt_state, batch):
         grads, (loss, aux) = grad_fn(params, batch)
+        if grad_specs is not None:
+            grads = _constrain(grads, grad_specs)
         lr = lr_fn(opt_state.count)
         params, opt_state, om = adamw_update(
             grads, opt_state, params, lr=lr, weight_decay=weight_decay)
