@@ -197,12 +197,29 @@ Phases, each of which ends the run with a non-zero exit on failure:
              decode_32k, jamba-1.5-large long_500k), each record's roofline
              terms, argument bytes a device and host seconds; any failed
              combination fails the phase;
+   sharded - the realization axis over cards: ``torch.cuda.device_count()``
+             printed; at PAPER_RIDGE's width with R = 8, coded-gd (100
+             steps) and coded-prox (50) through ``run_batched`` with
+             ``placement="sharded"`` and ``"vmap"``, ``placement_devices``
+             the card count where it divides R (1 on one card) and w,
+             traces and times bit for bit equal; then
+             ``runners._sharded_run`` over two shards of card 0 (and over
+             every card where there are more than one), w and traces bit
+             for bit equal to the batched run, one fused launch a step on
+             each shard; a step's time of the two dispatch designs (one
+             thread enqueuing the shards' steps in turn, the one kept; a
+             host thread a shard) beside the batched run's, in turns;
+             with more than one card also Fig. 7 at R = 32 through
+             ``workloads.run --placement sharded``, equal to the vmap run
+             bit for bit;
 5. times   - each kernel (CUDA events, after warm-up) beside its bound, its
              plain version and, where one exists, one PyTorch call for the
              same function (the SRHT also at worker 5's window beside
              torch.matmul with the dense window; the fused gradient also
              batched at R = 4 and
-             R = 16; the combine also by the profiler's device time and,
+             R = 16, there also beside cuBLAS's two products, S X W^T
+             then (S X)^T (C * resid); the combine also by the profiler's
+             device time and,
              beside torch.matmul(c, g), by CUDA graph replay, and at
              (32, 4194304), the coded-SGD flat gradient's width); step
              times (CUDA events around a 100-step GD loop, a 50-step L-BFGS
@@ -327,14 +344,18 @@ def graph_ms(fn, reps: int = 20, calls: int = 10) -> float:
     return a.elapsed_time(b) / (reps * calls)
 
 
-def launch_floor_ms() -> float:
+def launch_floor_ms() -> tuple[float, float]:
     """Event time a call of an empty kernel launched through the kernels'
-    own ctypes path: the floor under every small shape's time."""
+    own ctypes path (``_build.launch``: the operands' card made current,
+    its stream read): the floor under every small shape's time; and the
+    same call without the device guard."""
     import torch
     from repro_torch.kernels import _build
     lib = _build.load_library()
     probe = torch.zeros(1, device="cuda")
-    return time_ms(lambda: lib.repro_empty(_build.stream_of(probe)), 200)
+    return (time_ms(lambda: _build.launch("empty", lib.repro_empty,
+                                          (probe,)), 200),
+            time_ms(lambda: lib.repro_empty(_build.stream_of(probe)), 200))
 
 
 def route_of(kname: str, **shape) -> str:
@@ -1485,9 +1506,10 @@ def wide_phase(smi: str, drive, table: dict) -> None:
 
     # FWHT at decode_t's (8, N) and LASSO paper's N; the library yardstick
     # is the dense product with the Sylvester matrix where it fits the card
-    floor = launch_floor_ms()
+    floor, unguarded = launch_floor_ms()
     print(f"launch floor: an empty kernel through the kernels' ctypes path "
-          f"takes {floor:.4f} ms a call (CUDA events, back to back)  [{smi}]")
+          f"takes {floor:.4f} ms a call (CUDA events, back to back; "
+          f"{unguarded:.4f} ms without the device guard)  [{smi}]")
     for kname in (srht, fwht):
         table[kname]["launch_floor_ms"] = floor
     H256 = torch.as_tensor(hadamard_matrix(256), dtype=torch.float32,
@@ -2005,6 +2027,167 @@ def launch_phase(smi: str, drive) -> None:
           f"  [{smi}]")
 
 
+def threaded_run(devices, prob, masks, step, W0, **kw):
+    """The dispatch design ``_sharded_run`` does not take, timed beside it:
+    a host thread a shard, each running its own step loop
+    (``runners._run``) with its card current."""
+    import threading
+    import torch
+    from repro_torch.runtime import runners
+    c = len(masks) // len(devices)
+    outs = [None] * len(devices)
+
+    def shard(j):
+        with torch.cuda.device(devices[j]):
+            outs[j] = runners._run(prob.to(devices[j]),
+                                   masks[j * c:(j + 1) * c], step,
+                                   W0[j * c:(j + 1) * c], **kw)
+
+    threads = [threading.Thread(target=shard, args=(j,))
+               for j in range(len(devices))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return (torch.cat([w.to(prob.device) for w, _ in outs]),
+            torch.cat([tr.to(prob.device) for _, tr in outs]))
+
+
+def sharded_phase(cfg, step: float, smi: str, drive) -> None:
+    """The realization axis over cards at PAPER_RIDGE's width, R = 8:
+    ``run_batched(placement="sharded")`` for coded-gd (100 steps) and
+    coded-prox (50) beside ``placement="vmap"``, the split, the launches
+    and the gather over two shards of card 0, and over every card where
+    there are more than one (then Fig. 7 at R = 32 too)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (FastHadamardEncoder, bimodal_delays,
+                                  make_encoded_problem)
+    from repro_torch.runtime import (ClusterEngine, FastestK, ProblemSpec,
+                                     get_strategy, runners)
+    from repro_torch.workloads import get_workload
+    from repro_torch.workloads.runner import main as workloads_main
+    t_phase = time.perf_counter()
+    ndev = torch.cuda.device_count()
+    print(f"sharded: torch.cuda.device_count() = {ndev}")
+    dev = torch.device("cuda", 0)
+    n, p, m, k = cfg.n, cfg.p, cfg.m, cfg.k[1]
+    R = 8
+    spec = ProblemSpec.synthetic(n, p, noise=0.5, lam=cfg.lam, seed=0)
+    l1spec = ProblemSpec(X=spec.X, y=spec.y, lam=cfg.lam, h="l1")
+    engine = ClusterEngine(bimodal_delays(), m, seed=0)
+    kw = dict(policy=FastestK(k), encoder="fast-hadamard", step_size=step)
+    fused, srht = "fused_masked_gradient", "srht_encode"
+    split = runners.trials_device_count(R)
+    require(split == (ndev if ndev > 1 and R % ndev == 0 else 1),
+            f"sharded: trials_device_count({R}) = {split} on {ndev} cards")
+    schedules = {}
+    for name, sp, T in (("coded-gd", spec, 100), ("coded-prox", l1spec, 50)):
+        out = {}
+        for placement in ("sharded", "vmap"):
+            out[placement] = drive(
+                f"{name} run_batched R={R} {placement}",
+                lambda: get_strategy(name).run_batched(
+                    sp, engine, steps=T, trials=R, placement=placement,
+                    **kw),
+                {fused: T * (split if placement == "sharded" else 1),
+                 srht: 1})
+        sh, vm = out["sharded"], out["vmap"]
+        require(sh.meta["placement_devices"] == split,
+                f"sharded {name}: placement_devices "
+                f"{sh.meta['placement_devices']} != {split}")
+        require(np.array_equal(sh.objective, vm.objective) and
+                np.array_equal(sh.w, vm.w) and
+                np.array_equal(sh.times, vm.times),
+                f"sharded {name}: placement sharded != vmap")
+        print(f"sharded {name} run_batched R={R}, {T} steps: "
+              f"placement_devices {split}; w, trace and times == vmap bit "
+              f"for bit; {split * T} fused launches")
+        schedules[name] = (T, vm.schedules.masks)
+
+    # the split, the per-card launches and the gather over two shards of
+    # card 0, then over every card
+    prob = make_encoded_problem(spec.X, spec.y,
+                                FastHadamardEncoder(n, cfg.beta, seed=0), m,
+                                lam=spec.lam, device=dev)
+    layouts = [("2 shards on cuda:0", [dev, dev])]
+    if ndev > 1:
+        layouts.append((f"{ndev} cards",
+                        [torch.device("cuda", i) for i in range(ndev)]))
+    for label, devices in layouts:
+        RS = math.lcm(R, len(devices))
+        for name, (T, masks) in schedules.items():
+            kind = "prox" if name == "coded-prox" else "gd"
+            if RS != R:
+                masks = engine.sample_schedules(T, FastestK(k), RS).masks
+            masks = torch.as_tensor(masks, device=dev)
+            W0 = torch.zeros((RS, p), device=dev)
+            rkw = dict(h="l1" if kind == "prox" else "l2", eval_every=1,
+                       degrade=None)
+            batched = (runners.batched_scan_prox if kind == "prox"
+                       else runners.batched_scan_gd)
+            ws, ts = drive(f"{name} _sharded_run {label}",
+                           lambda: runners._sharded_run(
+                               devices, kind, prob, masks, step, W0, **rkw),
+                           {fused: len(devices) * T})
+            wi, ti = threaded_run(devices, prob, masks, step, W0,
+                                  kind=kind, **rkw)
+            wb, tb = batched(prob, masks, step, W0, eval_every=1)
+            require(torch.equal(ws, wb) and torch.equal(ts, tb),
+                    f"{name} {label}: sharded != batched")
+            require(torch.equal(wi, wb) and torch.equal(ti, tb),
+                    f"{name} {label}: threads != batched")
+            # one sample a design in turns (interleaved, threads,
+            # batched, batched, threads, interleaved), three rounds
+            runs = {"interleaved": lambda: runners._sharded_run(
+                        devices, kind, prob, masks, step, W0, **rkw),
+                    "threads": lambda: threaded_run(
+                        devices, prob, masks, step, W0, kind=kind, **rkw),
+                    "batched": lambda: batched(prob, masks, step, W0,
+                                               eval_every=1)}
+            got = {key: [] for key in runs}
+            order = list(runs) + list(runs)[::-1]
+            for _ in range(3):
+                for key in order:
+                    got[key] += [t / T for t in samples_ms(runs[key], 1)]
+            print(f"sharded {name} {label}, R={RS}, {T} steps: w and trace "
+                  f"== batched bit for bit (interleaved and threads); "
+                  f"{len(devices) * T} fused launches; a step: interleaved "
+                  f"(kept) {spread(got['interleaved'], 'ms')}, threads "
+                  f"{spread(got['threads'], 'ms')}, batched "
+                  f"{spread(got['batched'], 'ms')}  [{smi}]")
+    del prob
+    if ndev > 1:
+        RF = 32
+        T = get_workload("ridge").preset("paper").steps
+        split = runners.trials_device_count(RF)
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+        recs = {}
+        for placement in ("sharded", "vmap"):
+            argv = ["--workload", "ridge", "--preset", "paper",
+                    "--strategies", "coded,replication,uncoded", "--trials",
+                    str(RF), "--placement", placement, "--out",
+                    str(tmp / placement), "--formats", "json"]
+            got, _ = drive(f"fig7 {placement} R={RF}",
+                           lambda: quiet(workloads_main, argv),
+                           {"coded_combine": RF * T,
+                            fused: 2 * T * (split if placement == "sharded"
+                                            else 1)})
+            recs[placement] = {r["strategy"]: r for r in got}
+        shutil.rmtree(tmp, ignore_errors=True)
+        # the workload records keep no placement field: the fused launches
+        # (one a step on each card, for replication and uncoded) show the
+        # split; coded-lbfgs runs its realizations in turn on one card
+        for name, rec in recs["sharded"].items():
+            require(rec["metric"] == recs["vmap"][name]["metric"] and
+                    rec["times"] == recs["vmap"][name]["times"],
+                    f"fig7 sharded {name} != vmap")
+        print(f"fig7 sharded over {split} cards (R = {RF}): gaps and times "
+              f"== vmap bit for bit; {2 * T * split} fused launches")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s host "
+          f"clock  [{smi}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2358,6 +2541,8 @@ def main() -> int:
     serve_phase(smi)
     # the launchers: the coded training CLI, grad_specs, the dry run ----------
     launch_phase(smi, drive)
+    # the realization axis over cards (placement="sharded") ----------------
+    sharded_phase(cfg, step, smi, drive)
     print(f"launches by path: {json.dumps(by_path)}")
 
     # 5. times ---------------------------------------------------------------
@@ -2508,13 +2693,32 @@ def main() -> int:
             SX, Sy, Wr[q], mr[q], **fkw) for q in range(R)], 3)
         b_plain = time_ms(lambda: fused_masked_gradient_plain(
             SX, Sy, Wr, mr, **fkw), 3)
+
+        def two_products(Wr=Wr, mr=mr):
+            """cuBLAS's two products for the same (R, p): every worker's
+            rows times the R iterates, then (S X)^T times the residuals
+            weighted by each realization's decode weights."""
+            c = mr * (m / mr.sum(-1, keepdim=True).clamp_min(1.0)) / (
+                n * cfg.beta)
+            U = torch.matmul(SX.view(m * r, p), Wr.t()) - Sy.view(m * r, 1)
+            Cw = c.t().repeat_interleave(r, 0)            # (m r, R)
+            return torch.matmul(SX.view(m * r, p).t(), U * Cw).t()
+        b_err, b_rel = rel_err(two_products(), fused_masked_gradient(
+            SX, Sy, Wr, mr, **fkw))
+        require(b_rel <= 1e-4, f"fused R={R}: two products vs kernel rel "
+                               f"{b_rel:.2e}")
+        b_two = time_ms(two_products, 20)
         fu[f"batched_r{R}_ms"] = b_ms
         fu[f"batched_r{R}_bound_ms"] = b_bound
         fu[f"batched_r{R}_plain_ms"] = b_plain
         fu[f"batched_r{R}_library_ms"] = b_lib
+        fu[f"batched_r{R}_two_products_ms"] = b_two
         print(f"fused batched R={R}: {b_ms:.4f} ms, bound {b_bound:.4f} ms "
               f"({b_by}; {act} workers active in some realization); plain "
-              f"{b_plain:.4f} ms; library {b_lib:.4f} ms  [{smi}]")
+              f"{b_plain:.4f} ms; library {b_lib:.4f} ms (einsum oracle a "
+              f"realization); cuBLAS's two products (S X W^T, then "
+              f"(S X)^T (C * resid)) {b_two:.4f} ms, to the kernel rel "
+              f"{b_rel:.2e}  [{smi}]")
 
     # coded combine at the L-BFGS step's (m, p) (the gradient block it
     # combines was just written, so it is found in L2, as on the main

@@ -54,6 +54,13 @@ class EncodedProblem:
     def device(self) -> torch.device:
         return self.SX.device
 
+    def to(self, device) -> "EncodedProblem":
+        """The problem with S X, S y, X and y on ``device`` (tensors already
+        there are not copied) and the same scalars."""
+        return dataclasses.replace(
+            self, SX=self.SX.to(device), Sy=self.Sy.to(device),
+            X=self.X.to(device), y=self.y.to(device))
+
     @classmethod
     def from_numpy(cls, SX, Sy, X, y, *, lam: float, beta: float, n: int,
                    device=None,

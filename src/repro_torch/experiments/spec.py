@@ -14,8 +14,8 @@ frozen dataclass tree naming every axis of the paper's §5 protocol —
     objective record stride, master seed;
   * :class:`PlacementAxis`  — HOW the realization axis executes: one run
     per realization (``single``), one device loop over all of them
-    (``vmap``), or that loop spread over the devices (``sharded``; one
-    device in the port so far).
+    (``vmap``), or that loop spread over the visible cards
+    (``sharded``).
 
 Specs never execute anything themselves: ``plan(spec)`` compiles the axes
 into an explicit cell list and ``execute(plan)`` runs it (see
@@ -174,9 +174,9 @@ class PlacementAxis:
       non-batchable lowerings do regardless of placement);
     * ``'vmap'``    — all R realizations in ONE device loop on one device
       (the batched runners, DESIGN.md §9);
-    * ``'sharded'`` — R realizations spread over the local devices; the
-      port runs them on one device, the batched fallback, and records
-      the device count.
+    * ``'sharded'`` — R realizations spread over every visible card
+      where there are more than one and they divide R (else the batched
+      loop on one device); the record carries the device count.
 
     ``cell_batch=True`` (opt-in, ``mode='vmap'`` only) additionally stacks
     COMPATIBLE cells of the matrix — same problem, strategy, encoder

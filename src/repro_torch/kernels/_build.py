@@ -7,6 +7,8 @@ library is named by a hash of the sources and flags and lives in
 ``kernels/build/`` (ignored by git), so an unchanged tree builds once.  A
 failed build raises: nothing falls back to the plain PyTorch versions.
 
+``launch`` calls a C entry with its operands' card current and that card's
+current stream: the library's per-card caches key on ``cudaGetDevice``.
 ``launches`` counts, per kernel wrapper, the calls that launched a kernel
 on the card (never the plain CPU path); ``chip_smoke.py`` clears it before
 driving the main path and reads it after.  ``build_seconds`` and
@@ -26,7 +28,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["launches", "load_library", "library_path", "check", "stream_of",
+__all__ = ["launches", "launch", "load_library",
+           "library_path", "check", "stream_of", "operands_device",
            "build_seconds", "builds", "NVCC_FLAGS"]
 
 _HERE = Path(__file__).resolve().parent
@@ -177,12 +180,50 @@ def check(err: int, kernel: str) -> None:
                            f"(cudaError {err})")
 
 
-def stream_of(tensor) -> int:
-    """PyTorch's current stream on the tensor's device, as a raw handle
-    (read straight from the runtime where this build of PyTorch offers it,
-    without making a Stream object)."""
+def operands_device(*tensors):
+    """The one device the tensors lie on; tensors on two devices raise,
+    naming both (a launch copies nothing)."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"kernel operands on {dev} and {t.device}: a "
+                             f"launch takes the tensors of one card")
+    return dev
+
+
+def launch(kernel: str, entry, operands, *args) -> None:
+    """Call the C entry ``entry(*args, stream)`` with the operands' card
+    current, ``stream`` being that card's current stream, and raise if it
+    returns an error.
+
+    The library sizes its launches by the current card (``cudaGetDevice``:
+    SM count, shared-memory opt-in, resident blocks), and PyTorch's device
+    guards put the previous card back after every op: without the switch
+    here a tensor on ``cuda:1`` would launch into card 1's stream with
+    card 0's settings.  ``operands`` are every tensor the entry reads or
+    writes; on two cards they raise (``operands_device``).
+    """
     import torch
+    dev = operands_device(*operands)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    # one runtime call where the card is current already (the usual case)
+    prev = torch.cuda._exchange_device(index)
+    try:
+        check(entry(*args, stream_of(dev)), kernel)
+    finally:
+        if prev != index:
+            torch.cuda._exchange_device(prev)
+
+
+def stream_of(where) -> int:
+    """PyTorch's current stream on the card of ``where`` (a tensor or a
+    device; a CUDA device without an index is the current card), as a raw
+    handle (read straight from the runtime where this build of PyTorch
+    offers it, without making a Stream object)."""
+    import torch
+    dev = where if isinstance(where, torch.device) else where.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if raw is not None:
-        return raw(tensor.device.index)
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from ._build import check, launches, load_library, stream_of
+from ._build import launch, launches, load_library
 from .ref import coded_combine_ref
 
 __all__ = ["coded_combine_call", "coded_combine_ref",
@@ -65,8 +65,8 @@ def coded_combine_call(g: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if P:
         # a contiguous (m,) and (m, 1) hold the same m floats: the kernel
         # reads c through its pointer, so neither shape is copied
-        check(_entry()(g.data_ptr(), c.data_ptr(), out.data_ptr(), m, P,
-                       _DTYPES[g.dtype], stream_of(g)), "coded_combine")
+        launch("coded_combine", _entry(), (g, c, out), g.data_ptr(),
+               c.data_ptr(), out.data_ptr(), m, P, _DTYPES[g.dtype])
         launches["coded_combine"] += 1
     return out
 

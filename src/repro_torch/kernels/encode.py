@@ -37,7 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from ._build import check, launches, load_library, stream_of
+from ._build import launch, launches, load_library
 from .fwht import (MAX_CLUSTER, MAX_ONE_PASS, Plan, butterfly, cluster_split,
                    fwht_passes, strided_pass)
 
@@ -185,22 +185,22 @@ def srht_encode_call(xt: torch.Tensor, cols: torch.Tensor,
     if not p:
         return out
     plan = srht_plan(n, N, lo, hi)
-    lib, st = load_library(), stream_of(xt)
+    lib = load_library()
     if plan.route == "pruned":
-        check(lib.repro_srht_pruned(
-            xt.data_ptr(), smap.data_ptr(), out.data_ptr(), p, n, N, plan.rp,
-            plan.b, lo, hi, float(scale), st), "srht_encode")
+        launch("srht_encode", lib.repro_srht_pruned, (xt, smap, out),
+               xt.data_ptr(), smap.data_ptr(), out.data_ptr(), p, n, N,
+               plan.rp, plan.b, lo, hi, float(scale))
     elif plan.route == "one-pass":
         # a bulk copy needs 16-byte aligned rows: n % 4 == 0 (in the plan)
         # and an aligned base
         bulk = int(plan.stage and xt.data_ptr() % 16 == 0)
-        check(lib.repro_srht_onepass(
-            xt.data_ptr(), smap.data_ptr(), out.data_ptr(), p, n, N, lo, hi,
-            float(scale), bulk, st), "srht_encode")
+        launch("srht_encode", lib.repro_srht_onepass, (xt, smap, out),
+               xt.data_ptr(), smap.data_ptr(), out.data_ptr(), p, n, N, lo,
+               hi, float(scale), bulk)
     elif plan.route == "cluster":
-        check(lib.repro_srht_cluster(
-            xt.data_ptr(), cols.data_ptr(), signs.data_ptr(), out.data_ptr(),
-            p, n, N, plan.C, lo, hi, float(scale), st), "srht_encode")
+        launch("srht_encode", lib.repro_srht_cluster, (xt, cols, signs, out),
+               xt.data_ptr(), cols.data_ptr(), signs.data_ptr(),
+               out.data_ptr(), p, n, N, plan.C, lo, hi, float(scale))
     else:
         _multi_pass(xt, smap, out, N=N, lo=lo, hi=hi, scale=scale)
     launches["srht_encode"] += 1
@@ -223,9 +223,9 @@ def _multi_pass(xt, smap, out, *, N, lo, hi, scale) -> None:
     for c0 in range(0, p, rows):
         c1 = min(p, c0 + rows)
         w = work[:c1 - c0]
-        check(lib.repro_srht_segments(
-            xt[c0:c1].data_ptr(), smap.data_ptr(), w.data_ptr(), c1 - c0, n,
-            N, seg, stream_of(xt)), "srht_encode")
+        launch("srht_encode", lib.repro_srht_segments, (xt, smap, w),
+               xt[c0:c1].data_ptr(), smap.data_ptr(), w.data_ptr(), c1 - c0,
+               n, N, seg)
         for j, (L, S) in enumerate(later):
             last = j == len(later) - 1
             strided_pass(lib, w, out[c0:c1] if last else w, N, L, S,

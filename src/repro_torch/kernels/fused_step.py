@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.device import full_f32_matmul
 
-from ._build import check, launches, load_library, stream_of
+from ._build import launch, launches, load_library
 
 __all__ = ["fused_enabled", "fused_masked_gradient",
            "fused_masked_gradient_plain",
@@ -239,11 +239,11 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
         br = pick_fused_block_rows(r)
         scratch = torch.empty((R, m * (r // br), p), dtype=torch.float32,
                               device=w.device)
-        check(_entry()(
-            SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), R, m, r, p, br,
-            float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
-            "fused_masked_gradient")
+        launch("fused_masked_gradient", _entry(),
+               (SX, Sy, w, mask, scratch, out),
+               SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
+               scratch.data_ptr(), out.data_ptr(), R, m, r, p, br,
+               float(n * beta), _DTYPES[SX.dtype])
     else:
         bw = pick_wide_block_rows(r)
         scratch = torch.empty((R, m * (r // bw), p), dtype=torch.float32,
@@ -253,12 +253,14 @@ def fused_masked_gradient(SX: torch.Tensor, Sy: torch.Tensor,
         if wide_plan(p, SX.element_size()).route == "two-read":
             partial = torch.empty((R, m, r, -(-p // WIDE_CHUNK)),
                                   dtype=torch.float32, device=w.device)
-        check(load_library().repro_fused_masked_gradient_wide(
-            SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), R, m, r, p, bw,
-            float(n * beta), _DTYPES[SX.dtype], stream_of(SX)),
-            "fused_masked_gradient")
+        launch("fused_masked_gradient",
+               load_library().repro_fused_masked_gradient_wide,
+               (SX, Sy, w, mask, scratch, out) + (
+                   () if partial is None else (partial,)),
+               SX.data_ptr(), Sy.data_ptr(), w.data_ptr(), mask.data_ptr(),
+               None if partial is None else partial.data_ptr(),
+               scratch.data_ptr(), out.data_ptr(), R, m, r, p, bw,
+               float(n * beta), _DTYPES[SX.dtype])
     launches["fused_masked_gradient"] += 1
     return out
 

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ._build import check, launches, load_library, stream_of
+from ._build import launch, launches, load_library
 
 __all__ = ["fwht_kernel_call", "fwht_plain", "butterfly", "fwht_passes",
            "fwht_plan", "Plan", "MAX_ONE_PASS", "MAX_STRIDED", "MAX_CLUSTER",
@@ -121,9 +121,9 @@ def strided_pass(lib, src: torch.Tensor, dst: torch.Tensor, n: int, L: int,
     """Launch one strided pass (``csrc/fwht.cu`` fwht_strided) from the
     float32 rows of src (rows, n) into positions [lo, hi) of dst (rows,
     hi - lo), times scale; src and dst may be one tensor (lo = 0, hi = n)."""
-    check(lib.repro_fwht_strided(
-        src.data_ptr(), dst.data_ptr(), src.shape[0], n, L, S, lo, hi,
-        float(scale), 0, _DTYPES[dst.dtype], stream_of(src)), "fwht")
+    launch("fwht", lib.repro_fwht_strided, (src, dst), src.data_ptr(),
+           dst.data_ptr(), src.shape[0], n, L, S, lo, hi, float(scale), 0,
+           _DTYPES[dst.dtype])
 
 
 def fwht_kernel_call(x: torch.Tensor) -> torch.Tensor:
@@ -153,9 +153,8 @@ def fwht_kernel_call(x: torch.Tensor) -> torch.Tensor:
     plan = fwht_plan(n)
     if rows and plan.route == "cluster":
         dt = _DTYPES[x.dtype]
-        check(load_library().repro_fwht_cluster(
-            x.data_ptr(), out.data_ptr(), rows, n, plan.C, dt, dt,
-            stream_of(x)), "fwht")
+        launch("fwht", load_library().repro_fwht_cluster, (x, out),
+               x.data_ptr(), out.data_ptr(), rows, n, plan.C, dt, dt)
         launches["fwht"] += 1
     elif rows:
         lib = load_library()
@@ -165,9 +164,9 @@ def fwht_kernel_call(x: torch.Tensor) -> torch.Tensor:
         # scratch that the last pass reads and rounds into the output
         work = out if not later or dt == 0 else torch.empty(
             (rows, n), dtype=torch.float32, device=x.device)
-        check(lib.repro_fwht(x.data_ptr(), work.data_ptr(), rows * (n // seg),
-                             seg, dt, _DTYPES[work.dtype], stream_of(x)),
-              "fwht")
+        launch("fwht", lib.repro_fwht, (x, work), x.data_ptr(),
+               work.data_ptr(), rows * (n // seg), seg, dt,
+               _DTYPES[work.dtype])
         for j, (L, S) in enumerate(later):
             strided_pass(lib, work, out if j == len(later) - 1 else work, n,
                          L, S, 0, n, 1.0)

@@ -29,8 +29,21 @@ The BCD and async runners make plain products (``torch.einsum`` /
 kernel of the port is on their path.  Their batched forms run each
 realization's products on its own, one realization after the other within
 a step, so a realization never depends on the batch around it.
+
+The sharded runners split the realization axis over every visible card,
+as the reference's ``shard_map`` over a ``trials`` mesh axis does: each
+card runs the batched loop over its contiguous chunk of realizations on
+its own copy of the problem, with no collective, and the results are
+gathered back in order, so realization r equals the batched run's bit for
+bit.  The loops are generators that yield once a step (``_steps``,
+``_async_steps``), so one host thread enqueues every card's step in
+turn.  Each kernel launches with its operands' card current
+(``kernels/_build.launch``).
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -116,11 +129,12 @@ def _objectives(prob: EncodedProblem, W: torch.Tensor, h: str):
                         for q in range(W.shape[0])])
 
 
-def _run(prob: EncodedProblem, masks, step_size, w0, *, kind: str, h: str,
-         eval_every: int, degrade):
-    """The T-step loop over R realizations: masks (R, T, m), w0 (R, p).
-    Returns (W (R, p), trace (R, T // eval_every)) on the problem's
-    device."""
+def _steps(prob: EncodedProblem, masks, step_size, w0, *, kind: str,
+           h: str, eval_every: int, degrade):
+    """The T-step loop over R realizations as a generator: masks (R, T, m),
+    w0 (R, p).  It yields once a step, after the step's work is enqueued,
+    and returns (W (R, p), trace (R, T // eval_every)) on the problem's
+    device.  ``_run`` drains it; a sharded run drains one a card."""
     dev = prob.device
     masks = torch.as_tensor(masks, dtype=torch.float32, device=dev)
     W = torch.as_tensor(w0, dtype=torch.float32, device=dev)
@@ -156,7 +170,24 @@ def _run(prob: EncodedProblem, masks, step_size, w0, *, kind: str, h: str,
             W = prox_l1(W - step * g, thresh)
         if (t + 1) % eval_every == 0:
             trace[:, (t + 1) // eval_every - 1] = _objectives(prob, W, h_obj)
+        yield
     return W, trace
+
+
+def _drain(steps):
+    """Run a step generator to its end; its return value."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
+def _run(prob: EncodedProblem, masks, step_size, w0, *, kind: str, h: str,
+         eval_every: int, degrade):
+    """The T-step loop over R realizations (see ``_steps``)."""
+    return _drain(_steps(prob, masks, step_size, w0, kind=kind, h=h,
+                         eval_every=eval_every, degrade=degrade))
 
 
 def _single(kind: str, prob, masks, step_size, w0, **kw):
@@ -301,10 +332,10 @@ def batched_scan_bcd(prob: LiftedProblem, masks, step_size, v0,
 # Asynchronous stale-gradient SGD
 # ---------------------------------------------------------------------------
 
-@full_f32_matmul
-def _async_run(prob: EncodedProblem, workers, staleness, step_size, w0,
-               buffer_size: int, h: str, eval_every: int):
-    """One realization's event stream.  The ring buffer of the last
+def _async_steps(prob: EncodedProblem, workers, staleness, step_size, w0,
+                 buffer_size: int, h: str, eval_every: int):
+    """One realization's event stream as a generator that yields once an
+    update and returns (w, trace).  The ring buffer of the last
     ``buffer_size`` iterates lives on the device; update u reads slot
     (u - tau_u) mod B, the iterate worker i_u last read (head == u before
     update u).  Worker ids and staleness come from the host engine, so the
@@ -334,7 +365,16 @@ def _async_run(prob: EncodedProblem, workers, staleness, step_size, w0,
         if (u + 1) % eval_every == 0:
             trace[(u + 1) // eval_every - 1] = original_objective(prob, w,
                                                                   h=h)
+        yield
     return w, trace
+
+
+@full_f32_matmul
+def _async_run(prob: EncodedProblem, workers, staleness, step_size, w0,
+               buffer_size: int, h: str, eval_every: int):
+    """One realization's event stream (see ``_async_steps``)."""
+    return _drain(_async_steps(prob, workers, staleness, step_size, w0,
+                               buffer_size, h, eval_every))
 
 
 def scan_async(prob: EncodedProblem, workers, staleness, step_size, w0,
@@ -355,13 +395,24 @@ def scan_async(prob: EncodedProblem, workers, staleness, step_size, w0,
                         step_size, w0, buffer_size, h, eval_every)
 
 
-def _batched_async(prob, workers, staleness, step_size, w0, buffer_size, h,
-                   eval_every):
-    runs = [_async_run(prob, workers[q], staleness[q], step_size, w0[q],
-                       buffer_size, h, eval_every)
-            for q in range(len(workers))]
+def _batched_async_steps(prob, workers, staleness, step_size, w0,
+                         buffer_size, h, eval_every):
+    """The realizations' event streams one after the other, as one
+    generator (once an update)."""
+    runs = []
+    for q in range(len(workers)):
+        runs.append((yield from _async_steps(
+            prob, workers[q], staleness[q], step_size, w0[q], buffer_size, h,
+            eval_every)))
     return (torch.stack([w for w, _ in runs]),
             torch.stack([tr for _, tr in runs]))
+
+
+@full_f32_matmul
+def _batched_async(prob, workers, staleness, step_size, w0, buffer_size, h,
+                   eval_every):
+    return _drain(_batched_async_steps(prob, workers, staleness, step_size,
+                                       w0, buffer_size, h, eval_every))
 
 
 def batched_scan_async(prob: EncodedProblem, workers, staleness, step_size,
@@ -379,36 +430,131 @@ def batched_scan_async(prob: EncodedProblem, workers, staleness, step_size,
                         step_size, w0, buffer_size, h, eval_every)
 
 
-def trials_device_count(trials: int) -> int:
-    """Devices the realization axis is spread over.  The port runs every
-    realization on the problem's one device, so this is 1: the reference's
-    own answer on one device (spreading realizations over several cards is
-    not ported yet)."""
-    return 1
+# ---------------------------------------------------------------------------
+# The realization axis over cards (the reference's shard_map over a
+# 'trials' mesh axis): each card runs the batched loop over its contiguous
+# chunk of the R realizations on its own copy of the problem; no
+# collective, the results gathered back in order
+# ---------------------------------------------------------------------------
+
+def trials_device_count(trials: int, device=None) -> int:
+    """Cards the realization axis of ``trials`` realizations is spread
+    over: every visible card when there are more than one and they divide
+    R evenly, else 1 (the batched run on the problem's device), the
+    reference's rule.  A problem on the CPU (``device``; None is the card)
+    runs on its one device."""
+    if torch.device(device or "cuda").type != "cuda":
+        return 1
+    ndev = torch.cuda.device_count()
+    return ndev if ndev > 1 and trials % ndev == 0 else 1
+
+
+def _device_guard(device: torch.device):
+    """``device`` made current for the calling thread (a card), or
+    nothing (the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+@full_f32_matmul
+def _sharded_run(devices, kind: str, prob: EncodedProblem, *args, **kw):
+    """Realizations split over ``devices`` (entries may repeat): chunk j,
+    realizations [j R/ndev, (j+1) R/ndev), runs on ``devices[j]`` against
+    its own copy of the problem.  One host thread enqueues the chunks'
+    steps in turn, each with its device current: the step loop is paced by
+    the host's launch work, and a host thread a device, measured on an
+    H100, ran a step 2.3x slower than this (PERF.md, "sharded").  ``kind``
+    "gd" / "prox" takes ``_steps``'s (masks, step_size, w0) and keywords,
+    a (R,) step vector split with its chunk; "async"
+    ``_batched_async``'s (workers, staleness, step_size, w0, buffer_size,
+    h, eval_every), one update of each chunk in turn.  Returns (w, trace)
+    gathered onto the problem's device in realization order.  A chunk that
+    fails raises; none is run again elsewhere."""
+    devices = [torch.device(d) for d in devices]
+    ndev, R = len(devices), len(args[0])
+    if R % ndev:
+        raise ValueError(f"{R} realizations do not split evenly over "
+                         f"{ndev} devices")
+    c = R // ndev
+    if kind in ("gd", "prox"):
+        masks, step_size, w0 = args
+        args = (masks, _step_vector(step_size, R, prob.device), w0)
+        steps = functools.partial(_steps, kind=kind, **kw)
+        split = (True, True, True)
+    elif kind == "async":
+        steps = _batched_async_steps
+        split = (True, True, False, True, False, False, False)
+    else:
+        raise KeyError(f"unknown sharded runner kind '{kind}'")
+    copies = {d: prob.to(d) for d in set(devices)}
+    chunks = [steps(copies[d], *[a[j * c:(j + 1) * c] if cut else a
+                                 for a, cut in zip(args, split)])
+              for j, d in enumerate(devices)]
+    outs = [None] * ndev
+    live = list(range(ndev))
+    while live:
+        for j in list(live):
+            with _device_guard(devices[j]):
+                try:
+                    next(chunks[j])
+                except StopIteration as done:
+                    outs[j] = done.value
+                    live.remove(j)
+    return (torch.cat([w.to(prob.device) for w, _ in outs]),
+            torch.cat([tr.to(prob.device) for _, tr in outs]))
+
+
+def _visible_cards(ndev: int) -> list[torch.device]:
+    return [torch.device("cuda", i) for i in range(ndev)]
 
 
 def sharded_scan_gd(prob: EncodedProblem, masks, step_size, w0,
                     h: str = "l2", eval_every: int = 1, degrade=None):
-    """``batched_scan_gd`` with the realization axis placed over the
-    devices; returns (w, trace, ndev), ndev == 1 being the batched
-    fallback."""
-    w, tr = batched_scan_gd(prob, masks, step_size, w0, h=h,
-                            eval_every=eval_every, degrade=degrade)
-    return w, tr, trials_device_count(len(masks))
+    """``batched_scan_gd`` with the realization axis split over every
+    visible card (``trials_device_count``), the problem copied to each.
+    Returns (w, trace, ndev); ndev == 1 is the batched run.  Realization
+    r equals the batched run's realization r bit for bit."""
+    degrade = _degrade_tuple(degrade)
+    ndev = trials_device_count(len(masks), prob.device)
+    if ndev == 1:
+        w, tr = batched_scan_gd(prob, masks, step_size, w0, h=h,
+                                eval_every=eval_every, degrade=degrade)
+        return w, tr, 1
+    w, tr = _traced_call("runner:sharded_gd", _sharded_run,
+                         _visible_cards(ndev), "gd", prob, masks, step_size,
+                         w0, h=h, eval_every=eval_every, degrade=degrade)
+    return w, tr, ndev
 
 
 def sharded_scan_prox(prob: EncodedProblem, masks, step_size, w0,
                       eval_every: int = 1, degrade=None):
     """``batched_scan_prox`` placed like ``sharded_scan_gd``."""
-    w, tr = batched_scan_prox(prob, masks, step_size, w0,
-                              eval_every=eval_every, degrade=degrade)
-    return w, tr, trials_device_count(len(masks))
+    degrade = _degrade_tuple(degrade)
+    ndev = trials_device_count(len(masks), prob.device)
+    if ndev == 1:
+        w, tr = batched_scan_prox(prob, masks, step_size, w0,
+                                  eval_every=eval_every, degrade=degrade)
+        return w, tr, 1
+    w, tr = _traced_call("runner:sharded_prox", _sharded_run,
+                         _visible_cards(ndev), "prox", prob, masks,
+                         step_size, w0, h="l1", eval_every=eval_every,
+                         degrade=degrade)
+    return w, tr, ndev
 
 
 def sharded_scan_async(prob: EncodedProblem, workers, staleness, step_size,
                        w0, buffer_size: int, h: str = "l2",
                        eval_every: int = 1):
-    """``batched_scan_async`` placed like ``sharded_scan_gd``."""
-    w, tr = batched_scan_async(prob, workers, staleness, step_size, w0,
-                               buffer_size, h=h, eval_every=eval_every)
-    return w, tr, trials_device_count(len(workers))
+    """``batched_scan_async`` placed like ``sharded_scan_gd``: the event
+    streams split with their realizations."""
+    ndev = trials_device_count(len(workers), prob.device)
+    if ndev == 1:
+        w, tr = batched_scan_async(prob, workers, staleness, step_size, w0,
+                                   buffer_size, h=h, eval_every=eval_every)
+        return w, tr, 1
+    w, tr = _traced_call("runner:sharded_async", _sharded_run,
+                         _visible_cards(ndev), "async", prob, workers,
+                         staleness, step_size, w0, buffer_size, h,
+                         eval_every)
+    return w, tr, ndev

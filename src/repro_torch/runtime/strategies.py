@@ -393,7 +393,8 @@ class _SyncGradientStrategy(Strategy):
         """R realizations as ONE device loop: encode once, draw the
         (R, T, m) schedule stack, run the batched runner.
         ``placement='single'`` takes the sequential host loop instead;
-        ``'sharded'`` records the device count the realizations ran on."""
+        ``'sharded'`` spreads the realizations over the visible cards
+        (``runners.sharded_scan_gd``) and records their count."""
         if placement == "single":
             return Strategy.run_batched(self, spec, engine, steps=steps,
                                         trials=trials, eval_every=eval_every,

@@ -41,6 +41,11 @@ serve path (every architecture's smoke variant: prefill and decode on the
 card against the CPU, logits and caches to rel 1e-4, TF32 off) launches
 no kernel of the port; the coded step through the MoE dispatch launches
 one combine and matches the CPU's loss and gradient norm to rel 1e-4.
+With two cards or more (the ``two_cards`` fixture skips below two): each
+kernel launched with its operands on the last card while card 0 is
+current equals the same call on card 0 bit for bit, operands on two
+cards raise before any launch, and the sharded runners split the
+realization axis over every card, bit for bit the batched run.
 """
 import numpy as np
 import pytest
@@ -1065,3 +1070,102 @@ def test_coded_step_over_moe_on_card_matches_cpu(cuda):
     mc, mh = out["cuda"][1], out["cpu"][1]
     _close(mc["loss"].cpu(), mh["loss"], 1e-4)
     _close(mc["grad_norm"].cpu(), mh["grad_norm"], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# More than one card: each kernel launches on its operands' card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def two_cards():
+    """Card 0 and the last card; skips below two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda", 0), torch.device(
+        "cuda", torch.cuda.device_count() - 1)
+
+
+def _kernel_case(name):
+    """(call, host operands) of one kernel at a shape that reaches its
+    per-card launch settings (SM count, shared-memory opt-in, cluster
+    occupancy)."""
+    g = torch.Generator().manual_seed(0)
+    if name.startswith("fused"):
+        m, r, p = (8, 64, 6000) if name == "fused" else (8, 32, 100_000)
+        masks = (torch.rand((4, m), generator=g) < 0.75).float()
+        return (lambda SX, Sy, W, mk: fused_masked_gradient(
+            SX, Sy, W, mk, n=m * r, beta=2.0),
+            [torch.randn((m, r, p), generator=g),
+             torch.randn((m, r), generator=g),
+             torch.randn((4, p), generator=g) * 0.01, masks])
+    if name.startswith("fwht"):
+        n = 8192 if name == "fwht" else 65536
+        return fwht_kernel_call, [torch.randn((6, n), generator=g)]
+    if name.startswith("srht"):
+        n, N, lo, hi = ((4000, 8192, 1280, 1536) if name == "srht"
+                        else (40000, 65536, 0, 65536))
+        cols = torch.randperm(N, generator=g)[:n].sort().values.int()
+        signs = torch.randint(0, 2, (n,), generator=g).float() * 2 - 1
+        return (lambda xt, c, s: srht_encode_call(
+            xt, c, s, N=N, lo=lo, hi=hi, scale=n ** -0.5),
+            [torch.randn((5, n), generator=g), cols, signs])
+    return coded_combine_call, [torch.randn((32, 6000), generator=g),
+                                torch.rand(32, generator=g)]
+
+
+KERNEL_CASES = ["fused", "fused_wide", "fwht", "fwht_cluster", "srht",
+                "srht_cluster", "combine"]
+
+
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_kernel_on_the_last_card_equals_card_zero(two_cards, name):
+    """Operands on the last card while card 0 is current: the result
+    equals the same call on card 0 bit for bit, and card 0 stays current."""
+    first, last = two_cards
+    call, host = _kernel_case(name)
+    outs = []
+    for dev in (first, last):
+        with torch.cuda.device(first):
+            out = call(*[t.to(dev) for t in host])
+            assert torch.cuda.current_device() == 0
+        assert out.device == dev
+        torch.cuda.synchronize(dev)
+        outs.append(out.cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("name", ["fused", "srht", "combine"])
+def test_kernel_operands_on_two_cards_raise(two_cards, name):
+    first, last = two_cards
+    call, host = _kernel_case(name)
+    ops = [t.to(first) for t in host]
+    ops[-1] = ops[-1].to(last)
+    before = dict(launches)
+    with pytest.raises(ValueError, match="on cuda"):
+        call(*ops)
+    assert dict(launches) == before
+
+
+def test_sharded_runners_split_over_every_card(two_cards):
+    """The realization axis over every visible card: equal to the batched
+    run bit for bit, ``placement_devices`` the card count."""
+    from repro_torch.runtime import runners
+    first, _ = two_cards
+    ndev = torch.cuda.device_count()
+    g = torch.Generator().manual_seed(1)
+    m, r, p, n, R = 8, 64, 600, 512, 2 * ndev
+    prob = EncodedProblem(SX=torch.randn((m, r, p), generator=g),
+                          Sy=torch.randn((m, r), generator=g),
+                          X=torch.randn((n, p), generator=g),
+                          y=torch.randn(n, generator=g), lam=0.05, beta=1.0,
+                          n=n).to(first)
+    masks = (torch.rand((R, 10, m), generator=g) < 0.75).float()
+    w0 = torch.zeros((R, p), device=first)
+    assert runners.trials_device_count(R, first) == ndev
+    before = launches["fused_masked_gradient"]
+    w, tr, got = runners.sharded_scan_gd(prob, masks, 1e-3, w0)
+    torch.cuda.synchronize()
+    assert got == ndev and w.device == first
+    assert launches["fused_masked_gradient"] == before + 10 * ndev
+    wb, tb = runners.batched_scan_gd(prob, masks, 1e-3, w0)
+    assert torch.equal(w, wb) and torch.equal(tr, tb)
