@@ -5,6 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(``--phase sharded`` runs the device probe, the build and the sharded
+phase alone: on a host with several cards, the split over all of them.)
+
 Phases, each of which ends the run with a non-zero exit on failure:
 
 1. device  - probe CUDA (exit 2 without a card), print the card's name and
@@ -39,15 +42,30 @@ Phases, each of which ends the run with a non-zero exit on failure:
              encoder, coded-prox on the l1 problem, one encode, decode_t and
              one aligned worker block; then the paper's own algorithm for
              this configuration, coded-lbfgs ``run`` (50 steps, memory 10)
-             and ``run_batched(trials=2)``, one coded-bcd run on the lifted
-             (feature-encoded) problem and one async run.  Launch counts
-             are cleared just before each of these paths and read just
-             after, and each path must launch exactly its own kernels (one
-             fused launch a GD / ISTA step, one combine an L-BFGS step, none
-             for async); the objectives must be finite and fall, and the
+             and ``run_batched(trials=2)``, one coded-bcd run (60 steps) on
+             the lifted (feature-encoded) problem and one async run.  The
+             GD, ISTA and BCD runs capture their step loop into a CUDA
+             graph and replay it block by block (``runtime.runners``).
+             Launch counts are cleared just before each of these paths and
+             read just after, and each path must launch exactly its own
+             kernels (one fused launch a GD / ISTA step, one combine an
+             L-BFGS step, none for async); the objectives must be finite and fall, and the
              card's coded-gd trace and the first 20 steps of its coded-lbfgs
              trace must match the port's own CPU run on the same encoded
              problem and masks;
+   graph   - the step loops captured against the same runs uncaptured
+             (``runners._run`` / ``_scan_bcd`` / ``_batched_bcd`` with
+             ``capture=False``) at PAPER_RIDGE: coded-gd R = 1 (100 steps,
+             and its schedule five times over, 500), R = 4 with eval_every
+             10, coded-prox (50), GD under hold-mode
+             ``degrade`` (every third step short of k), coded-bcd single
+             and batched (R = 4, eval_every 5; 60 steps): iterates and
+             traces bit for bit, equal launch counts, one capture a
+             captured run and none uncaptured; the capture's host time; a
+             step's time of each (CUDA events, in turns, every sample) and
+             the device's idle share of each (profiler); coded-gd R = 1's
+             captured step at blocks of 5, 10 (the runners' length) and
+             20 steps, in turns;
    workloads - the paper's §5 workload zoo through ``get_workload(name)``:
              ridge at its published size (the ``paper`` preset, Fig. 7's
              three arms: ``run_trials("coded", trials=2, eval_every=10,
@@ -143,7 +161,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
              calls (the masked residual of every worker's rows, then
              (S X)^T times it), held to the kernel's output (rel 1e-4),
              with its route, the bytes it reads (each active row once)
-             and the rate it reached;
+             and the rate it reached; 40 ISTA steps at the path's shape
+             captured (block 1 of 10 steps captured and replayed, the
+             cluster launches inside the graph) equal to the same steps
+             uncaptured bit for bit, with equal launches;
    serve   - the model zoo's serve path (``repro_torch.models``' prefill
              and decode_step, ``repro_torch.serve``), which runs no kernel
              of the port: the launch counters are cleared before the
@@ -206,9 +227,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
              ``runners._sharded_run`` over two shards of card 0 (and over
              every card where there are more than one), w and traces bit
              for bit equal to the batched run, one fused launch a step on
-             each shard; a step's time of the two dispatch designs (one
-             thread enqueuing the shards' steps in turn, the one kept; a
-             host thread a shard) beside the batched run's, in turns;
+             each shard, each shard capturing its own graph; a step's time
+             of the shards (a replay a shard every block, one host thread)
+             beside the batched run's, each captured and uncaptured, in
+             turns;
              with more than one card also Fig. 7 at R = 32 through
              ``workloads.run --placement sharded``, equal to the vmap run
              bit for bit;
@@ -222,11 +244,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
              device time and,
              beside torch.matmul(c, g), by CUDA graph replay, and at
              (32, 4194304), the coded-SGD flat gradient's width); step
-             times (CUDA events around a 100-step GD loop, a 50-step L-BFGS
-             loop, the 20-step BCD loop and the 320-update async loop, five
-             repetitions after a warm-up, every sample printed) and encode
-             times (host clock, three repetitions); the profiler's
-             breakdown of each step; peak device memory.
+             times (CUDA events around a 100-step GD loop and the 60-step
+             BCD loop, both captured as users run them, a 50-step L-BFGS
+             loop and the 320-update async loop, five repetitions after a
+             warm-up, every sample printed) and encode times (host clock,
+             three repetitions); the profiler's breakdown of each run;
+             peak device memory.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -234,6 +257,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -1241,10 +1265,11 @@ def wide_phase(smi: str, drive, table: dict) -> None:
                                                 fused_masked_gradient,
                                                 fused_masked_gradient_plain,
                                                 fused_wide_scratch_bytes)
+    from repro_torch.kernels import _build
     from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
     from repro_torch.kernels.ref import fused_masked_gradient_ref
     from repro_torch.runtime import (FastestK, ProblemSpec, get_strategy,
-                                     scan_prox)
+                                     runners, scan_prox)
     from repro_torch.workloads import get_workload
 
     fused, srht, fwht, comb = ("fused_masked_gradient", "srht_encode",
@@ -1387,6 +1412,33 @@ def wide_phase(smi: str, drive, table: dict) -> None:
     require(not any("wide_residual" in k or "wide_gradient" in k
                     for k in names),
             "wide coded-prox profile: the two-read form ran")
+    # 40 ISTA steps at the path's shape: block 1 (steps 10-19) captured,
+    # the cluster launches inside the graph, and replayed; bit for bit the
+    # same steps uncaptured, with the same launches
+    masks40 = engine.sample_schedule(40, FastestK(k)).masks[None]
+    w0 = torch.zeros((1, p), device=dev)
+    got = {}
+    for cap in (True, False):
+        n0 = _build.captures
+        t0 = time.perf_counter()
+        label = "captured" if cap else "uncaptured"
+        got[cap] = (drive(f"wide 40 ISTA steps {label}",
+                          lambda: runners._run(prob, masks40, step, w0,
+                                               kind="prox", h="l1",
+                                               eval_every=1, degrade=None,
+                                               capture=cap),
+                          {fused: 40}),
+                    _build.captures - n0, time.perf_counter() - t0)
+    (wc, tc), nc, sc = got[True]
+    (we, te), ne, se = got[False]
+    require((nc, ne) == (1, 0), f"wide ISTA: {nc} / {ne} captures")
+    require(torch.equal(wc, we) and torch.equal(tc, te),
+            "wide ISTA: the captured block != the uncaptured steps")
+    print(f"graph wide ISTA ({m}, {r}, {p}), 40 steps, "
+          f"{route_of('fused', p=p, itemsize=4)}: captured == uncaptured "
+          f"bit for bit (iterate and trace), 40 fused launches each; host "
+          f"clock {sc:.3f} s captured, {se:.3f} s uncaptured  [{smi}]")
+    del wc, tc, we, te
     SX, Sy = prob.SX, prob.Sy
     del prob, spec, X, y
 
@@ -2027,32 +2079,6 @@ def launch_phase(smi: str, drive) -> None:
           f"  [{smi}]")
 
 
-def threaded_run(devices, prob, masks, step, W0, **kw):
-    """The dispatch design ``_sharded_run`` does not take, timed beside it:
-    a host thread a shard, each running its own step loop
-    (``runners._run``) with its card current."""
-    import threading
-    import torch
-    from repro_torch.runtime import runners
-    c = len(masks) // len(devices)
-    outs = [None] * len(devices)
-
-    def shard(j):
-        with torch.cuda.device(devices[j]):
-            outs[j] = runners._run(prob.to(devices[j]),
-                                   masks[j * c:(j + 1) * c], step,
-                                   W0[j * c:(j + 1) * c], **kw)
-
-    threads = [threading.Thread(target=shard, args=(j,))
-               for j in range(len(devices))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    return (torch.cat([w.to(prob.device) for w, _ in outs]),
-            torch.cat([tr.to(prob.device) for _, tr in outs]))
-
-
 def sharded_phase(cfg, step: float, smi: str, drive) -> None:
     """The realization axis over cards at PAPER_RIDGE's width, R = 8:
     ``run_batched(placement="sharded")`` for coded-gd (100 steps) and
@@ -2063,6 +2089,7 @@ def sharded_phase(cfg, step: float, smi: str, drive) -> None:
     import torch
     from repro_torch.core import (FastHadamardEncoder, bimodal_delays,
                                   make_encoded_problem)
+    from repro_torch.kernels import _build
     from repro_torch.runtime import (ClusterEngine, FastestK, ProblemSpec,
                                      get_strategy, runners)
     from repro_torch.workloads import get_workload
@@ -2126,36 +2153,40 @@ def sharded_phase(cfg, step: float, smi: str, drive) -> None:
                        degrade=None)
             batched = (runners.batched_scan_prox if kind == "prox"
                        else runners.batched_scan_gd)
+            n0 = _build.captures
             ws, ts = drive(f"{name} _sharded_run {label}",
                            lambda: runners._sharded_run(
                                devices, kind, prob, masks, step, W0, **rkw),
                            {fused: len(devices) * T})
-            wi, ti = threaded_run(devices, prob, masks, step, W0,
-                                  kind=kind, **rkw)
+            require(_build.captures - n0 == len(devices),
+                    f"{name} {label}: {_build.captures - n0} captures for "
+                    f"{len(devices)} shards")
             wb, tb = batched(prob, masks, step, W0, eval_every=1)
             require(torch.equal(ws, wb) and torch.equal(ts, tb),
                     f"{name} {label}: sharded != batched")
-            require(torch.equal(wi, wb) and torch.equal(ti, tb),
-                    f"{name} {label}: threads != batched")
-            # one sample a design in turns (interleaved, threads,
-            # batched, batched, threads, interleaved), three rounds
-            runs = {"interleaved": lambda: runners._sharded_run(
+            # one sample a design in turns (each design, then the same in
+            # reverse), three rounds; captured as users run them, and
+            # uncaptured (every op of every step enqueued from the host)
+            runs = {"sharded": lambda: runners._sharded_run(
                         devices, kind, prob, masks, step, W0, **rkw),
-                    "threads": lambda: threaded_run(
-                        devices, prob, masks, step, W0, kind=kind, **rkw),
-                    "batched": lambda: batched(prob, masks, step, W0,
-                                               eval_every=1)}
+                    "batched": lambda: runners._run(
+                        prob, masks, step, W0, kind=kind, **rkw),
+                    "sharded uncaptured": lambda: runners._sharded_run(
+                        devices, kind, prob, masks, step, W0, capture=False,
+                        **rkw),
+                    "batched uncaptured": lambda: runners._run(
+                        prob, masks, step, W0, kind=kind, capture=False,
+                        **rkw)}
             got = {key: [] for key in runs}
             order = list(runs) + list(runs)[::-1]
             for _ in range(3):
                 for key in order:
                     got[key] += [t / T for t in samples_ms(runs[key], 1)]
             print(f"sharded {name} {label}, R={RS}, {T} steps: w and trace "
-                  f"== batched bit for bit (interleaved and threads); "
-                  f"{len(devices) * T} fused launches; a step: interleaved "
-                  f"(kept) {spread(got['interleaved'], 'ms')}, threads "
-                  f"{spread(got['threads'], 'ms')}, batched "
-                  f"{spread(got['batched'], 'ms')}  [{smi}]")
+                  f"== batched bit for bit; {len(devices) * T} fused "
+                  f"launches, a graph a shard; a step: "
+                  + "; ".join(f"{key} {spread(got[key], 'ms')}"
+                              for key in runs) + f"  [{smi}]")
     del prob
     if ndev > 1:
         RF = 32
@@ -2188,7 +2219,138 @@ def sharded_phase(cfg, step: float, smi: str, drive) -> None:
           f"clock  [{smi}]")
 
 
-def main() -> int:
+def graph_check(prob, lifted, masks: dict, step: float, bcd_step: float,
+                k: int, smi: str) -> None:
+    """The step loops captured against the same runs uncaptured at
+    PAPER_RIDGE (module docstring, phase "graph"): ``prob`` the encoded
+    problem, ``lifted`` the feature-encoded one, ``masks`` the schedules
+    ("run" (100, m), "batched" (4, 100, m), "prox" (50, m), "bcd"
+    (60, m), "bcd batched" (4, 60, m))."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import runners
+    dev = prob.device
+    p, b = prob.SX.shape[-1], lifted.XS.shape[-1]
+    m = prob.m
+    hold = np.array(masks["run"], copy=True)
+    hold[::3, :8] = 0.0                 # every third step short of k
+    cases = []
+    for label, kind, mk, ev, degrade in (
+            ("coded-gd R=1", "gd", masks["run"][None], 1, None),
+            ("coded-gd R=1, the schedule 5 times", "gd",
+             np.tile(masks["run"], (5, 1))[None], 1, None),
+            ("coded-gd R=4 eval_every=10", "gd", masks["batched"], 10, None),
+            ("coded-prox R=1", "prox", masks["prox"][None], 1, None),
+            ("coded-gd R=1 degrade hold", "gd", hold[None], 1,
+             ("hold", k, 0.5))):
+        mk = torch.as_tensor(mk, device=dev)
+        w0 = torch.zeros((mk.shape[0], p), device=dev)
+        cases.append((label, mk.shape[1], functools.partial(
+            runners._run, prob, mk, step, w0, kind=kind,
+            h="l1" if kind == "prox" else "l2", eval_every=ev,
+            degrade=degrade)))
+    mb = torch.as_tensor(masks["bcd"], device=dev)
+    mbb = torch.as_tensor(masks["bcd batched"], device=dev)
+    cases.append(("coded-bcd", mb.shape[0], functools.partial(
+        runners._scan_bcd, lifted, mb, bcd_step,
+        torch.zeros((m, b), device=dev))))
+    cases.append(("coded-bcd R=4 eval_every=5", mbb.shape[1],
+                  functools.partial(runners._batched_bcd, lifted, mbb,
+                                    bcd_step,
+                                    torch.zeros((4, m, b), device=dev), 5)))
+    for label, T, run in cases:
+        out = {}
+        for cap in (True, False):
+            before, n0 = dict(_build.launches), _build.captures
+            s0 = _build.capture_seconds
+            res = run(capture=cap)
+            torch.cuda.synchronize()
+            counted = {kn: v - before.get(kn, 0)
+                       for kn, v in _build.launches.items()
+                       if v != before.get(kn, 0)}
+            out[cap] = (res, counted, _build.captures - n0,
+                        _build.capture_seconds - s0)
+        (xc, tc), lc, nc, cap_s = out[True]
+        (xe, te), le, ne, _ = out[False]
+        require((nc, ne) == (1, 0), f"graph {label}: {nc} / {ne} captures")
+        require(torch.equal(xc, xe) and torch.equal(tc, te),
+                f"graph {label}: captured != uncaptured")
+        require(lc == le, f"graph {label}: launches {lc} captured, {le} "
+                          f"uncaptured")
+        # a sample each in turns (captured, uncaptured, uncaptured,
+        # captured), three rounds; then one profiled run each
+        got = {True: [], False: []}
+        for _ in range(3):
+            for cap in (True, False, False, True):
+                got[cap] += [t / T for t in samples_ms(
+                    lambda: run(capture=cap), 1)]
+        idle = {cap: 1.0 - device_share(lambda: run(capture=cap))
+                for cap in (True, False)}
+        print(f"graph {label}, {T} steps: captured == uncaptured bit for "
+              f"bit, launches {lc} each, one capture ({cap_s * 1e3:.2f} ms "
+              f"of host time); a step captured {spread(got[True], 'ms')}, "
+              f"idle share {idle[True]:.2f}; uncaptured "
+              f"{spread(got[False], 'ms')}, idle share {idle[False]:.2f}"
+              f"  [{smi}]")
+    # the block length the runners take (10 steps) beside 5 and 20, for
+    # coded-gd R = 1 at 100 and 500 steps, in turns, two rounds
+    block_steps = runners._BLOCK_STEPS
+    try:
+        for label, T, run in (cases[0], cases[1]):
+            got = {}
+            for _ in range(2):
+                for c in (5, 10, 20, 20, 10, 5):
+                    runners._BLOCK_STEPS = c
+                    got.setdefault(c, []).extend(
+                        t / T for t in samples_ms(run, 1))
+            print(f"graph {label}, {T} steps, captured, a step by block "
+                  f"length: " + "; ".join(f"{c} steps {spread(v, 'ms')}"
+                                          for c, v in got.items())
+                  + f"  [{smi}]")
+    finally:
+        runners._BLOCK_STEPS = block_steps
+
+
+def make_drive(counts: dict, by_path: dict):
+    """``drive(label, fn, expect)``: run one main-path entry with the launch
+    counts cleared just before and read just after; it must launch exactly
+    ``expect``.  Each path's launches are kept in ``by_path`` and summed in
+    ``counts``."""
+    import torch
+    from repro_torch.kernels import _build
+
+    def drive(label, fn, expect):
+        _build.launches.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {kn: v for kn, v in _build.launches.items() if v}
+        require(got == expect, f"{label}: launches {got} != {expect}")
+        by_path[label] = got
+        for kn, v in got.items():
+            counts[kn] = counts.get(kn, 0) + v
+        return out
+    return drive
+
+
+def ridge_step(spec, n: int, dev) -> tuple[float, float]:
+    """(L, step): the reference's step rule 1 / (1.3 L + lam), L = max
+    eig(X^T X / n), with the eigenvalues taken on the card in float64."""
+    import torch
+    Xd = torch.as_tensor(spec.X, dtype=torch.float64, device=dev)
+    L = float(torch.linalg.eigvalsh(Xd.T @ Xd / n).max())
+    return L, 1.0 / (1.3 * L + spec.lam)
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one card "
+                                 "(module docstring).")
+    ap.add_argument("--phase", choices=("all", "sharded"), default="all",
+                    help="'sharded': the build and the sharded phase alone "
+                    "(on a host with several cards, the split over all of "
+                    "them); default: every phase")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -2246,6 +2408,19 @@ def main() -> int:
         print(f"ptxas: {len(regs)} kernel instantiations, at most "
               f"{max(regs, default=0)} registers a thread, {spills} bytes "
               f"of spills")
+
+    counts: dict[str, int] = {}
+    by_path: dict[str, dict[str, int]] = {}
+    drive = make_drive(counts, by_path)
+    if args.phase == "sharded":
+        spec = ProblemSpec.synthetic(cfg.n, cfg.p, noise=0.5, lam=cfg.lam,
+                                     seed=0)
+        sharded_phase(cfg, ridge_step(spec, cfg.n, dev)[1], smi, drive)
+        print(f"launches by path: {json.dumps(by_path)}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     gen = torch.Generator(device=dev).manual_seed(0)
     n, p, m = cfg.n, cfg.p, cfg.m
@@ -2400,12 +2575,7 @@ def main() -> int:
 
     # 4. main path -----------------------------------------------------------
     spec = ProblemSpec.synthetic(n, p, noise=0.5, lam=cfg.lam, seed=0)
-    # the reference's step rule 1 / (1.3 L + lam), L = max eig(X^T X / n),
-    # with the eigenvalues taken on the card in float64
-    Xd = torch.as_tensor(spec.X, dtype=torch.float64, device=dev)
-    L = float(torch.linalg.eigvalsh(Xd.T @ Xd / n).max())
-    del Xd
-    step = 1.0 / (1.3 * L + spec.lam)
+    L, step = ridge_step(spec, n, dev)
     engine = ClusterEngine(bimodal_delays(), m, seed=0)
     steps, trials, prox_steps = 100, 4, 50
     run_kw = dict(policy=FastestK(k), encoder="fast-hadamard",
@@ -2415,22 +2585,6 @@ def main() -> int:
                          dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-
-    counts: dict[str, int] = {}
-    by_path: dict[str, dict[str, int]] = {}
-
-    def drive(label, fn, expect):
-        """Run one main-path entry with the launch counts cleared just
-        before and read just after; it must launch exactly ``expect``."""
-        _build.launches.clear()
-        out = fn()
-        torch.cuda.synchronize()
-        got = {kn: v for kn, v in _build.launches.items() if v}
-        require(got == expect, f"{label}: launches {got} != {expect}")
-        by_path[label] = got
-        for kn, v in got.items():
-            counts[kn] = counts.get(kn, 0) + v
-        return out
 
     fused, srht, fwht = "fused_masked_gradient", "srht_encode", "fwht"
     t0 = time.perf_counter()
@@ -2451,7 +2605,7 @@ def main() -> int:
     # coded BCD on the feature-encoded (lifted) problem and the async
     # baseline, on the same data
     comb = "coded_combine"
-    lb_steps, lb_trials, bcd_steps, async_steps = 50, 2, 20, 10
+    lb_steps, lb_trials, bcd_steps, async_steps = 50, 2, 60, 10
     lb_kw = dict(policy=FastestK(k), encoder="fast-hadamard", memory=10)
     lb = drive("coded-lbfgs run", lambda: get_strategy("coded-lbfgs").run(
         spec, engine, steps=lb_steps, **lb_kw), {comb: lb_steps, srht: 1})
@@ -2529,6 +2683,20 @@ def main() -> int:
     print(f"coded-lbfgs card trace vs the port's CPU run ({lb_cmp} steps): "
           f"max rel diff {lb_rel:.2e} (tol 1e-3)")
 
+    # the step loops captured against the same runs uncaptured ---------------
+    # coded-bcd on the problem its strategy built (the same encoder and
+    # seed, rebuilt here), with its run's masks
+    lifted = make_lifted_problem(spec.X, FastHadamardEncoder(p, cfg.beta,
+                                                             seed=0), m,
+                                 *phi_quadratic(spec.y, device=dev),
+                                 device=dev)
+    graph_check(prob, lifted, {
+        "run": res.schedule.masks, "batched": bat.schedules.masks,
+        "prox": prox.schedule.masks, "bcd": bcd.schedule.masks,
+        "bcd batched": engine.sample_schedules(bcd_steps, FastestK(k),
+                                               4).masks},
+        step, bcd.meta["step_size"], k, smi)
+
     # the workloads ------------------------------------------------------
     workloads_phase(dev, smi, drive)
     # the experiment harness and its CLIs ---------------------------------
@@ -2564,16 +2732,17 @@ def main() -> int:
                              lam=spec.lam, device=dev)
         torch.cuda.synchronize()
         encode_s.append(time.perf_counter() - t0)
-    print(f"step R=1 (objective every step): {spread(step1, 'ms')}  [{smi}]")
-    print(f"step R=4 (objective every 10 steps): {spread(step4, 'ms')}  "
+    print(f"step R=1 captured (objective every step): {spread(step1, 'ms')}  "
           f"[{smi}]")
+    print(f"step R=4 captured (objective every 10 steps): "
+          f"{spread(step4, 'ms')}  [{smi}]")
     print(f"encode (make_encoded_problem, host prep included, host clock): "
           f"{spread(encode_s, 's')}  [{smi}]")
-    device_breakdown(lambda: scan_gd(prob, masks_run[:20], step, w0),
-                     "20 steps R=1")
+    device_breakdown(lambda: scan_gd(prob, masks_run, step, w0),
+                     f"{steps} steps R=1 captured")
     device_breakdown(lambda: batched_scan_gd(
-        prob, masks_bat[:, :20], step, w0[None].repeat(trials, 1),
-        eval_every=10), "20 steps R=4")
+        prob, masks_bat, step, w0[None].repeat(trials, 1), eval_every=10),
+        f"{steps} steps R=4 captured")
     masks_lb = lb.schedule.masks
     step_lb = [t / lb_steps for t in samples_ms(
         lambda: run_encoded_lbfgs(prob, masks_lb, memory=10), 5)]
@@ -2582,20 +2751,17 @@ def main() -> int:
     device_breakdown(lambda: run_encoded_lbfgs(prob, masks_lb[:20],
                                                memory=10),
                      "20 coded-lbfgs steps")
-    # coded-bcd and async on the problems their strategies built (the same
-    # encoders and seeds, rebuilt here), with their runs' masks and events
-    lifted = make_lifted_problem(spec.X, FastHadamardEncoder(p, cfg.beta,
-                                                             seed=0), m,
-                                 *phi_quadratic(spec.y, device=dev),
-                                 device=dev)
+    # coded-bcd (the lifted problem of the graph check) and async on the
+    # problems their strategies built, with their runs' masks and events
     v0 = torch.zeros((m, lifted.XS.shape[-1]), device=dev)
     masks_bcd = bcd.schedule.masks
     step_bcd = [t / bcd_steps for t in samples_ms(
         lambda: scan_bcd(lifted, masks_bcd, bcd.meta["step_size"], v0), 5)]
-    print(f"coded-bcd step (objective every step): "
+    print(f"coded-bcd step captured (objective every step): "
           f"{spread(step_bcd, 'ms')}  [{smi}]")
     device_breakdown(lambda: scan_bcd(lifted, masks_bcd, bcd.meta["step_size"],
-                                      v0), f"{bcd_steps} coded-bcd steps")
+                                      v0),
+                     f"{bcd_steps} coded-bcd steps captured")
     del lifted
     aprob = make_encoded_problem(spec.X, spec.y,
                                  make_encoder("uncoded", n, beta=1.0), m,

@@ -11,9 +11,12 @@ failed build raises: nothing falls back to the plain PyTorch versions.
 current stream: the library's per-card caches key on ``cudaGetDevice``.
 ``launches`` counts, per kernel wrapper, the calls that launched a kernel
 on the card (never the plain CPU path); ``chip_smoke.py`` clears it before
-driving the main path and reads it after.  ``build_seconds`` and
-``builds`` add up the library's loads (``obs.timing.CompileWatch`` reads
-their difference across a region to split build time from run time).
+driving the main path and reads it after.  A runner's CUDA graph capture
+takes its counts back and each replay adds them (``runtime.runners``).
+``build_seconds`` and ``builds`` add up the library's loads, and
+``capture_seconds`` and ``captures`` the runners' graph captures
+(``obs.timing.CompileWatch`` reads their differences across a region to
+split build and capture time from run time).
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from pathlib import Path
 
 __all__ = ["launches", "launch", "load_library",
            "library_path", "check", "stream_of", "operands_device",
-           "build_seconds", "builds", "NVCC_FLAGS"]
+           "build_seconds", "builds", "capture_seconds", "captures",
+           "NVCC_FLAGS"]
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -44,6 +48,10 @@ launches: collections.Counter = collections.Counter()
 # the link and the load), and the loads that ran ``nvcc``
 build_seconds = 0.0
 builds = 0
+# host seconds of the runners' CUDA graph captures in this process, and
+# their number (added by ``runtime.runners``)
+capture_seconds = 0.0
+captures = 0
 
 
 def _nvcc() -> str:

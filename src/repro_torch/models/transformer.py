@@ -177,7 +177,10 @@ def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
         cache = attn.AttnCache(k, v)
     if spec.cross_attn:
         xc = _apply_norm(cfg, bp, "normc", x)
-        qc, _, _ = attn.qkv_proj(bp, xc, pre="c")
+        # only the query comes from the decoder stream (the reference's
+        # compiled program drops the keys and values its qkv_proj makes
+        # here; computing them would be work it does not do)
+        qc = torch.einsum("bsd,dhk->bshk", xc, bp["cwq"])
         Fr = enc_out.shape[1]
         ck = torch.einsum("bfd,dhk->bfhk", enc_out, _promoted(bp["cwk"],
                                                               enc_out))

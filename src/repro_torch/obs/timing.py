@@ -85,24 +85,27 @@ class CompileWatch:
     """Measure a region, splitting the kernels' build time from run time.
 
     ``with CompileWatch() as cw: ...`` leaves ``cw.total_s`` (wall),
-    ``cw.compile_s`` (host seconds of the kernel library's first load
-    inside the region: the ``nvcc`` builds, the link and the load),
+    ``cw.compile_s`` (host seconds inside the region of the kernel
+    library's first load, the ``nvcc`` builds, the link and the load, and
+    of the runners' CUDA graph captures, the port's counterpart of the
+    reference's trace and compile of its ``lax.scan``),
     ``cw.execute_s`` (the remainder) and ``cw.compiles`` (``nvcc`` builds
     inside the region; 0 when the library was built or loaded before).
-    The split comes from the loader's own counters
-    (``kernels._build.build_seconds`` and ``builds``), so no warm-up call
-    is needed.
+    The split comes from the loader's and the runners' own counters
+    (``kernels._build.build_seconds``, ``builds`` and
+    ``capture_seconds``), so no warm-up call is needed.  On the CPU
+    nothing is captured and the captures add 0.
     """
 
     def __enter__(self) -> "CompileWatch":
-        self._s0 = _build.build_seconds
+        self._s0 = _build.build_seconds + _build.capture_seconds
         self._n0 = _build.builds
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
         self.total_s = time.perf_counter() - self._t0
-        self.compile_s = min(max(_build.build_seconds - self._s0, 0.0),
-                             self.total_s)
+        spent = _build.build_seconds + _build.capture_seconds - self._s0
+        self.compile_s = min(max(spent, 0.0), self.total_s)
         self.compiles = _build.builds - self._n0
         self.execute_s = max(self.total_s - self.compile_s, 0.0)

@@ -1,12 +1,31 @@
 """Device-resident iteration loops: encoded GD and ISTA, encoded BCD and
 asynchronous stale-gradient SGD.
 
-Port of ``src/repro/runtime/runners.py``.  The
-reference's ``lax.scan`` becomes a Python loop over T steps on the device:
-the (R, T, m) mask stack is loaded once, the objective trace is
-preallocated on the device, and nothing inside the loop reads a value back
-to the host (no ``.item()``, no sync); callers copy the results to the host
-once, at the end.
+Port of ``src/repro/runtime/runners.py``, whose runners are each one
+jitted ``lax.scan``.  Here the GD, ISTA and BCD loops run in **blocks** of
+c steps (``_block_steps``: the least multiple of ``eval_every`` at or above
+10; a schedule's last block may be shorter).  A block reads and writes
+only tensors allocated before it: the iterate, updated in place, the
+hold-mode gradient carry, a mask block that one copy loads from the
+schedule before the block, and an objective block that one copy moves
+into the trace after it.  On a card, block 0 runs eagerly (it is also the
+warm-up: the kernel library's build and per-card attributes, cuBLAS's
+handle); the next full block is **captured** once into a CUDA graph on a
+side stream, which executes nothing; and that block and every later full
+block is a **replay** of the graph, so the host enqueues three calls every
+c steps, not every op of every step.  A shorter last block runs
+eagerly.  The capture takes the place of the reference's trace and
+compile of its scan: its host seconds add to
+``kernels._build.capture_seconds`` (``obs.timing.CompileWatch`` counts
+them as compile time) and it is the obs span ``runner:capture``.  A
+capture that fails raises, naming the runner and the block; nothing falls
+back to the eager loop.  On the CPU nothing is captured: the same block
+function runs eagerly, block by block, so the CPU tests run the code that
+the card captures.  The kernels' wrappers count launches on the host when
+they are called (``kernels._build.launches``), so a capture's counts are
+taken back and every replay adds them once: the counts read as an
+uncaptured run's.  Nothing inside a run reads a value back to the host;
+callers copy the results once, at the end.
 
 Every GD / ISTA step takes the masked gradient as the reference's
 ``_masked_grad`` does: one call of the fused kernel
@@ -28,22 +47,27 @@ The BCD and async runners make plain products (``torch.einsum`` /
 ``torch.matmul`` in full float32), as the reference leaves them to XLA; no
 kernel of the port is on their path.  Their batched forms run each
 realization's products on its own, one realization after the other within
-a step, so a realization never depends on the batch around it.
+a step, so a realization never depends on the batch around it.  The async
+runner stays a loop over updates, each enqueued from the host: update u
+reads the block of worker ``workers[u]`` and a ring slot set by
+``staleness[u]``, host integers that change every update.
 
 The sharded runners split the realization axis over every visible card,
 as the reference's ``shard_map`` over a ``trials`` mesh axis does: each
 card runs the batched loop over its contiguous chunk of realizations on
 its own copy of the problem, with no collective, and the results are
 gathered back in order, so realization r equals the batched run's bit for
-bit.  The loops are generators that yield once a step (``_steps``,
-``_async_steps``), so one host thread enqueues every card's step in
-turn.  Each kernel launches with its operands' card current
-(``kernels/_build.launch``).
+bit.  The loops are generators that yield once a block (``_steps``) or
+once an update (``_async_steps``), so one host thread advances every
+card's chunk in turn: a replay a card every c steps.  Each chunk captures
+its own graph with its card current, and each kernel launches with its
+operands' card current (``kernels/_build.launch``).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import time
 
 import numpy as np
 import torch
@@ -52,9 +76,11 @@ from repro_torch.core.data_parallel import (EncodedProblem, masked_gradient,
                                             original_objective, prox_l1)
 from repro_torch.core.model_parallel import LiftedProblem
 from repro_torch.device import full_f32_matmul
+from repro_torch.kernels import _build
 from repro_torch.kernels.fused_step import (fused_enabled,
                                             fused_masked_gradient)
 from repro_torch.obs.trace import current_recorder as _obs_recorder
+from repro_torch.obs.trace import span as _obs_span
 
 __all__ = [
     "scan_gd", "scan_prox", "scan_bcd", "scan_async",
@@ -129,48 +155,161 @@ def _objectives(prob: EncodedProblem, W: torch.Tensor, h: str):
                         for q in range(W.shape[0])])
 
 
+# -- blocks of steps, captured once and replayed ------------------------------
+
+# steps a block holds at least.  A capture costs 1.4-3.2 times an eager
+# block's host time and the replays start after it (PAPER_RIDGE on an
+# H100, chip_smoke.py's "graph" lines), so the block is short; a replay's
+# three host calls stay far below ten steps of device work
+_BLOCK_STEPS = 10
+
+
+def _block_steps(eval_every: int) -> int:
+    """Steps c of a block: the least multiple of ``eval_every`` at or above
+    ``_BLOCK_STEPS``, so every block records whole objective strides."""
+    return eval_every * -(-_BLOCK_STEPS // eval_every)
+
+
+def _counted(fn) -> dict:
+    """Run ``fn()``; return the launches it counted
+    (``kernels._build.launches``) and take them back out of the counts."""
+    before = _build.launches.copy()
+    try:
+        fn()
+    finally:
+        counted = dict(_build.launches - before)
+        _build.launches.clear()
+        _build.launches.update(before)
+    return counted
+
+
+class _Replay:
+    """A captured block: ``replay()`` launches the graph on the current
+    stream of its card and adds the launches its capture counted, once."""
+
+    def __init__(self, graph, counted: dict):
+        self.graph = graph
+        self.counted = counted
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _build.launches.update(self.counted)
+
+
+def _capture(block, where: str, device: torch.device) -> _Replay:
+    """Capture ``block()`` into a CUDA graph on a side stream of
+    ``device``, with its own memory pool; the capture executes nothing.
+    Raises, naming ``where``, if the capture fails."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+
+    def run():
+        with _obs_span("runner:capture"), \
+                torch.cuda.stream(torch.cuda.Stream(device)):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                block()
+            finally:
+                graph.capture_end()
+    try:
+        counted = _counted(run)
+    except Exception as exc:
+        raise RuntimeError(f"{where}: capturing the block into a CUDA graph "
+                           f"on {device} failed: {exc}") from exc
+    finally:
+        _build.capture_seconds += time.perf_counter() - t0
+        _build.captures += 1
+    return _Replay(graph, counted)
+
+
+def _blocks(name: str, device: torch.device, T: int, c: int, load, block,
+            store, capture: bool):
+    """The T steps as blocks of c, a generator that yields after each
+    block.  ``load(t0, n)`` copies block [t0, t0 + n)'s masks into the mask
+    block, ``block(n)`` enqueues n steps on the static buffers,
+    ``store(t0, n)`` copies its objectives out.  On a card (``capture``)
+    the first full block after block 0 is captured and every full block
+    from it on replayed; block 0 and a shorter last block run eagerly, as
+    every block does on the CPU or without ``capture``."""
+    capture = capture and device.type == "cuda"
+    graph = None
+    for b, t0 in enumerate(range(0, T, c)):
+        n = min(c, T - t0)
+        load(t0, n)
+        if capture and b > 0 and n == c:
+            if graph is None:
+                graph = _capture(
+                    lambda: block(c),
+                    f"{name}, block {b} (steps {t0}-{t0 + c - 1} of {T})",
+                    device)
+            graph.replay()
+        else:
+            block(n)
+        store(t0, n)
+        yield
+
+
 def _steps(prob: EncodedProblem, masks, step_size, w0, *, kind: str,
-           h: str, eval_every: int, degrade):
-    """The T-step loop over R realizations as a generator: masks (R, T, m),
-    w0 (R, p).  It yields once a step, after the step's work is enqueued,
-    and returns (W (R, p), trace (R, T // eval_every)) on the problem's
-    device.  ``_run`` drains it; a sharded run drains one a card."""
+           h: str, eval_every: int, degrade, capture: bool = True):
+    """The T-step loop over R realizations as blocks (module docstring),
+    a generator: masks (R, T, m), w0 (R, p).  It yields once a block,
+    after the block's work is enqueued, and returns (W (R, p), trace
+    (R, T // eval_every)) on the problem's device.  ``_run`` drains it; a
+    sharded run drains one a card.  ``capture=False`` runs every block
+    eagerly on a card too (the A/B checks)."""
     dev = prob.device
     masks = torch.as_tensor(masks, dtype=torch.float32, device=dev)
-    W = torch.as_tensor(w0, dtype=torch.float32, device=dev)
-    R, T, _ = masks.shape
+    # the iterate is updated in place: W.sub_(step * g) rounds as
+    # W - step * g does, one subtraction an element
+    W = torch.as_tensor(w0, dtype=torch.float32, device=dev).clone()
+    R, T, m = masks.shape
     if eval_every < 1 or T % eval_every:
         raise ValueError(f"eval_every={eval_every} must be a positive "
                          f"divisor of the {T}-step schedule")
+    c = _block_steps(eval_every)
     step = _step_vector(step_size, R, dev)[:, None]
-    # step-major copy: masks_t[t] is one contiguous (R, m) kernel operand
-    masks_t = masks.transpose(0, 1).contiguous()
     trace = torch.empty((R, T // eval_every), dtype=torch.float32,
                         device=dev)
+    # step-major mask block: mblk[i] is one contiguous (R, m) kernel operand
+    mblk = torch.empty((min(c, T), R, m), dtype=torch.float32, device=dev)
+    oblk = torch.empty((R, min(c, T) // eval_every), dtype=torch.float32,
+                       device=dev)
     h_obj = "l1" if kind == "prox" else h
     thresh = step * prob.lam
     g_prev = torch.zeros_like(W) if degrade is not None else None
     fused = fused_enabled()
-    for t in range(T):
-        mask = masks_t[t]
-        g = _masked_grad(prob, W, mask, fused)
-        if kind == "gd" and h == "l2":
-            g = g + prob.lam * W
-        if degrade is not None:
-            # below k_min survivors reuse the last gradient at shrink x its
-            # scale; the shrunk gradient re-enters the carry, so
-            # consecutive sub-k rounds decay geometrically
-            _, k_min, shrink = degrade
-            subk = mask.sum(-1, keepdim=True) < k_min
-            g = torch.where(subk, shrink * g_prev, g)
-            g_prev = g
-        if kind == "gd":
-            W = W - step * g
-        else:
-            W = prox_l1(W - step * g, thresh)
-        if (t + 1) % eval_every == 0:
-            trace[:, (t + 1) // eval_every - 1] = _objectives(prob, W, h_obj)
-        yield
+
+    def block(n: int) -> None:
+        for i in range(n):
+            mask = mblk[i]
+            g = _masked_grad(prob, W, mask, fused)
+            if kind == "gd" and h == "l2":
+                g = g + prob.lam * W
+            if degrade is not None:
+                # below k_min survivors reuse the last gradient at shrink x
+                # its scale; the shrunk gradient re-enters the carry, so
+                # consecutive sub-k rounds decay geometrically
+                _, k_min, shrink = degrade
+                subk = mask.sum(-1, keepdim=True) < k_min
+                g = torch.where(subk, shrink * g_prev, g)
+                g_prev.copy_(g)
+            if kind == "gd":
+                W.sub_(step * g)
+            else:
+                W.copy_(prox_l1(W - step * g, thresh))
+            if (i + 1) % eval_every == 0:
+                oblk[:, (i + 1) // eval_every - 1] = _objectives(prob, W,
+                                                                 h_obj)
+
+    def load(t0: int, n: int) -> None:
+        mblk[:n].copy_(masks[:, t0:t0 + n].transpose(0, 1))
+
+    def store(t0: int, n: int) -> None:
+        trace[:, t0 // eval_every:(t0 + n) // eval_every].copy_(
+            oblk[:, :n // eval_every])
+
+    yield from _blocks(f"runner:{kind}", dev, T, c, load, block, store,
+                       capture)
     return W, trace
 
 
@@ -184,10 +323,11 @@ def _drain(steps):
 
 
 def _run(prob: EncodedProblem, masks, step_size, w0, *, kind: str, h: str,
-         eval_every: int, degrade):
+         eval_every: int, degrade, capture: bool = True):
     """The T-step loop over R realizations (see ``_steps``)."""
     return _drain(_steps(prob, masks, step_size, w0, kind=kind, h=h,
-                         eval_every=eval_every, degrade=degrade))
+                         eval_every=eval_every, degrade=degrade,
+                         capture=capture))
 
 
 def _single(kind: str, prob, masks, step_size, w0, **kw):
@@ -268,15 +408,30 @@ def _bcd_step(XS, v, mask, step_size, phi_grad):
 
 
 @full_f32_matmul
-def _scan_bcd(prob: LiftedProblem, masks, step_size, v0):
+def _scan_bcd(prob: LiftedProblem, masks, step_size, v0,
+              capture: bool = True):
+    """The T-step BCD loop as blocks of ``_block_steps(1)`` (module
+    docstring); ``capture=False`` runs every block eagerly on a card
+    too."""
     dev = prob.device
     masks = torch.as_tensor(masks, dtype=torch.float32, device=dev)
-    v = torch.as_tensor(v0, dtype=torch.float32, device=dev)
-    T = masks.shape[0]
+    v = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone()
+    T, m = masks.shape
+    c = _block_steps(1)
     trace = torch.empty(T + 1, dtype=torch.float32, device=dev)
-    for t in range(T):
-        v, z = _bcd_step(prob.XS, v, masks[t], step_size, prob.phi_grad)
-        trace[t] = prob.phi_val(z)
+    mblk = torch.empty((min(c, T), m), dtype=torch.float32, device=dev)
+    oblk = torch.empty(min(c, T), dtype=torch.float32, device=dev)
+
+    def block(n: int) -> None:
+        for i in range(n):
+            v_next, z = _bcd_step(prob.XS, v, mblk[i], step_size,
+                                  prob.phi_grad)
+            v.copy_(v_next)
+            oblk[i] = prob.phi_val(z)
+
+    _drain(_blocks("runner:bcd", dev, T, c,
+                   lambda t0, n: mblk[:n].copy_(masks[t0:t0 + n]), block,
+                   lambda t0, n: trace[t0:t0 + n].copy_(oblk[:n]), capture))
     trace[T] = prob.phi_val(_activations(prob.XS, v))
     return v, trace
 
@@ -292,24 +447,41 @@ def scan_bcd(prob: LiftedProblem, masks, step_size, v0):
 
 
 @full_f32_matmul
-def _batched_bcd(prob: LiftedProblem, masks, step_size, v0, eval_every):
+def _batched_bcd(prob: LiftedProblem, masks, step_size, v0, eval_every,
+                 capture: bool = True):
+    """R realizations of the BCD loop as blocks of
+    ``_block_steps(eval_every)`` (module docstring)."""
     dev = prob.device
     masks = torch.as_tensor(masks, dtype=torch.float32, device=dev)
     V = torch.as_tensor(v0, dtype=torch.float32, device=dev).clone()
-    R, T, _ = masks.shape
+    R, T, m = masks.shape
     if eval_every < 1 or T % eval_every:
         raise ValueError(f"eval_every={eval_every} must be a positive "
                          f"divisor of the {T}-step schedule")
+    c = _block_steps(eval_every)
     trace = torch.empty((R, T // eval_every), dtype=torch.float32,
                         device=dev)
-    for t in range(T):
-        for q in range(R):
-            V[q] = _bcd_step(prob.XS, V[q], masks[q, t], step_size,
-                             prob.phi_grad)[0]
-        if (t + 1) % eval_every == 0:
+    mblk = torch.empty((R, min(c, T), m), dtype=torch.float32, device=dev)
+    oblk = torch.empty((R, min(c, T) // eval_every), dtype=torch.float32,
+                       device=dev)
+
+    def block(n: int) -> None:
+        for i in range(n):
             for q in range(R):
-                trace[q, (t + 1) // eval_every - 1] = prob.phi_val(
-                    _activations(prob.XS, V[q]))
+                V[q] = _bcd_step(prob.XS, V[q], mblk[q, i], step_size,
+                                 prob.phi_grad)[0]
+            if (i + 1) % eval_every == 0:
+                for q in range(R):
+                    oblk[q, (i + 1) // eval_every - 1] = prob.phi_val(
+                        _activations(prob.XS, V[q]))
+
+    def store(t0: int, n: int) -> None:
+        trace[:, t0 // eval_every:(t0 + n) // eval_every].copy_(
+            oblk[:, :n // eval_every])
+
+    _drain(_blocks("runner:batched_bcd", dev, T, c,
+                   lambda t0, n: mblk[:, :n].copy_(masks[:, t0:t0 + n]),
+                   block, store, capture))
     return V, trace
 
 
@@ -461,14 +633,16 @@ def _device_guard(device: torch.device):
 def _sharded_run(devices, kind: str, prob: EncodedProblem, *args, **kw):
     """Realizations split over ``devices`` (entries may repeat): chunk j,
     realizations [j R/ndev, (j+1) R/ndev), runs on ``devices[j]`` against
-    its own copy of the problem.  One host thread enqueues the chunks'
-    steps in turn, each with its device current: the step loop is paced by
-    the host's launch work, and a host thread a device, measured on an
-    H100, ran a step 2.3x slower than this (PERF.md, "sharded").  ``kind``
-    "gd" / "prox" takes ``_steps``'s (masks, step_size, w0) and keywords,
-    a (R,) step vector split with its chunk; "async"
+    its own copy of the problem.  One host thread advances the chunks in
+    turn, each with its device current.  ``kind`` "gd" / "prox" takes
+    ``_steps``'s (masks, step_size, w0) and keywords, a (R,) step vector
+    split with its chunk, one block of each chunk in turn: on cards, each
+    chunk captures its own graph with its card current and the host
+    enqueues a replay a card every block.  "async" takes
     ``_batched_async``'s (workers, staleness, step_size, w0, buffer_size,
-    h, eval_every), one update of each chunk in turn.  Returns (w, trace)
+    h, eval_every), one update of each chunk in turn.  A host thread a
+    card, measured on an H100 with the step loop uncaptured, ran a step
+    2.3x slower than one thread (PERF.md, "sharded").  Returns (w, trace)
     gathered onto the problem's device in realization order.  A chunk that
     fails raises; none is run again elsewhere."""
     devices = [torch.device(d) for d in devices]

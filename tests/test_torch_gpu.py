@@ -41,11 +41,17 @@ serve path (every architecture's smoke variant: prefill and decode on the
 card against the CPU, logits and caches to rel 1e-4, TF32 off) launches
 no kernel of the port; the coded step through the MoE dispatch launches
 one combine and matches the CPU's loss and gradient norm to rel 1e-4.
+The runners' step loops captured into CUDA graphs and replayed block by
+block (GD / ISTA at R = 1 and 4, ``eval_every`` 1 and 5, hold-mode
+``degrade``, ``REPRO_FUSED=0``, BCD single and batched, two chunks of one
+card) equal the same runs uncaptured bit for bit, with the same launch
+counts, and capture one graph a run (a chunk).
 With two cards or more (the ``two_cards`` fixture skips below two): each
 kernel launched with its operands on the last card while card 0 is
 current equals the same call on card 0 bit for bit, operands on two
 cards raise before any launch, and the sharded runners split the
-realization axis over every card, bit for bit the batched run.
+realization axis over every card, bit for bit the batched run, captured
+on every card.
 """
 import numpy as np
 import pytest
@@ -513,6 +519,93 @@ def test_runners_on_card_match_cpu(cuda):
         _close(tr_g.cpu(), tr_c, 1e-5)
         _close(w_g.cpu(), w_c, 1e-4)
     assert launches["fused_masked_gradient"] == before + 30
+
+
+def _counted_run(fn):
+    """(fn()'s result, the launches it counted, the graphs it captured),
+    the card synchronised."""
+    from repro_torch.kernels import _build
+    before, captures = dict(launches), _build.captures
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v - before.get(k, 0) for k, v in launches.items()
+           if v != before.get(k, 0)}
+    return out, got, _build.captures - captures
+
+
+@pytest.mark.parametrize("kind,R,eval_every,degrade,fused", [
+    ("gd", 1, 1, None, "1"), ("gd", 4, 5, None, "1"),
+    ("prox", 2, 1, None, "1"), ("gd", 3, 1, ("hold", 6, 0.5), "1"),
+    ("prox", 2, 5, None, "0")])
+def test_captured_runs_equal_uncaptured(cuda, monkeypatch, kind, R,
+                                        eval_every, degrade, fused):
+    """65 steps: block 0 eager, block 1 captured and replayed with blocks
+    2-5, the 5-step tail eager; bit for bit the uncaptured run, the same
+    launches (one fused a step, or one combine a realization and step)."""
+    from repro_torch.runtime import runners
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    prob = _small_problem(cuda)
+    T = 65
+    masks = (np.random.default_rng(11).random((R, T, 8)) < 0.75).astype(
+        np.float32)
+    kw = dict(kind=kind, h="l1" if kind == "prox" else "l2",
+              eval_every=eval_every, degrade=degrade)
+    w0 = torch.zeros((R, 24), device=cuda)
+    runs = {cap: _counted_run(lambda cap=cap: runners._run(
+        prob, masks, 0.01, w0, capture=cap, **kw)) for cap in (True, False)}
+    (wc, tc), lc, nc = runs[True]
+    (we, te), le, ne = runs[False]
+    assert (nc, ne) == (1, 0)
+    assert torch.equal(wc, we) and torch.equal(tc, te)
+    assert lc == le == ({"fused_masked_gradient": T} if fused == "1"
+                        else {"coded_combine": R * T})
+
+
+@pytest.mark.parametrize("R", [0, 1, 3])
+def test_captured_bcd_equals_uncaptured(cuda, R):
+    """BCD (R = 0: ``scan_bcd``'s pre-commit trace; else the batched
+    post-commit one, ``eval_every`` 5) over 45 steps, captured and not."""
+    from repro_torch.core import LiftedProblem, phi_quadratic
+    from repro_torch.runtime import runners
+    g = torch.Generator().manual_seed(3)
+    prob = LiftedProblem(torch.randn((8, 96, 16), generator=g).to(cuda),
+                         *phi_quadratic(np.random.default_rng(4)
+                                        .standard_normal(96), device=cuda),
+                         beta=2.0)
+    T = 45
+    masks = (torch.rand((max(R, 1), T, 8), generator=g) < 0.75).float()
+    if R == 0:
+        def run(cap):
+            return runners._scan_bcd(prob, masks[0], 1e-3,
+                                     torch.zeros((8, 16), device=cuda), cap)
+    else:
+        def run(cap):
+            return runners._batched_bcd(prob, masks, 1e-3,
+                                        torch.zeros((R, 8, 16), device=cuda),
+                                        5, cap)
+    (vc, tc), lc, nc = _counted_run(lambda: run(True))
+    (ve, te), le, ne = _counted_run(lambda: run(False))
+    assert (nc, ne) == (1, 0) and lc == le == {}
+    assert torch.equal(vc, ve) and torch.equal(tc, te)
+
+
+def test_captured_chunks_on_one_card_equal_batched(cuda):
+    """Two chunks of card 0, each captured with its own graph: bit for bit
+    the batched run, 2 x T fused launches."""
+    from repro_torch.runtime import runners
+    prob = _small_problem(cuda)
+    masks = (np.random.default_rng(12).random((4, 50, 8)) < 0.75).astype(
+        np.float32)
+    w0 = torch.zeros((4, 24), device=cuda)
+    kw = dict(h="l2", eval_every=1, degrade=None)
+    (ws, ts), ls, ns = _counted_run(lambda: runners._sharded_run(
+        [cuda, cuda], "gd", prob, masks, 0.01, w0, **kw))
+    (wb, tb), lb, nb = _counted_run(lambda: runners.batched_scan_gd(
+        prob, masks, 0.01, w0))
+    assert (ns, nb) == (2, 1)
+    assert torch.equal(ws, wb) and torch.equal(ts, tb)
+    assert ls == {"fused_masked_gradient": 100} and \
+        lb == {"fused_masked_gradient": 50}
 
 
 @pytest.mark.parametrize("P", [1, 37, 128, 2085, 6000, 6001])
@@ -1168,4 +1261,31 @@ def test_sharded_runners_split_over_every_card(two_cards):
     assert got == ndev and w.device == first
     assert launches["fused_masked_gradient"] == before + 10 * ndev
     wb, tb = runners.batched_scan_gd(prob, masks, 1e-3, w0)
+    assert torch.equal(w, wb) and torch.equal(tr, tb)
+
+
+def test_sharded_runners_capture_on_every_card(two_cards):
+    """50 steps over every card: each chunk captures its own graph with
+    its card current and replays it; bit for bit the batched run, one fused
+    launch a step on each card."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import runners
+    first, _ = two_cards
+    ndev = torch.cuda.device_count()
+    g = torch.Generator().manual_seed(2)
+    m, r, p, n, R, T = 8, 64, 600, 512, 2 * ndev, 50
+    prob = EncodedProblem(SX=torch.randn((m, r, p), generator=g),
+                          Sy=torch.randn((m, r), generator=g),
+                          X=torch.randn((n, p), generator=g),
+                          y=torch.randn(n, generator=g), lam=0.05, beta=1.0,
+                          n=n).to(first)
+    masks = (torch.rand((R, T, m), generator=g) < 0.75).float()
+    w0 = torch.zeros((R, p), device=first)
+    before, captures = launches["fused_masked_gradient"], _build.captures
+    w, tr, got = runners.sharded_scan_prox(prob, masks, 1e-3, w0,
+                                           eval_every=5)
+    torch.cuda.synchronize()
+    assert got == ndev and _build.captures == captures + ndev
+    assert launches["fused_masked_gradient"] == before + T * ndev
+    wb, tb = runners.batched_scan_prox(prob, masks, 1e-3, w0, eval_every=5)
     assert torch.equal(w, wb) and torch.equal(tr, tb)

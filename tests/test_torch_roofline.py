@@ -4,17 +4,18 @@ analysis (``repro.launch.hlo_analysis.analyze_hlo`` of its compiled train
 step on the CPU), and the roofline terms' own rules.
 
 Tolerances:
-  * rel 1e-2: the train step's flops at the smoke variants of deepseek-7b
-    and phi3.5-moe (batch 4, 64 tokens) under each ``remat_policy``: the
-    reference counts XLA's dots after fusion and its remat pass, the port
-    counts PyTorch's ``mm`` / ``bmm`` and derives the recompute from the
-    forward pass's dataflow (within 0.2 % when measured);
+  * rel 1e-2: the train step's flops at the smoke variants of deepseek-7b,
+    phi3.5-moe and whisper-small (batch 4, 64 tokens) under each
+    ``remat_policy``: the reference counts XLA's dots after fusion and its
+    remat pass, the port counts PyTorch's ``mm`` / ``bmm`` and derives the
+    recompute from the forward pass's dataflow (within 0.2 % when
+    measured);
   * rel 1e-2: the recompute under ``"full"`` at the smoke variants of
     jamba (Mamba), xlstm-350m (mLSTM and the sLSTM loop) and whisper-small
     (the encoder's layers), against the reference's ``full`` less its
-    ``none``; and the whole step for jamba and xlstm-350m.  whisper-small's
-    step is not held to it: the port counts some 3 % more than the
-    reference under every policy, outside the recompute;
+    ``none``; and the whole step for all three (at whisper-small the
+    reference also counts the gradient's global norm, vector dots that
+    ``FlopCounterMode`` does not count: 0.2 % of the step);
   * exact: the sLSTM loop's flops by trip count against the whole loop
     traced, and the three terms from their inputs.
 """
@@ -67,7 +68,8 @@ def _port_flops(cfg, b=B, s=S):
 
 
 @pytest.mark.parametrize("policy", ["full", "dots", "none"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "phi3.5-moe-42b-a6.6b",
+                                  "whisper-small"])
 def test_train_flops_match_reference_hlo(arch, policy):
     ref = _ref_flops(arch, policy)
     counts = _port_flops(ARCHS[arch].smoke_variant().with_overrides(
@@ -87,8 +89,7 @@ def test_full_remat_matches_reference_hlo(arch):
         remat_policy="full"))
     assert abs(counts["remat"] - (full - none)) <= 1e-2 * (full - none), (
         counts, full, none)
-    if arch != "whisper-small":
-        assert abs(counts["total"] - full) <= 1e-2 * full, (counts, full)
+    assert abs(counts["total"] - full) <= 1e-2 * full, (counts, full)
 
 
 def test_remat_orders_full_dots_none():

@@ -193,28 +193,31 @@ def test_sharded_run_raises_a_chunk_failure(ref, monkeypatch):
 
 
 def test_sharded_run_enqueues_the_chunks_steps_in_turn(ref, monkeypatch):
-    """One host thread, each chunk's step t before any chunk's step t + 1."""
+    """One host thread, each chunk's block of steps b before any chunk's
+    block b + 1 (blocks of 5 here: 12 steps are blocks of 5, 5 and 2)."""
     order = []
     steps = runners._steps
 
     def tagged(*a, **kw):
         gen = steps(*a, **kw)
-        t = 0
+        b = 0
         while True:
             try:
                 next(gen)
             except StopIteration as done:
                 return done.value
-            order.append((id(gen), t, threading.get_ident()))
-            t += 1
+            order.append((id(gen), b, threading.get_ident()))
+            b += 1
             yield
 
     monkeypatch.setattr(runners, "_steps", tagged)
+    monkeypatch.setattr(runners, "_BLOCK_STEPS", 5)
+    blocks = -(-T // 5)
     args, kw = _args(ref, "gd")
     runners._sharded_run(CPUS, "gd", _problem(ref), *args, **kw)
-    assert len(order) == NDEV * T
+    assert len(order) == NDEV * blocks
     assert {tid for _, _, tid in order} == {threading.get_ident()}
-    assert [t for _, t, _ in order] == [t for t in range(T)
+    assert [b for _, b, _ in order] == [b for b in range(blocks)
                                         for _ in range(NDEV)]
     assert len({g for g, _, _ in order[:NDEV]}) == NDEV
 
