@@ -29,7 +29,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
              gradient at (32, 256, 6000), single, batched R = 4, all
              masked, and batched row r == single call r bit for bit, also
              at R = 4 and R = 16 with one worker masked out in every
-             realization and one realization all-masked; coded combine at
+             realization and one realization all-masked, and with one-hot
+             masks (an async update) at the async problem's (32, 128,
+             6000): R = 1, R = 4 with four workers and with one worker four
+             times, rows == single calls bit for bit, its device time a
+             call (CUDA graph replay) beside the REPRO_FUSED=0 form's
+             gather and two products; coded combine at
              (32, 6000) in float32 and bfloat16 and at the odd width
              (8, 6001), (m,) and (m, 1) weights bit for bit, all masked;
              the kernels' realization tile and row groups and the fused
@@ -43,29 +48,37 @@ Phases, each of which ends the run with a non-zero exit on failure:
              one aligned worker block; then the paper's own algorithm for
              this configuration, coded-lbfgs ``run`` (50 steps, memory 10)
              and ``run_batched(trials=2)``, one coded-bcd run (60 steps) on
-             the lifted (feature-encoded) problem and one async run.  The
-             GD, ISTA and BCD runs capture their step loop into a CUDA
-             graph and replay it block by block (``runtime.runners``).
+             the lifted (feature-encoded) problem and the async baseline
+             (320 updates): ``run``, ``run_batched(trials=4,
+             eval_every=10)``, whose realization 0 equals ``run`` bit for
+             bit, and ``run`` again under REPRO_FUSED=0 (traces to rel
+             1e-4).  Every runner captures its loop into a CUDA graph and
+             replays it block by block (``runtime.runners``).
              Launch counts are cleared just before each of these paths and
              read just after, and each path must launch exactly its own
-             kernels (one fused launch a GD / ISTA step, one combine an
-             L-BFGS step, none for async); the objectives must be finite and fall, and the
+             kernels (one fused launch a GD / ISTA step and an async
+             update, none under REPRO_FUSED=0, one combine an L-BFGS
+             step); the objectives must be finite and fall, and the
              card's coded-gd trace and the first 20 steps of its coded-lbfgs
              trace must match the port's own CPU run on the same encoded
              problem and masks;
    graph   - the step loops captured against the same runs uncaptured
              (``runners._run`` / ``_scan_bcd`` / ``_batched_bcd`` with
-             ``capture=False``) at PAPER_RIDGE: coded-gd R = 1 (100 steps,
-             and its schedule five times over, 500), R = 4 with eval_every
-             10, coded-prox (50), GD under hold-mode
-             ``degrade`` (every third step short of k), coded-bcd single
-             and batched (R = 4, eval_every 5; 60 steps): iterates and
+             ``capture=False``; ``_batched_async``) at PAPER_RIDGE:
+             coded-gd R = 1 (100 steps, and its schedule five times over,
+             500), R = 4 with eval_every 10, coded-prox (50), GD under
+             hold-mode ``degrade`` (every third step short of k),
+             coded-bcd single and batched (R = 4, eval_every 5; 60
+             steps), async R = 1 on the strategy's 320 updates and on
+             3200, R = 4 with eval_every 10, and staleness 0 with a ring
+             of 1 (one fused launch an update required): iterates and
              traces bit for bit, equal launch counts, one capture a
              captured run and none uncaptured; the capture's host time; a
              step's time of each (CUDA events, in turns, every sample) and
              the device's idle share of each (profiler); coded-gd R = 1's
              captured step at blocks of 5, 10 (the runners' length) and
-             20 steps, in turns;
+             20 steps, and async R = 1's captured update at blocks of 10,
+             20 and 40 updates, in turns;
    workloads - the paper's §5 workload zoo through ``get_workload(name)``:
              ridge at its published size (the ``paper`` preset, Fig. 7's
              three arms: ``run_trials("coded", trials=2, eval_every=10,
@@ -220,7 +233,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              combination fails the phase;
    sharded - the realization axis over cards: ``torch.cuda.device_count()``
              printed; at PAPER_RIDGE's width with R = 8, coded-gd (100
-             steps) and coded-prox (50) through ``run_batched`` with
+             steps), coded-prox (50) and async (320 updates) through
+             ``run_batched`` with
              ``placement="sharded"`` and ``"vmap"``, ``placement_devices``
              the card count where it divides R (1 on one card) and w,
              traces and times bit for bit equal; then
@@ -230,7 +244,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              each shard, each shard capturing its own graph; a step's time
              of the shards (a replay a shard every block, one host thread)
              beside the batched run's, each captured and uncaptured, in
-             turns;
+             turns; the same for async on the uncoded problem (320
+             updates, one fused launch an update on each shard);
              with more than one card also Fig. 7 at R = 32 through
              ``workloads.run --placement sharded``, equal to the vmap run
              bit for bit;
@@ -246,7 +261,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              (32, 4194304), the coded-SGD flat gradient's width); step
              times (CUDA events around a 100-step GD loop and the 60-step
              BCD loop, both captured as users run them, a 50-step L-BFGS
-             loop and the 320-update async loop, five repetitions after a
+             loop and the 320-update async loop, captured, five
+             repetitions after a
              warm-up, every sample printed) and encode times (host clock,
              three repetitions); the profiler's breakdown of each run;
              peak device memory.
@@ -877,7 +893,7 @@ def harness_phase(cfg, smi: str, drive) -> None:
     per_cell = {"coded-gd": {fused: 40, srht: 1},
                 "coded-lbfgs": {comb: 80, srht: 1},
                 "uncoded": {fused: 40}, "replication": {fused: 40},
-                "async": {}}
+                "async": {fused: 40 * 16}}     # an update: steps x m
 
     def launches_of(cells):
         total: dict[str, int] = {}
@@ -2081,14 +2097,15 @@ def launch_phase(smi: str, drive) -> None:
 
 def sharded_phase(cfg, step: float, smi: str, drive) -> None:
     """The realization axis over cards at PAPER_RIDGE's width, R = 8:
-    ``run_batched(placement="sharded")`` for coded-gd (100 steps) and
-    coded-prox (50) beside ``placement="vmap"``, the split, the launches
-    and the gather over two shards of card 0, and over every card where
-    there are more than one (then Fig. 7 at R = 32 too)."""
+    ``run_batched(placement="sharded")`` for coded-gd (100 steps),
+    coded-prox (50) and async (320 updates) beside ``placement="vmap"``,
+    the split, the launches and the gather over two shards of card 0, and
+    over every card where there are more than one (then Fig. 7 at R = 32
+    too)."""
     import numpy as np
     import torch
     from repro_torch.core import (FastHadamardEncoder, bimodal_delays,
-                                  make_encoded_problem)
+                                  make_encoded_problem, make_encoder)
     from repro_torch.kernels import _build
     from repro_torch.runtime import (ClusterEngine, FastestK, ProblemSpec,
                                      get_strategy, runners)
@@ -2131,12 +2148,43 @@ def sharded_phase(cfg, step: float, smi: str, drive) -> None:
               f"placement_devices {split}; w, trace and times == vmap bit "
               f"for bit; {split * T} fused launches")
         schedules[name] = (T, vm.schedules.masks)
+    # async: 10 steps' worth of updates, one fused launch an update a card
+    AU, bound = 10 * m, 2 * m
+    out = {}
+    for placement in ("sharded", "vmap"):
+        out[placement] = drive(
+            f"async run_batched R={R} {placement}",
+            lambda: get_strategy("async").run_batched(
+                spec, engine, steps=10, trials=R, placement=placement,
+                step_size=step),
+            {fused: AU * (split if placement == "sharded" else 1)})
+    sh, vm = out["sharded"], out["vmap"]
+    require(sh.meta["placement_devices"] == split and
+            np.array_equal(sh.objective, vm.objective) and
+            np.array_equal(sh.w, vm.w) and np.array_equal(sh.times, vm.times),
+            "sharded async: placement sharded != vmap")
+    print(f"sharded async run_batched R={R}, {AU} updates: placement_devices "
+          f"{split}; w, trace and times == vmap bit for bit; {split * AU} "
+          f"fused launches")
+
+    def in_turns(runs: dict, T: int) -> dict:
+        """A sample a design in turns (each design, then the same in
+        reverse), three rounds; times over T steps or updates."""
+        got = {key: [] for key in runs}
+        order = list(runs) + list(runs)[::-1]
+        for _ in range(3):
+            for key in order:
+                got[key] += [t / T for t in samples_ms(runs[key], 1)]
+        return got
 
     # the split, the per-card launches and the gather over two shards of
     # card 0, then over every card
     prob = make_encoded_problem(spec.X, spec.y,
                                 FastHadamardEncoder(n, cfg.beta, seed=0), m,
                                 lam=spec.lam, device=dev)
+    aprob = make_encoded_problem(spec.X, spec.y,
+                                 make_encoder("uncoded", n, beta=1.0), m,
+                                 lam=spec.lam, device=dev)
     layouts = [("2 shards on cuda:0", [dev, dev])]
     if ndev > 1:
         layouts.append((f"{ndev} cards",
@@ -2164,30 +2212,54 @@ def sharded_phase(cfg, step: float, smi: str, drive) -> None:
             wb, tb = batched(prob, masks, step, W0, eval_every=1)
             require(torch.equal(ws, wb) and torch.equal(ts, tb),
                     f"{name} {label}: sharded != batched")
-            # one sample a design in turns (each design, then the same in
-            # reverse), three rounds; captured as users run them, and
-            # uncaptured (every op of every step enqueued from the host)
-            runs = {"sharded": lambda: runners._sharded_run(
-                        devices, kind, prob, masks, step, W0, **rkw),
-                    "batched": lambda: runners._run(
-                        prob, masks, step, W0, kind=kind, **rkw),
-                    "sharded uncaptured": lambda: runners._sharded_run(
-                        devices, kind, prob, masks, step, W0, capture=False,
-                        **rkw),
-                    "batched uncaptured": lambda: runners._run(
-                        prob, masks, step, W0, kind=kind, capture=False,
-                        **rkw)}
-            got = {key: [] for key in runs}
-            order = list(runs) + list(runs)[::-1]
-            for _ in range(3):
-                for key in order:
-                    got[key] += [t / T for t in samples_ms(runs[key], 1)]
+            # captured as users run them, and uncaptured (every op of
+            # every step enqueued from the host)
+            got = in_turns({
+                "sharded": lambda: runners._sharded_run(
+                    devices, kind, prob, masks, step, W0, **rkw),
+                "batched": lambda: runners._run(
+                    prob, masks, step, W0, kind=kind, **rkw),
+                "sharded uncaptured": lambda: runners._sharded_run(
+                    devices, kind, prob, masks, step, W0, capture=False,
+                    **rkw),
+                "batched uncaptured": lambda: runners._run(
+                    prob, masks, step, W0, kind=kind, capture=False,
+                    **rkw)}, T)
             print(f"sharded {name} {label}, R={RS}, {T} steps: w and trace "
                   f"== batched bit for bit; {len(devices) * T} fused "
                   f"launches, a graph a shard; a step: "
-                  + "; ".join(f"{key} {spread(got[key], 'ms')}"
-                              for key in runs) + f"  [{smi}]")
-    del prob
+                  + "; ".join(f"{key} {spread(v, 'ms')}"
+                              for key, v in got.items()) + f"  [{smi}]")
+        # async on the uncoded problem, the event streams split with their
+        # realizations
+        aev = engine.sample_asyncs(AU, bound, RS)
+        args = (aev.workers, aev.staleness, step / m,
+                torch.zeros((RS, p), device=dev), bound + 1, "l2", 1)
+        n0 = _build.captures
+        ws, ts = drive(f"async _sharded_run {label}",
+                       lambda: runners._sharded_run(devices, "async", aprob,
+                                                    *args),
+                       {fused: len(devices) * AU})
+        require(_build.captures - n0 == len(devices),
+                f"async {label}: {_build.captures - n0} captures for "
+                f"{len(devices)} shards")
+        wb, tb = runners.batched_scan_async(aprob, *args[:5])
+        require(torch.equal(ws, wb) and torch.equal(ts, tb),
+                f"async {label}: sharded != batched")
+        got = in_turns({
+            "sharded": lambda: runners._sharded_run(devices, "async", aprob,
+                                                    *args),
+            "batched": lambda: runners._batched_async(aprob, *args),
+            "sharded uncaptured": lambda: runners._sharded_run(
+                devices, "async", aprob, *args, capture=False),
+            "batched uncaptured": lambda: runners._batched_async(
+                aprob, *args, capture=False)}, AU)
+        print(f"sharded async {label}, R={RS}, {AU} updates: w and trace == "
+              f"batched bit for bit; {len(devices) * AU} fused launches, a "
+              f"graph a shard; an update: "
+              + "; ".join(f"{key} {spread(v, 'ms')}"
+                          for key, v in got.items()) + f"  [{smi}]")
+    del prob, aprob
     if ndev > 1:
         RF = 32
         T = get_workload("ridge").preset("paper").steps
@@ -2220,12 +2292,15 @@ def sharded_phase(cfg, step: float, smi: str, drive) -> None:
 
 
 def graph_check(prob, lifted, masks: dict, step: float, bcd_step: float,
-                k: int, smi: str) -> None:
+                k: int, smi: str, asyncs: dict) -> None:
     """The step loops captured against the same runs uncaptured at
     PAPER_RIDGE (module docstring, phase "graph"): ``prob`` the encoded
     problem, ``lifted`` the feature-encoded one, ``masks`` the schedules
     ("run" (100, m), "batched" (4, 100, m), "prox" (50, m), "bcd"
-    (60, m), "bcd batched" (4, 60, m))."""
+    (60, m), "bcd batched" (4, 60, m)); ``asyncs`` the async problem
+    ("prob", uncoded, beta 1), its step size ("step"), ring ("B") and
+    event streams ("run" (2, 320), the strategy's, "long" (2, 3200),
+    "batched" (2, 4, 320)), each (workers, staleness)."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -2246,20 +2321,35 @@ def graph_check(prob, lifted, masks: dict, step: float, bcd_step: float,
              ("hold", k, 0.5))):
         mk = torch.as_tensor(mk, device=dev)
         w0 = torch.zeros((mk.shape[0], p), device=dev)
-        cases.append((label, mk.shape[1], functools.partial(
+        cases.append((label, mk.shape[1], "step", functools.partial(
             runners._run, prob, mk, step, w0, kind=kind,
             h="l1" if kind == "prox" else "l2", eval_every=ev,
             degrade=degrade)))
     mb = torch.as_tensor(masks["bcd"], device=dev)
     mbb = torch.as_tensor(masks["bcd batched"], device=dev)
-    cases.append(("coded-bcd", mb.shape[0], functools.partial(
+    cases.append(("coded-bcd", mb.shape[0], "step", functools.partial(
         runners._scan_bcd, lifted, mb, bcd_step,
         torch.zeros((m, b), device=dev))))
-    cases.append(("coded-bcd R=4 eval_every=5", mbb.shape[1],
+    cases.append(("coded-bcd R=4 eval_every=5", mbb.shape[1], "step",
                   functools.partial(runners._batched_bcd, lifted, mbb,
                                     bcd_step,
                                     torch.zeros((4, m, b), device=dev), 5)))
-    for label, T, run in cases:
+    # async: the ring's slots and the worker change every update, so a
+    # block whose indices were baked into its capture would differ from
+    # the uncaptured run (B = 2m + 1 = 65 divides no block of 10)
+    aprob, B = asyncs["prob"], asyncs["B"]
+    wr, sr = asyncs["run"]
+    for label, (wk, st), ring, ev in (
+            ("async R=1, the strategy's stream", (wr[None], sr[None]), B, 1),
+            ("async R=1", (asyncs["long"][0][None],
+                           asyncs["long"][1][None]), B, 1),
+            ("async R=4 eval_every=10", asyncs["batched"], B, 10),
+            ("async R=1 staleness 0, B=1",
+             (wr[None], np.zeros_like(sr)[None]), 1, 1)):
+        cases.append((label, wk.shape[1], "update", functools.partial(
+            runners._batched_async, aprob, wk, st, asyncs["step"],
+            torch.zeros((wk.shape[0], p), device=dev), ring, "l2", ev)))
+    for label, T, unit, run in cases:
         out = {}
         for cap in (True, False):
             before, n0 = dict(_build.launches), _build.captures
@@ -2278,6 +2368,9 @@ def graph_check(prob, lifted, masks: dict, step: float, bcd_step: float,
                 f"graph {label}: captured != uncaptured")
         require(lc == le, f"graph {label}: launches {lc} captured, {le} "
                           f"uncaptured")
+        if unit == "update":
+            require(lc == {"fused_masked_gradient": T},
+                    f"graph {label}: launches {lc}, not one an update")
         # a sample each in turns (captured, uncaptured, uncaptured,
         # captured), three rounds; then one profiled run each
         got = {True: [], False: []}
@@ -2287,27 +2380,37 @@ def graph_check(prob, lifted, masks: dict, step: float, bcd_step: float,
                     lambda: run(capture=cap), 1)]
         idle = {cap: 1.0 - device_share(lambda: run(capture=cap))
                 for cap in (True, False)}
-        print(f"graph {label}, {T} steps: captured == uncaptured bit for "
+        an = "an" if unit == "update" else "a"
+        print(f"graph {label}, {T} {unit}s: captured == uncaptured bit for "
               f"bit, launches {lc} each, one capture ({cap_s * 1e3:.2f} ms "
-              f"of host time); a step captured {spread(got[True], 'ms')}, "
-              f"idle share {idle[True]:.2f}; uncaptured "
-              f"{spread(got[False], 'ms')}, idle share {idle[False]:.2f}"
-              f"  [{smi}]")
-    # the block length the runners take (10 steps) beside 5 and 20, for
-    # coded-gd R = 1 at 100 and 500 steps, in turns, two rounds
+              f"of host time); {an} {unit} "
+              f"captured {spread(got[True], 'ms')}, idle share "
+              f"{idle[True]:.2f}; uncaptured {spread(got[False], 'ms')}, "
+              f"idle share {idle[False]:.2f}  [{smi}]")
+    # the block length the runners take (10 steps) beside others, in
+    # turns, two rounds: coded-gd R = 1 at 100 and 500 steps (5, 10, 20)
+    # and async R = 1 at 320 and 3200 updates (10, 20, 40)
     block_steps = runners._BLOCK_STEPS
+    by_label = {case[0]: case for case in cases}
     try:
-        for label, T, run in (cases[0], cases[1]):
+        for label, lengths in (("coded-gd R=1", (5, 10, 20)),
+                               ("coded-gd R=1, the schedule 5 times",
+                                (5, 10, 20)),
+                               ("async R=1, the strategy's stream",
+                                (10, 20, 40)),
+                               ("async R=1", (10, 20, 40))):
+            _, T, unit, run = by_label[label]
             got = {}
             for _ in range(2):
-                for c in (5, 10, 20, 20, 10, 5):
+                for c in lengths + lengths[::-1]:
                     runners._BLOCK_STEPS = c
                     got.setdefault(c, []).extend(
                         t / T for t in samples_ms(run, 1))
-            print(f"graph {label}, {T} steps, captured, a step by block "
-                  f"length: " + "; ".join(f"{c} steps {spread(v, 'ms')}"
-                                          for c, v in got.items())
-                  + f"  [{smi}]")
+            an = "an" if unit == "update" else "a"
+            print(f"graph {label}, {T} {unit}s, captured, {an} {unit} by "
+                  f"block length: " + "; ".join(
+                      f"{c} {unit}s {spread(v, 'ms')}"
+                      for c, v in got.items()) + f"  [{smi}]")
     finally:
         runners._BLOCK_STEPS = block_steps
 
@@ -2522,6 +2625,58 @@ def main(argv=None) -> int:
               f"row == 0")
         fused_err = max(fused_err, err)
         edge[R] = (Wr, mr)
+    # the async update's gradient: the arriving worker as a one-hot mask
+    # over the uncoded problem's blocks (beta 1, r = n / m rows a worker);
+    # R = 4 with four workers and with one worker four times
+    ra = n // m
+    SXa = torch.randn((m, ra, p), device=dev, generator=gen)
+    Sya = torch.randn((m, ra), device=dev, generator=gen)
+    akw = dict(n=n, beta=1.0)
+    for label, ids in (("R=1", [5]), ("R=4, workers 3, 17, 0, 31",
+                                       [3, 17, 0, 31]),
+                       ("R=4, worker 9 four times", [9] * 4)):
+        R = len(ids)
+        Wa = torch.randn((R, p), device=dev, generator=gen) * 0.01
+        oh = torch.as_tensor(np.eye(m, dtype=np.float32)[ids], device=dev)
+        ga = fused_masked_gradient(SXa, Sya, Wa, oh, **akw)
+        err, rel = rel_err(ga, fused_masked_gradient_plain(SXa, Sya, Wa, oh,
+                                                           **akw))
+        require(rel <= 1e-4, f"fused one-hot {label}: rel err {rel:.2e}")
+        for q in range(R):
+            require(torch.equal(ga[q], fused_masked_gradient(
+                SXa, Sya, Wa[q], oh[q], **akw)),
+                f"fused one-hot {label}: batched row {q} != single call")
+        print(f"check fused one-hot {label} at {tuple(SXa.shape)}: max|d| "
+              f"{err:.3e} ({rel:.2e} of max|ref|, tol 1e-4); batched[r] == "
+              f"single(r) bitwise")
+        fused_err = max(fused_err, err)
+    # its device time a call beside the REPRO_FUSED=0 form (the block
+    # gathered by its device index, two products), by CUDA graph replay
+    wa, oh1 = Wa[:1].clone(), torch.as_tensor(np.eye(m, dtype=np.float32)[
+        [5]], device=dev)
+    idx = torch.tensor([5], device=dev)
+    sc = m / (n * 1.0)
+
+    def two_products():
+        SXi = SXa.index_select(0, idx)[0]
+        return torch.matmul(SXi.T, torch.matmul(SXi, wa[0]) -
+                            Sya.index_select(0, idx)[0]) * sc
+    err, rel = rel_err(two_products(), fused_masked_gradient(
+        SXa, Sya, wa, oh1, **akw)[0])
+    require(rel <= 1e-4, f"fused one-hot vs two products: rel {rel:.2e}")
+    gk = [graph_ms(lambda: fused_masked_gradient(SXa, Sya, wa, oh1, **akw))]
+    gp = [graph_ms(two_products) for _ in range(2)]
+    gk.append(graph_ms(lambda: fused_masked_gradient(SXa, Sya, wa, oh1,
+                                                     **akw)))
+    # one worker's rows, the iterate and the mask read, the gradient
+    # written; 2 flops an element in each of 2 passes
+    oh_bound = bound_ms((ra * (p + 1) + 2 * p + m) * 4, 4 * ra * p)[0]
+    print(f"fused one-hot R=1 at {tuple(SXa.shape)}, device time a call "
+          f"(CUDA graph replay; kernel, products, products, kernel): kernel "
+          f"{gk[0]:.5f} / {gk[1]:.5f} ms; REPRO_FUSED=0's gather and two "
+          f"products {gp[0]:.5f} / {gp[1]:.5f} ms (to the kernel rel "
+          f"{rel:.2e}); bound {oh_bound:.5f} ms  [{smi}]")
+    del SXa, Sya
     table["fused_masked_gradient"] = {"max_abs_err": fused_err}
     # the kernels' own shape choices agree with the wrappers'
     lib = _build.load_library()
@@ -2619,8 +2774,20 @@ def main(argv=None) -> int:
         spec, engine, steps=bcd_steps, policy=FastestK(k),
         encoder="fast-hadamard", step_size=0.9 / (L * cfg.beta)),
         {srht: 1})
+    # async: one fused launch an update (the arriving worker as a one-hot
+    # mask) for all realizations; none under REPRO_FUSED=0
+    async_updates = async_steps * m
     asy = drive("async run", lambda: get_strategy("async").run(
-        spec, engine, steps=async_steps, step_size=step), {})
+        spec, engine, steps=async_steps, step_size=step),
+        {fused: async_updates})
+    asyb = drive("async run_batched", lambda: get_strategy(
+        "async").run_batched(spec, engine, steps=async_steps,
+                             trials=trials, eval_every=10, step_size=step),
+        {fused: async_updates})
+    with env_var("REPRO_FUSED", "0"):
+        asy0 = drive("async run REPRO_FUSED=0", lambda: get_strategy(
+            "async").run(spec, engine, steps=async_steps, step_size=step),
+            {})
     t_main = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -2632,7 +2799,8 @@ def main(argv=None) -> int:
                       ("coded-lbfgs run", lb.objective),
                       ("coded-lbfgs run_batched", lbb.objective),
                       ("coded-bcd run", bcd.objective),
-                      ("async run", asy.objective)):
+                      ("async run", asy.objective),
+                      ("async run_batched", asyb.objective)):
         tr = np.asarray(tr)
         require(np.isfinite(tr).all(), f"{label}: non-finite objective")
         require((tr[..., -1] < tr[..., 0]).all(),
@@ -2645,10 +2813,19 @@ def main(argv=None) -> int:
             "run_batched realization 0 != run at the same steps")
     require(np.array_equal(lbb.objective[0], lb.objective),
             "coded-lbfgs run_batched realization 0 != run")
+    require(np.array_equal(asyb.objective[0], asy.objective[9::10]) and
+            np.array_equal(asyb.w[0], asy.w),
+            "async run_batched realization 0 != run at the same updates")
+    asy_rel = rel_max(asy0.objective, asy.objective)
+    # f32 sums in another order: the kernel's tree against two gemvs
+    require(asy_rel <= 1e-4, f"async REPRO_FUSED=0 trace vs fused rel "
+                             f"{asy_rel:.2e}")
     print(f"coded-bcd: lifted blocks (m, n, N/m) = ({m}, {n}, "
           f"{bcd.w.shape[-1]}); async: {asy.meta['updates']} updates, "
           f"max staleness {asy.meta['max_staleness']}, dropped "
-          f"{asy.meta['dropped']}")
+          f"{asy.meta['dropped']}; run_batched realization 0 == run bit "
+          f"for bit; REPRO_FUSED=0 (two products an update) trace vs the "
+          f"fused: max rel diff {asy_rel:.2e} (tol 1e-4)")
     dec_rel = float((D - cfg.beta * Xy).norm() / (cfg.beta * Xy).norm())
     blk_rel = float((B5 - E[5 * r:6 * r]).norm() / E[5 * r:6 * r].norm())
     require(dec_rel <= 1e-5, f"decode_t(encode(x)) != beta x: {dec_rel:.2e}")
@@ -2690,12 +2867,26 @@ def main(argv=None) -> int:
                                                              seed=0), m,
                                  *phi_quadratic(spec.y, device=dev),
                                  device=dev)
+    # async on the problem its strategy built (the uncoded encoder, beta
+    # 1), with its run's events, a stream ten times as long, and 4
+    # realizations
+    aprob = make_encoded_problem(spec.X, spec.y,
+                                 make_encoder("uncoded", n, beta=1.0), m,
+                                 lam=spec.lam, device=dev)
+    ev = asy.schedule
+    bound = asy.meta["staleness_bound"]
+    long_ev = engine.sample_async(10 * async_updates, bound)
+    bat_ev = engine.sample_asyncs(async_updates, bound, trials)
     graph_check(prob, lifted, {
         "run": res.schedule.masks, "batched": bat.schedules.masks,
         "prox": prox.schedule.masks, "bcd": bcd.schedule.masks,
         "bcd batched": engine.sample_schedules(bcd_steps, FastestK(k),
                                                4).masks},
-        step, bcd.meta["step_size"], k, smi)
+        step, bcd.meta["step_size"], k, smi, {
+            "prob": aprob, "step": asy.meta["step_size"], "B": bound + 1,
+            "run": (ev.workers, ev.staleness),
+            "long": (long_ev.workers, long_ev.staleness),
+            "batched": (bat_ev.workers, bat_ev.staleness)})
 
     # the workloads ------------------------------------------------------
     workloads_phase(dev, smi, drive)
@@ -2763,22 +2954,16 @@ def main(argv=None) -> int:
                                       v0),
                      f"{bcd_steps} coded-bcd steps captured")
     del lifted
-    aprob = make_encoded_problem(spec.X, spec.y,
-                                 make_encoder("uncoded", n, beta=1.0), m,
-                                 lam=spec.lam, device=dev)
-    ev = asy.schedule
-    bound = asy.meta["staleness_bound"]
     upd = [t / ev.updates for t in samples_ms(
         lambda: scan_async(aprob, ev.workers, ev.staleness,
                            asy.meta["step_size"], w0,
                            buffer_size=bound + 1), 5)]
-    print(f"async update (objective every update): {spread(upd, 'ms')}  "
-          f"[{smi}]")
-    device_breakdown(lambda: scan_async(aprob, ev.workers[:64],
-                                        ev.staleness[:64],
+    print(f"async update captured (objective every update, "
+          f"{ev.updates} updates): {spread(upd, 'ms')}  [{smi}]")
+    device_breakdown(lambda: scan_async(aprob, ev.workers, ev.staleness,
                                         asy.meta["step_size"], w0,
                                         buffer_size=bound + 1),
-                     "64 async updates")
+                     f"{ev.updates} async updates captured")
     del aprob
 
     # FWHT: one read and one write of the (p + 1, N) frame; the library

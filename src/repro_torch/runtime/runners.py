@@ -2,20 +2,22 @@
 asynchronous stale-gradient SGD.
 
 Port of ``src/repro/runtime/runners.py``, whose runners are each one
-jitted ``lax.scan``.  Here the GD, ISTA and BCD loops run in **blocks** of
-c steps (``_block_steps``: the least multiple of ``eval_every`` at or above
-10; a schedule's last block may be shorter).  A block reads and writes
-only tensors allocated before it: the iterate, updated in place, the
-hold-mode gradient carry, a mask block that one copy loads from the
-schedule before the block, and an objective block that one copy moves
-into the trace after it.  On a card, block 0 runs eagerly (it is also the
-warm-up: the kernel library's build and per-card attributes, cuBLAS's
-handle); the next full block is **captured** once into a CUDA graph on a
-side stream, which executes nothing; and that block and every later full
-block is a **replay** of the graph, so the host enqueues three calls every
-c steps, not every op of every step.  A shorter last block runs
-eagerly.  The capture takes the place of the reference's trace and
-compile of its scan: its host seconds add to
+jitted ``lax.scan``.  Here every loop runs in **blocks** of c steps
+(``_block_steps``: the least multiple of ``eval_every`` at or above 10;
+a schedule's last block may be shorter); an async update counts as a
+step.  A block reads and writes only tensors allocated before it: the
+iterate, updated in place, the hold-mode gradient carry or the async ring
+of stale iterates, index blocks that ``load`` fills from the schedule or
+the event stream before the block (masks; for async the one-hot worker
+masks and the ring's read and write slots), and an objective block that
+one copy moves into the trace after it.  On a card, block 0 runs eagerly
+(it is also the warm-up: the kernel library's build and per-card
+attributes, cuBLAS's handle); the next full block is **captured** once
+into a CUDA graph on a side stream, which executes nothing; and that
+block and every later full block is a **replay** of the graph, so the
+host enqueues a few calls every c steps, not every op of every step.  A
+shorter last block runs eagerly.  The capture takes the place of the
+reference's trace and compile of its scan: its host seconds add to
 ``kernels._build.capture_seconds`` (``obs.timing.CompileWatch`` counts
 them as compile time) and it is the obs span ``runner:capture``.  A
 capture that fails raises, naming the runner and the block; nothing falls
@@ -31,9 +33,14 @@ Every GD / ISTA step takes the masked gradient as the reference's
 ``_masked_grad`` does: one call of the fused kernel
 (``kernels/fused_step.py``) when ``fused_enabled()`` (on unless
 ``REPRO_FUSED`` turns it off), else ``core.data_parallel.masked_gradient``
-for each realization, whose combine is the coded-combine kernel.  Either
-way the problem's device decides between the CUDA kernel and its plain
-PyTorch version.
+for each realization, whose combine is the coded-combine kernel.  Every
+async update is the same kernel with the arriving worker as a one-hot
+mask (k = 1, so its weight m / (n beta) is the reference's scale), one
+launch for all R realizations, which reads only that worker's rows; with
+``REPRO_FUSED=0`` it is the reference's own form, the worker's block
+gathered by its device index and two plain products a realization.
+Either way the problem's device decides between the CUDA kernel and its
+plain PyTorch version.
 
 One implementation serves the single and the batched runners: a single
 run is the batched loop at R = 1, so ``batched_scan_*`` at R = 1 equals
@@ -43,25 +50,22 @@ batched (or cell-batched) run equals the same realization run alone.
 ``eval_every=s`` records f after steps s, 2s, ... (every s-th entry of the
 dense trace), as the reference does.
 
-The BCD and async runners make plain products (``torch.einsum`` /
-``torch.matmul`` in full float32), as the reference leaves them to XLA; no
-kernel of the port is on their path.  Their batched forms run each
-realization's products on its own, one realization after the other within
-a step, so a realization never depends on the batch around it.  The async
-runner stays a loop over updates, each enqueued from the host: update u
-reads the block of worker ``workers[u]`` and a ring slot set by
-``staleness[u]``, host integers that change every update.
+The BCD runners make plain products (``torch.einsum`` / ``torch.matmul``
+in full float32), as the reference leaves them to XLA; no kernel of the
+port is on their path.  Their batched form runs each realization's
+products on its own, one realization after the other within a step, so a
+realization never depends on the batch around it.
 
 The sharded runners split the realization axis over every visible card,
 as the reference's ``shard_map`` over a ``trials`` mesh axis does: each
 card runs the batched loop over its contiguous chunk of realizations on
 its own copy of the problem, with no collective, and the results are
 gathered back in order, so realization r equals the batched run's bit for
-bit.  The loops are generators that yield once a block (``_steps``) or
-once an update (``_async_steps``), so one host thread advances every
-card's chunk in turn: a replay a card every c steps.  Each chunk captures
-its own graph with its card current, and each kernel launches with its
-operands' card current (``kernels/_build.launch``).
+bit.  The loops are generators that yield once a block (``_steps``,
+``_async_updates``), so one host thread advances every card's chunk in
+turn: a replay a card every c steps.  Each chunk captures its own graph
+with its card current, and each kernel launches with its operands' card
+current (``kernels/_build.launch``).
 """
 from __future__ import annotations
 
@@ -160,7 +164,9 @@ def _objectives(prob: EncodedProblem, W: torch.Tensor, h: str):
 # steps a block holds at least.  A capture costs 1.4-3.2 times an eager
 # block's host time and the replays start after it (PAPER_RIDGE on an
 # H100, chip_smoke.py's "graph" lines), so the block is short; a replay's
-# three host calls stay far below ten steps of device work
+# three host calls stay far below ten steps of device work.  Async updates
+# take the same length: 10 ran faster than 20 and 40 at 320 and 3200
+# updates
 _BLOCK_STEPS = 10
 
 
@@ -504,49 +510,126 @@ def batched_scan_bcd(prob: LiftedProblem, masks, step_size, v0,
 # Asynchronous stale-gradient SGD
 # ---------------------------------------------------------------------------
 
-def _async_steps(prob: EncodedProblem, workers, staleness, step_size, w0,
-                 buffer_size: int, h: str, eval_every: int):
-    """One realization's event stream as a generator that yields once an
-    update and returns (w, trace).  The ring buffer of the last
-    ``buffer_size`` iterates lives on the device; update u reads slot
-    (u - tau_u) mod B, the iterate worker i_u last read (head == u before
-    update u).  Worker ids and staleness come from the host engine, so the
-    slots are host integers and nothing in the loop reads the device."""
-    dev = prob.device
+def _async_slots(workers, staleness, buffer_size: int, m: int):
+    """The event streams' device indices, built once on the host before
+    the run: (U, R) workers, (U, R) read slots (u - tau_u) mod B, the
+    iterate worker i_u last read (head == u before update u), and (U,)
+    write slots (u + 1) mod B."""
     workers = np.asarray(torch.as_tensor(workers).cpu(), dtype=np.int64)
     staleness = np.asarray(torch.as_tensor(staleness).cpu(), dtype=np.int64)
-    U = workers.shape[0]
+    if workers.ndim != 2 or staleness.shape != workers.shape:
+        raise ValueError(f"expected (R, U) workers and staleness, got "
+                         f"{workers.shape} and {staleness.shape}")
+    if workers.size and (workers.min() < 0 or workers.max() >= m):
+        raise ValueError(f"worker ids must lie in [0, {m}), got "
+                         f"[{workers.min()}, {workers.max()}]")
+    u = np.arange(workers.shape[1])
+    return (workers.T.copy(), ((u - staleness) % buffer_size).T.copy(),
+            (u + 1) % buffer_size)
+
+
+def _async_updates(prob: EncodedProblem, workers, staleness, step_size, w0,
+                   buffer_size: int, h: str, eval_every: int,
+                   capture: bool = True):
+    """R realizations' event streams (workers / staleness (R, U), w0
+    (R, p)) as blocks of ``_block_steps(eval_every)`` updates (module
+    docstring), a generator that yields once a block and returns (W (R, p),
+    trace (R, U // eval_every)).  The ring of the last ``buffer_size``
+    iterates, (R, B, p), lives on the device; update u gathers each
+    realization's stale iterate by its read slot, takes its gradient at
+    it, steps, and writes the new iterate into the write slot, reading
+    before writing, so staleness 0 with B = 1 reads the current iterate.
+    Every index comes from a block of device buffers that ``load`` fills:
+    a graph replays what its capture recorded, so a slot taken as a host
+    integer would be the same in every replay.  ``capture=False`` runs
+    every block eagerly on a card too (the A/B checks)."""
+    dev = prob.device
+    m = prob.SX.shape[0]
+    wk, rs, ws = (torch.as_tensor(a, device=dev) for a in _async_slots(
+        workers, staleness, buffer_size, m))
+    U, R = wk.shape
     if eval_every < 1 or U % eval_every:
         raise ValueError(f"eval_every={eval_every} must be a positive "
                          f"divisor of the {U}-update stream")
-    m = prob.SX.shape[0]
+    W = torch.as_tensor(w0, dtype=torch.float32, device=dev).clone()
+    ring = W[:, None].repeat(1, buffer_size, 1)
+    c = _block_steps(eval_every)
+    step = _step_vector(step_size, R, dev)[:, None]
     scale = m / (prob.n * prob.beta)
-    w = torch.as_tensor(w0, dtype=torch.float32, device=dev)
-    buf = w[None].repeat(buffer_size, 1)
-    trace = torch.empty(U // eval_every, dtype=torch.float32, device=dev)
-    for u in range(U):
-        i = int(workers[u])
-        w_stale = buf[(u - int(staleness[u])) % buffer_size]
-        SXi = prob.SX[i]                       # (r, p) block of worker i
-        r = torch.matmul(SXi, w_stale) - prob.Sy[i]
-        g = torch.matmul(SXi.T, r) * scale
-        if h == "l2":
-            g = g + prob.lam * w_stale
-        w = w - step_size * g
-        buf[(u + 1) % buffer_size] = w
-        if (u + 1) % eval_every == 0:
-            trace[(u + 1) // eval_every - 1] = original_objective(prob, w,
-                                                                  h=h)
-        yield
-    return w, trace
+    trace = torch.empty((R, U // eval_every), dtype=torch.float32,
+                        device=dev)
+    rows = torch.arange(R, device=dev)
+    cb = min(c, U)
+    rblk = torch.empty((cb, R), dtype=torch.int64, device=dev)
+    wsblk = torch.empty(cb, dtype=torch.int64, device=dev)
+    oblk = torch.empty((R, cb // eval_every), dtype=torch.float32,
+                       device=dev)
+    fused = fused_enabled()
+    if fused:
+        # the arriving worker as a one-hot mask: k = 1, so the kernel's
+        # c_i = m / (n beta), the reference's scale
+        mblk = torch.empty((cb, R, m), dtype=torch.float32, device=dev)
+    else:
+        wblk = torch.empty((cb, R), dtype=torch.int64, device=dev)
+
+    def grad(i: int, W_stale: torch.Tensor) -> torch.Tensor:
+        if fused:
+            return fused_masked_gradient(prob.SX, prob.Sy, W_stale, mblk[i],
+                                         n=prob.n, beta=prob.beta)
+        # the reference's own form, a realization at a time: the worker's
+        # block gathered by its device index, then two plain products
+        out = []
+        for q in range(R):
+            i_u = wblk[i, q:q + 1]
+            SXi = prob.SX.index_select(0, i_u)[0]          # (r, p)
+            r = torch.matmul(SXi, W_stale[q]) - prob.Sy.index_select(
+                0, i_u)[0]
+            out.append(torch.matmul(SXi.T, r) * scale)
+        return torch.stack(out)
+
+    def block(n: int) -> None:
+        for i in range(n):
+            W_stale = ring[rows, rblk[i]]                   # (R, p)
+            g = grad(i, W_stale)
+            if h == "l2":
+                g = g + prob.lam * W_stale
+            W.sub_(step * g)
+            ring.index_copy_(1, wsblk[i:i + 1], W[:, None])
+            if (i + 1) % eval_every == 0:
+                oblk[:, (i + 1) // eval_every - 1] = _objectives(prob, W, h)
+
+    def load(t0: int, n: int) -> None:
+        rblk[:n].copy_(rs[t0:t0 + n])
+        wsblk[:n].copy_(ws[t0:t0 + n])
+        if fused:
+            mblk[:n].zero_().scatter_(2, wk[t0:t0 + n, :, None], 1.0)
+        else:
+            wblk[:n].copy_(wk[t0:t0 + n])
+
+    def store(t0: int, n: int) -> None:
+        trace[:, t0 // eval_every:(t0 + n) // eval_every].copy_(
+            oblk[:, :n // eval_every])
+
+    yield from _blocks("runner:async", dev, U, c, load, block, store,
+                       capture)
+    return W, trace
 
 
 @full_f32_matmul
-def _async_run(prob: EncodedProblem, workers, staleness, step_size, w0,
-               buffer_size: int, h: str, eval_every: int):
-    """One realization's event stream (see ``_async_steps``)."""
-    return _drain(_async_steps(prob, workers, staleness, step_size, w0,
-                               buffer_size, h, eval_every))
+def _batched_async(prob, workers, staleness, step_size, w0, buffer_size, h,
+                   eval_every, capture: bool = True):
+    """R realizations' event streams (see ``_async_updates``)."""
+    return _drain(_async_updates(prob, workers, staleness, step_size, w0,
+                                 buffer_size, h, eval_every, capture))
+
+
+def _single_async(prob, workers, staleness, step_size, w0, buffer_size, h,
+                  eval_every):
+    w0 = torch.as_tensor(w0, dtype=torch.float32, device=prob.device)
+    W, tr = _batched_async(prob, torch.as_tensor(workers)[None],
+                           torch.as_tensor(staleness)[None], step_size,
+                           w0[None], buffer_size, h, eval_every)
+    return W[0], tr[0]
 
 
 def scan_async(prob: EncodedProblem, workers, staleness, step_size, w0,
@@ -563,28 +646,8 @@ def scan_async(prob: EncodedProblem, workers, staleness, step_size, w0,
     gradient.  Returns (w, trace) with trace[j] = f after update
     (j+1)*eval_every.
     """
-    return _traced_call("runner:async", _async_run, prob, workers, staleness,
-                        step_size, w0, buffer_size, h, eval_every)
-
-
-def _batched_async_steps(prob, workers, staleness, step_size, w0,
-                         buffer_size, h, eval_every):
-    """The realizations' event streams one after the other, as one
-    generator (once an update)."""
-    runs = []
-    for q in range(len(workers)):
-        runs.append((yield from _async_steps(
-            prob, workers[q], staleness[q], step_size, w0[q], buffer_size, h,
-            eval_every)))
-    return (torch.stack([w for w, _ in runs]),
-            torch.stack([tr for _, tr in runs]))
-
-
-@full_f32_matmul
-def _batched_async(prob, workers, staleness, step_size, w0, buffer_size, h,
-                   eval_every):
-    return _drain(_batched_async_steps(prob, workers, staleness, step_size,
-                                       w0, buffer_size, h, eval_every))
+    return _traced_call("runner:async", _single_async, prob, workers,
+                        staleness, step_size, w0, buffer_size, h, eval_every)
 
 
 def batched_scan_async(prob: EncodedProblem, workers, staleness, step_size,
@@ -593,8 +656,9 @@ def batched_scan_async(prob: EncodedProblem, workers, staleness, step_size,
     """R realizations of async stale-gradient SGD.
 
     workers/staleness: (R, U) stacked event streams; w0: (R, p).  Returns
-    (w (R, p), trace (R, U // eval_every)).  Each realization is its own
-    event loop (the event streams differ), so realization r equals
+    (w (R, p), trace (R, U // eval_every)).  The realizations step together,
+    one kernel launch an update for all R, and neither the kernel's sums
+    nor the objective depend on the batch, so realization r equals
     ``scan_async`` on its stream bit for bit.
     """
     name = "runner:async" if len(workers) == 1 else "runner:batched_async"
@@ -634,15 +698,15 @@ def _sharded_run(devices, kind: str, prob: EncodedProblem, *args, **kw):
     """Realizations split over ``devices`` (entries may repeat): chunk j,
     realizations [j R/ndev, (j+1) R/ndev), runs on ``devices[j]`` against
     its own copy of the problem.  One host thread advances the chunks in
-    turn, each with its device current.  ``kind`` "gd" / "prox" takes
-    ``_steps``'s (masks, step_size, w0) and keywords, a (R,) step vector
-    split with its chunk, one block of each chunk in turn: on cards, each
-    chunk captures its own graph with its card current and the host
-    enqueues a replay a card every block.  "async" takes
-    ``_batched_async``'s (workers, staleness, step_size, w0, buffer_size,
-    h, eval_every), one update of each chunk in turn.  A host thread a
-    card, measured on an H100 with the step loop uncaptured, ran a step
-    2.3x slower than one thread (PERF.md, "sharded").  Returns (w, trace)
+    turn, each with its device current, one block of each chunk in turn:
+    on cards, each chunk captures its own graph with its card current and
+    the host enqueues a replay a card every block.  ``kind`` "gd" / "prox"
+    takes ``_steps``'s (masks, step_size, w0) and keywords, a (R,) step
+    vector split with its chunk; "async" takes ``_async_updates``'s
+    (workers, staleness, step_size, w0, buffer_size, h, eval_every), the
+    event streams split with their realizations.  A host thread a card,
+    measured on an H100 with the step loop uncaptured, ran a step 2.3x
+    slower than one thread (PERF.md, "sharded").  Returns (w, trace)
     gathered onto the problem's device in realization order.  A chunk that
     fails raises; none is run again elsewhere."""
     devices = [torch.device(d) for d in devices]
@@ -657,7 +721,7 @@ def _sharded_run(devices, kind: str, prob: EncodedProblem, *args, **kw):
         steps = functools.partial(_steps, kind=kind, **kw)
         split = (True, True, True)
     elif kind == "async":
-        steps = _batched_async_steps
+        steps = functools.partial(_async_updates, **kw)
         split = (True, True, False, True, False, False, False)
     else:
         raise KeyError(f"unknown sharded runner kind '{kind}'")

@@ -44,14 +44,19 @@ one combine and matches the CPU's loss and gradient norm to rel 1e-4.
 The runners' step loops captured into CUDA graphs and replayed block by
 block (GD / ISTA at R = 1 and 4, ``eval_every`` 1 and 5, hold-mode
 ``degrade``, ``REPRO_FUSED=0``, BCD single and batched, two chunks of one
-card) equal the same runs uncaptured bit for bit, with the same launch
-counts, and capture one graph a run (a chunk).
+card; async single and batched, rings of 1, 7 and 9 slots, two chunks of
+one card) equal the same runs uncaptured bit for bit, with the same
+launch counts (one fused launch an async update, none under
+``REPRO_FUSED=0``), and capture one graph a run (a chunk); the fused
+kernel with one-hot masks (an async update's gradient) matches its plain
+version, rows equal to single calls, and async on the card matches the
+CPU to rel 1e-5.
 With two cards or more (the ``two_cards`` fixture skips below two): each
 kernel launched with its operands on the last card while card 0 is
 current equals the same call on card 0 bit for bit, operands on two
 cards raise before any launch, and the sharded runners split the
 realization axis over every card, bit for bit the batched run, captured
-on every card.
+on every card (async too).
 """
 import numpy as np
 import pytest
@@ -602,6 +607,90 @@ def test_captured_chunks_on_one_card_equal_batched(cuda):
         [cuda, cuda], "gd", prob, masks, 0.01, w0, **kw))
     (wb, tb), lb, nb = _counted_run(lambda: runners.batched_scan_gd(
         prob, masks, 0.01, w0))
+    assert (ns, nb) == (2, 1)
+    assert torch.equal(ws, wb) and torch.equal(ts, tb)
+    assert ls == {"fused_masked_gradient": 100} and \
+        lb == {"fused_masked_gradient": 50}
+
+
+@pytest.mark.parametrize("ids", [[5], [3, 17, 0, 31], [9, 9, 9, 9]])
+def test_fused_kernel_one_hot_masks(cuda, ids):
+    """An async update's gradient: one worker a realization (k = 1), the
+    kernel against its plain version, rows equal to single calls."""
+    SX, Sy, W, _ = _fused(cuda, 32, 16, 600, R=len(ids), seed=13)
+    oh = torch.tensor(np.eye(32, dtype=np.float32)[ids], device=cuda)
+    before = launches["fused_masked_gradient"]
+    out = fused_masked_gradient(SX, Sy, W, oh, n=512, beta=1.0)
+    assert launches["fused_masked_gradient"] == before + 1
+    _close(out, fused_masked_gradient_plain(SX, Sy, W, oh, n=512, beta=1.0),
+           1e-4)
+    for q in range(len(ids)):
+        assert torch.equal(out[q], fused_masked_gradient(
+            SX, Sy, W[q], oh[q], n=512, beta=1.0))
+
+
+def _events(R, U, B, m=8, seed=14):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, m, (R, U)), rng.integers(0, B, (R, U))
+
+
+@pytest.mark.parametrize("R,B,eval_every,fused", [
+    (1, 7, 1, "1"), (4, 9, 5, "1"), (1, 1, 1, "1"), (3, 7, 1, "0")])
+def test_captured_async_equals_uncaptured(cuda, monkeypatch, R, B,
+                                          eval_every, fused):
+    """65 updates (block 1 captured and replayed with blocks 2-5, the tail
+    eager; rings of 7 and 9 slots divide no block, so each block's slots
+    differ): bit for bit the uncaptured run, one fused launch an update
+    (none under REPRO_FUSED=0), one capture."""
+    from repro_torch.runtime import runners
+    monkeypatch.setenv("REPRO_FUSED", fused)
+    prob = _small_problem(cuda)
+    U = 65
+    workers, staleness = _events(R, U, B)
+    w0 = torch.zeros((R, 24), device=cuda)
+    runs = {cap: _counted_run(lambda cap=cap: runners._batched_async(
+        prob, workers, staleness, 0.01, w0, B, "l2", eval_every, cap))
+        for cap in (True, False)}
+    (wc, tc), lc, nc = runs[True]
+    (we, te), le, ne = runs[False]
+    assert (nc, ne) == (1, 0)
+    assert torch.equal(wc, we) and torch.equal(tc, te)
+    assert lc == le == ({"fused_masked_gradient": U} if fused == "1"
+                        else {})
+
+
+def test_async_on_card_matches_cpu(cuda):
+    """Single and batched async on the card against the same runs on the
+    CPU (rel 1e-5); batched row r equals the single run bit for bit."""
+    from repro_torch.runtime import batched_scan_async, scan_async
+    gpu = _small_problem(cuda)
+    cpu = _cpu_copy(gpu)
+    workers, staleness = _events(3, 45, 9, seed=15)
+    W0 = torch.zeros((3, 24))
+    W, tr = batched_scan_async(gpu, workers, staleness, 0.01, W0.to(cuda),
+                               buffer_size=9)
+    Wc, trc = batched_scan_async(cpu, workers, staleness, 0.01, W0,
+                                 buffer_size=9)
+    _close(tr.cpu(), trc, 1e-5)
+    _close(W.cpu(), Wc, 1e-4)
+    for q in range(3):
+        w1, tr1 = scan_async(gpu, workers[q], staleness[q], 0.01,
+                             W0[q].to(cuda), buffer_size=9)
+        assert torch.equal(W[q], w1) and torch.equal(tr[q], tr1)
+
+
+def test_captured_async_chunks_on_one_card_equal_batched(cuda):
+    """Two async chunks of card 0, each captured with its own graph: bit
+    for bit the batched run, one fused launch an update on each chunk."""
+    from repro_torch.runtime import runners
+    prob = _small_problem(cuda)
+    workers, staleness = _events(4, 50, 9, seed=16)
+    args = (workers, staleness, 0.01, torch.zeros((4, 24), device=cuda), 9,
+            "l2", 1)
+    (ws, ts), ls, ns = _counted_run(lambda: runners._sharded_run(
+        [cuda, cuda], "async", prob, *args))
+    (wb, tb), lb, nb = _counted_run(lambda: runners.batched_scan_async(
+        prob, *args[:5]))
     assert (ns, nb) == (2, 1)
     assert torch.equal(ws, wb) and torch.equal(ts, tb)
     assert ls == {"fused_masked_gradient": 100} and \
@@ -1288,4 +1377,31 @@ def test_sharded_runners_capture_on_every_card(two_cards):
     assert got == ndev and _build.captures == captures + ndev
     assert launches["fused_masked_gradient"] == before + T * ndev
     wb, tb = runners.batched_scan_prox(prob, masks, 1e-3, w0, eval_every=5)
+    assert torch.equal(w, wb) and torch.equal(tr, tb)
+
+
+def test_sharded_async_captures_on_every_card(two_cards):
+    """50 async updates over every card: a graph a card, one fused launch
+    an update on each, bit for bit the batched run."""
+    from repro_torch.kernels import _build
+    from repro_torch.runtime import runners
+    first, _ = two_cards
+    ndev = torch.cuda.device_count()
+    g = torch.Generator().manual_seed(3)
+    m, r, p, n, R, U = 8, 64, 600, 512, 2 * ndev, 50
+    prob = EncodedProblem(SX=torch.randn((m, r, p), generator=g),
+                          Sy=torch.randn((m, r), generator=g),
+                          X=torch.randn((n, p), generator=g),
+                          y=torch.randn(n, generator=g), lam=0.05, beta=1.0,
+                          n=n).to(first)
+    workers, staleness = _events(R, U, 9, m=m, seed=17)
+    w0 = torch.zeros((R, p), device=first)
+    before, captures = launches["fused_masked_gradient"], _build.captures
+    w, tr, got = runners.sharded_scan_async(prob, workers, staleness, 1e-4,
+                                            w0, buffer_size=9)
+    torch.cuda.synchronize()
+    assert got == ndev and _build.captures == captures + ndev
+    assert launches["fused_masked_gradient"] == before + U * ndev
+    wb, tb = runners.batched_scan_async(prob, workers, staleness, 1e-4, w0,
+                                        buffer_size=9)
     assert torch.equal(w, wb) and torch.equal(tr, tb)
