@@ -6,7 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (``--phase sharded`` runs the device probe, the build and the sharded
-phase alone: on a host with several cards, the split over all of them.)
+phase alone: on a host with several cards, the split over all of them;
+``--phase serve`` the device probe and the serve phase alone.)
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
@@ -203,10 +204,31 @@ Phases, each of which ends the run with a non-zero exit on failure:
              prompt 4096, 16 decode steps, the same times and the
              assignments the prefill drops for capacity; (4) xlstm-350m
              whole (arXiv:2405.04517), 393 131 104 parameters, batch 2,
-             prompt 1024, 16 decode steps, the same times; (5)
-             ``python -m repro_torch.serve --arch gemma2-27b`` through
-             ``main(argv)`` on the card, in-process; the phase's host
-             seconds;
+             prompt 1024, 16 decode steps, the same times; its sLSTM
+             token loop and mLSTM chunk loop run as blocks captured once
+             a block shape into CUDA graphs (``repro_torch.graphs.scan``)
+             and replayed: the captures printed (one a loop shape across
+             the layers and the calls), the prefill captured equal to the
+             same blocks run eagerly (``graphs.capturing(False)``) bit for
+             bit in the logits and every cache leaf, both timed in turns
+             (CUDA events, medians of five, every sample), the loops'
+             share of a captured prefill (CUDA events around each scan),
+             its profiler breakdown and idle share, and the captured
+             prefill with sLSTM blocks of 16, 32, 64 and 128 tokens;
+             (5) jamba-1.5-large-398b at its published width
+             (arXiv:2403.19887), depth cut to the first three blocks of
+             its period (attention, Mamba with MoE, Mamba dense; a
+             ``reduced:`` line), 12 400 353 280 parameters in bfloat16,
+             batch 1, prompt 8192, 16 decode steps: the times of (2), the
+             capacity drops, then (4)'s captured-against-eager checks and
+             times for its Mamba chunk loop (no float32 consistency
+             check: 49.6 GB of float32 parameters and 64 heads' 17 GB of
+             float32 scores over 8193 tokens do not fit one card);
+             ``graphs.clear()`` between the models, so
+             one model's graph pools do not count in the next one's peak
+             memory; (6) ``python -m repro_torch.serve --arch
+             gemma2-27b`` through ``main(argv)`` on the card,
+             in-process; the phase's host seconds;
    launch  - the launchers (``repro_torch.launch``, ``repro_torch.sharding``),
              each entry driven with the launch counts cleared just before
              and read just after: (1) ``python -m repro_torch.launch.train
@@ -1784,16 +1806,127 @@ def serve_consistency(g: dict, cfg, S: int) -> None:
           f"{scale:.3f} (tol 1e-3)")
 
 
+def scan_events(fn) -> tuple[float, dict]:
+    """(ms of one call of ``fn``, {loop name: ms inside its
+    ``graphs.scan`` calls}) by CUDA events around the call and around each
+    scan in it: the recurrences' share of a prefill."""
+    import torch
+    from repro_torch import graphs
+    inner, marks = graphs.scan, []
+
+    def timed_scan(name, *args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(name, *args, **kwargs)
+        b.record()
+        marks.append((name, a, b))
+        return out
+    graphs.scan = timed_scan
+    try:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+    finally:
+        graphs.scan = inner
+    by: dict[str, float] = {}
+    for name, x, y in marks:
+        by[name] = by.get(name, 0.0) + x.elapsed_time(y)
+    return a.elapsed_time(b), by
+
+
+def scan_ab(label: str, g: dict, loops: list, smi: str) -> None:
+    """``serve_at_width``'s prefill with the model zoo's recurrences
+    captured (``graphs.scan``, as users run it) against the same blocks
+    run eagerly (``graphs.capturing(False)``): the captures (one a loop
+    shape, across the layers and every call so far), logits and every
+    cache leaf bit for bit, the prefill's time both ways in turns
+    (medians of five, every sample), the loops' share of a captured
+    prefill and its profiler breakdown with the device's idle share."""
+    import torch
+    from repro_torch import graphs
+    from repro_torch.tree import tree_leaves
+    pre = g["prefill"]
+    keys = graphs.cached()
+    names = sorted(k[0] for k in keys)
+    require(names == sorted(loops), f"{label}: captured block shapes "
+            f"{names}, expected one each of {sorted(loops)}")
+    print(f"serve {label}: captures {len(keys)} (one a loop shape, every "
+          f"layer and prefill so far): " + "; ".join(
+              f"{k[0]} block of {k[2]} ({len(k[3])} weights, inputs "
+              f"{[list(s) for s, _ in k[4]]})" for k in keys))
+    with torch.no_grad():
+        lc, cc = pre()
+        with graphs.capturing(False):
+            le, ce = pre()
+        a, b = tree_leaves(cc), tree_leaves(ce)
+        same = torch.equal(lc, le) and len(a) == len(b) and all(
+            torch.equal(x, y) for x, y in zip(a, b))
+        require(same, f"{label}: captured prefill differs from the eager "
+                      f"blocks")
+        n_leaves = len(a)
+        del lc, cc, le, ce, a, b
+        t = {"captured": [], "eager": []}
+        for mode in ["captured", "eager", "eager", "captured"] * 2 + [
+                "captured", "eager"]:
+            with (contextlib.nullcontext() if mode == "captured"
+                  else graphs.capturing(False)):
+                t[mode] += samples_ms(pre, 1, warmup=0)
+        total, by = scan_events(pre)
+    require(graphs.cached() == keys, f"{label}: new captures while timing")
+    med = {k: sorted(v)[2] for k, v in t.items()}
+    print(f"serve {label} prefill captured == eager bit for bit (logits and "
+          f"{len(tree_leaves(g['prefill']()[1]))} cache leaves); captured "
+          f"{spread(t['captured'], 'ms')}; eager {spread(t['eager'], 'ms')};"
+          f" eager / captured {med['eager'] / med['captured']:.2f}  [{smi}]")
+    print(f"serve {label} captured prefill {total:.2f} ms, inside the loops "
+          + ", ".join(f"{k} {v:.2f} ms ({v / total:.2f})"
+                      for k, v in sorted(by.items())) + f"  [{smi}]")
+    with torch.no_grad():
+        device_breakdown(pre, f"{label} prefill captured")
+
+
+def slstm_block_sweep(pre, smi: str) -> None:
+    """xlstm-350m's captured prefill with the sLSTM loop in blocks of 16,
+    32, 64 and 128 tokens (``models.xlstm._SLSTM_BLOCK``), two warm-up
+    calls each (the capture), then three samples each in turns."""
+    import torch
+    from repro_torch.models import xlstm as xl
+    kept = xl._SLSTM_BLOCK
+    times = {c: [] for c in (16, 32, 64, 128)}
+    try:
+        with torch.no_grad():
+            for c in times:
+                xl._SLSTM_BLOCK = c
+                pre()
+                pre()
+            for _ in range(3):
+                for c in times:
+                    xl._SLSTM_BLOCK = c
+                    times[c] += samples_ms(pre, 1, warmup=0)
+    finally:
+        xl._SLSTM_BLOCK = kept
+    best = min(times, key=lambda c: sorted(times[c])[1])
+    print("serve xlstm-350m prefill by sLSTM block (tokens a replay): "
+          + "; ".join(f"{c}: {spread(v, 'ms')}" for c, v in times.items())
+          + f"; fastest {best}, the port keeps {kept}  [{smi}]")
+
+
 def serve_phase(smi: str) -> None:
     """The model zoo's serve path on the card (module docstring, phase
     "serve"): no kernel of the port runs here, and the launch counters,
     cleared at the start, must read zero at the end."""
     import numpy as np
     import torch
+    from repro_torch import graphs
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import _build
     from repro_torch.models import (count_params, decode_step, init_params,
                                     prefill)
+    from repro_torch.models import xlstm as xl
     from repro_torch.serve import main as serve_main
     from repro_torch.serve import serve_inputs
     from repro_torch.tree import tree_leaves, tree_map
@@ -1874,16 +2007,40 @@ def serve_phase(smi: str) -> None:
     torch.cuda.empty_cache()
 
     # (4) xlstm-350m whole
+    graphs.clear()
     xcfg = ARCHS["xlstm-350m"]
     n_x = int(count_params(xcfg))
     require(n_x == 393131104, f"xlstm-350m: {n_x} parameters")
     print(f"xlstm-350m (arXiv:2405.04517) whole: 24 layers (12 mLSTM, 12 "
           f"sLSTM), d_model 1024, bfloat16, {n_x} parameters; the sLSTM "
-          f"layers run a Python loop of one step a token (host-paced)")
-    serve_at_width("xlstm-350m", xcfg, 2, 1024, 16, smi, dev)
-    torch.cuda.empty_cache()
+          f"token loop (blocks of {xl._SLSTM_BLOCK} tokens) and the mLSTM "
+          f"chunk loop (a chunk of {xcfg.mamba_chunk} a block) captured "
+          f"once a block shape into CUDA graphs and replayed")
+    g = serve_at_width("xlstm-350m", xcfg, 2, 1024, 16, smi, dev)
+    scan_ab("xlstm-350m", g, ["mlstm", "slstm"], smi)
+    slstm_block_sweep(g["prefill"], smi)
+    del g
+    graphs.clear()
 
-    # (5) the serve CLI, in-process, on the card
+    # (5) jamba-1.5-large at its published width, depth cut to the first
+    # three blocks of its period
+    jcfg = ARCHS["jamba-1.5-large-398b"]
+    jcfg = jcfg.with_overrides(n_layers=3, period=jcfg.period[:3])
+    n_j = int(count_params(jcfg))
+    require(n_j == 12400353280, f"jamba-1.5-large 3 layers: {n_j} "
+                                f"parameters")
+    print(f"reduced: jamba-1.5-large-398b (arXiv:2403.19887) layers 72 -> 3 "
+          f"(the first three blocks of its period of 8: attention, Mamba "
+          f"with MoE, Mamba dense); kept: d_model 8192, 64 heads (8 KV), "
+          f"d_ff 24576, 16 experts top-2, Mamba d_state 16, expand 2, chunk "
+          f"{jcfg.mamba_chunk}, vocab 65536, bfloat16; {n_j} parameters")
+    g = serve_at_width("jamba-1.5-large", jcfg, 1, 8192, 16, smi, dev,
+                       count_drops=True)
+    scan_ab("jamba-1.5-large", g, ["mamba"], smi)
+    del g
+    graphs.clear()
+
+    # (6) the serve CLI, in-process, on the card
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = serve_main(["--arch", "gemma2-27b"])
@@ -2449,10 +2606,12 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one card "
                                  "(module docstring).")
-    ap.add_argument("--phase", choices=("all", "sharded"), default="all",
+    ap.add_argument("--phase", choices=("all", "sharded", "serve"),
+                    default="all",
                     help="'sharded': the build and the sharded phase alone "
                     "(on a host with several cards, the split over all of "
-                    "them); default: every phase")
+                    "them); 'serve': the serve phase alone (no build: it "
+                    "runs no kernel of the port); default: every phase")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2495,6 +2654,12 @@ def main(argv=None) -> int:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
     torch.backends.cudnn.allow_tf32 = False
+    if args.phase == "serve":
+        serve_phase(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()

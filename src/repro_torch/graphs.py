@@ -1,0 +1,231 @@
+"""CUDA graphs of the port's device loops: a block captured once, replayed.
+
+The reference runs each of its loops (the runners' step loops, the model
+zoo's recurrences) as one ``lax.scan`` that XLA compiles into one device
+program.  The port runs such a loop as **blocks** over static buffers
+and, on a card, captures a block into a CUDA graph and replays it, so the
+host enqueues a few calls a block rather than every op of every step.
+
+The capture itself (``_capture``, ``_Replay``, ``_counted``) serves two
+callers.  The runners (``runtime/runners.py``) capture a graph a run.
+``scan`` (the sLSTM token loop, the mLSTM and Mamba chunk loops in
+``models/``) keeps one graph a **block shape** for the life of the
+process, keyed by the loop's name, its device, the static buffers' shapes
+and dtypes and the block length: one capture serves every layer of that
+shape and every later call.  ``clear()`` drops the cached graphs and
+their memory pools.
+
+``scan`` never bakes a weight into a graph: the weights a block reads
+(``consts``) are copied into its static buffers at the start of every
+call that replays, the carried state before the first replay, and each
+block's inputs before its replay; each replay's outputs are copied out.
+A capture happens only where it can: every tensor of the loop on a CUDA
+card, none requiring grad, no functorch transform active (the train
+step's ``torch.func.grad``), no ``TorchDispatchMode`` active (the dry
+run's ``FlopCounterMode`` on the meta device), and ``capturing(False)``
+not in force.
+Elsewhere (the CPU, the meta device, training) the same block function
+runs eagerly, block by block, on the loop's own tensors, so the CPU tests
+run the code that the card captures.  An eager block takes its inputs
+contiguous, as a replay finds them in the static buffers: a product that
+folds a (B, c, ...) block into one matrix when it is contiguous and runs
+a batched product when it is a strided slice (``torch.matmul``) rounds
+otherwise on the card, and captured must equal eager bit for bit.  A capture that fails raises,
+naming the loop and the block; nothing falls back to the eager loop.
+
+Code inside a block must not read a value back to the host, synchronize,
+or allocate outside PyTorch's allocator: a replay repeats what its capture
+recorded.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
+
+from repro_torch.kernels import _build
+from repro_torch.obs.trace import span as _obs_span
+
+__all__ = ["scan", "clear", "capturing", "cached"]
+
+
+def _counted(fn) -> dict:
+    """Run ``fn()``; return the launches it counted
+    (``kernels._build.launches``) and take them back out of the counts."""
+    before = _build.launches.copy()
+    try:
+        fn()
+    finally:
+        counted = dict(_build.launches - before)
+        _build.launches.clear()
+        _build.launches.update(before)
+    return counted
+
+
+class _Replay:
+    """A captured block: ``replay()`` launches the graph on the current
+    stream of its card and adds the launches its capture counted, once."""
+
+    def __init__(self, graph, counted: dict):
+        self.graph = graph
+        self.counted = counted
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _build.launches.update(self.counted)
+
+
+def _capture(block, where: str, device: torch.device,
+             span: str = "runner:capture") -> _Replay:
+    """Capture ``block()`` into a CUDA graph on a side stream of
+    ``device``, with its own memory pool; the capture executes nothing.
+    Its host seconds add to ``kernels._build.capture_seconds`` and it is
+    the obs span ``span``.  Raises, naming ``where``, if the capture
+    fails."""
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+
+    def run():
+        with _obs_span(span), torch.cuda.stream(torch.cuda.Stream(device)):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                block()
+            finally:
+                graph.capture_end()
+    try:
+        counted = _counted(run)
+    except Exception as exc:
+        raise RuntimeError(f"{where}: capturing the block into a CUDA graph "
+                           f"on {device} failed: {exc}") from exc
+    finally:
+        _build.capture_seconds += time.perf_counter() - t0
+        _build.captures += 1
+    return _Replay(graph, counted)
+
+
+# -- the model zoo's loops: a graph a block shape -----------------------------
+
+class _Loop:
+    """A block shape of a ``scan``: static buffers for the weights, one
+    block's inputs and the carried state, and once captured, the graph
+    that reads them, writes the new state back into the carry buffers and
+    leaves the block's outputs in ``ys`` (tensors of its pool)."""
+
+    def __init__(self, consts, xs, carry):
+        def static(ts):
+            return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                         for t in ts)
+        self.consts, self.xs, self.carry = static(consts), static(xs), \
+            static(carry)
+        self.ys: tuple = ()
+        self.graph: _Replay | None = None
+
+    def capture(self, block, where: str, device: torch.device) -> None:
+        def body():
+            ys, carry = block(self.consts, self.xs, self.carry)
+            for buf, t in zip(self.carry, carry):
+                buf.copy_(t)
+            self.ys = tuple(ys)
+        self.graph = _capture(body, where, device, span="scan:capture")
+
+
+# (name, device, block length, static shapes and dtypes) -> _Loop
+_CACHE: dict[tuple, _Loop] = {}
+_capture_on = True
+
+
+@contextlib.contextmanager
+def capturing(on: bool):
+    """Within, ``scan`` captures (``True``, the default) or runs every
+    block eagerly, on a card too (``False``: the A/B checks of
+    ``chip_smoke.py`` and the tests)."""
+    global _capture_on
+    was, _capture_on = _capture_on, on
+    try:
+        yield
+    finally:
+        _capture_on = was
+
+
+def clear() -> None:
+    """Drop every cached block shape, its graph and its memory pool."""
+    _CACHE.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def cached() -> list[tuple]:
+    """The keys of the captured block shapes (one a capture)."""
+    return [key for key, loop in _CACHE.items() if loop.graph is not None]
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _capturable(tensors) -> bool:
+    """Whether a loop over ``tensors`` may run as captured blocks."""
+    if not _capture_on or not all(_on_card(t) for t in tensors):
+        return False
+    if any(t.requires_grad for t in tensors):
+        return False
+    return not (torch._C._are_functorch_transforms_active()
+                or is_in_torch_dispatch_mode())
+
+
+def _key(name: str, c: int, *groups) -> tuple:
+    dev = groups[0][0].device
+    return (name, str(dev), c) + tuple(
+        tuple((tuple(t.shape), t.dtype) for t in g) for g in groups)
+
+
+def scan(name: str, block, consts: tuple, xs: tuple, carry: tuple, *,
+         length: int, c: int):
+    """Run ``block(consts, xs_block, carry) -> (ys_block, carry)`` over
+    positions [0, length) of dim 1 of every tensor in ``xs``, in blocks of
+    c positions (a shorter last block when c does not divide ``length``).
+    Returns (the list of each block's ``ys``, the last carry).
+
+    On a card (module docstring) the first call for a block shape runs its
+    first full block eagerly (the warm-up: cuBLAS's handle and workspace
+    are set up outside any capture) and captures the shape at its next
+    full block, in this call or the next; from then on every full block
+    is a replay.  A shorter last block runs eagerly."""
+    capture = _capturable((*consts, *xs, *carry))
+    loop = None
+    ys = []
+    in_graph = False      # the carry lives in loop.carry
+    for b, t0 in enumerate(range(0, length, c)):
+        n = min(c, length - t0)
+        xb = tuple(x[:, t0:t0 + n] for x in xs)
+        if capture and n == c and loop is None:
+            key = _key(name, c, consts, xb, carry)
+            loop = _CACHE.get(key)
+            if loop is None:         # first sight: this block is the warm-up
+                _CACHE[key] = _Loop(consts, xb, carry)
+            else:
+                for buf, t in zip(loop.consts, consts):
+                    buf.copy_(t)
+        if loop is not None and n == c:
+            if loop.graph is None:
+                loop.capture(block, f"{name}, block {b} (positions {t0}-"
+                             f"{t0 + c - 1} of {length})", xb[0].device)
+            if not in_graph:
+                for buf, t in zip(loop.carry, carry):
+                    buf.copy_(t)
+                in_graph = True
+            for buf, t in zip(loop.xs, xb):
+                buf.copy_(t)
+            loop.graph.replay()
+            ys.append(tuple(t.clone() for t in loop.ys))
+        else:
+            if in_graph:
+                carry, in_graph = loop.carry, False
+            y, carry = block(consts, tuple(t.contiguous() for t in xb),
+                             carry)
+            ys.append(tuple(y))
+    if in_graph:
+        carry = tuple(t.clone() for t in loop.carry)
+    return ys, tuple(carry)

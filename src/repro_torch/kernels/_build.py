@@ -11,10 +11,10 @@ failed build raises: nothing falls back to the plain PyTorch versions.
 current stream: the library's per-card caches key on ``cudaGetDevice``.
 ``launches`` counts, per kernel wrapper, the calls that launched a kernel
 on the card (never the plain CPU path); ``chip_smoke.py`` clears it before
-driving the main path and reads it after.  A runner's CUDA graph capture
-takes its counts back and each replay adds them (``runtime.runners``).
+driving the main path and reads it after.  A CUDA graph capture takes its
+counts back and each replay adds them (``repro_torch.graphs``).
 ``build_seconds`` and ``builds`` add up the library's loads, and
-``capture_seconds`` and ``captures`` the runners' graph captures
+``capture_seconds`` and ``captures`` the graph captures
 (``obs.timing.CompileWatch`` reads their differences across a region to
 split build and capture time from run time).
 """
@@ -48,8 +48,9 @@ launches: collections.Counter = collections.Counter()
 # the link and the load), and the loads that ran ``nvcc``
 build_seconds = 0.0
 builds = 0
-# host seconds of the runners' CUDA graph captures in this process, and
-# their number (added by ``runtime.runners``)
+# host seconds of the CUDA graph captures in this process (the runners'
+# and the model zoo's loops), and their number (added by
+# ``repro_torch.graphs``)
 capture_seconds = 0.0
 captures = 0
 

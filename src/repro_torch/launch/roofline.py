@@ -100,7 +100,8 @@ def slstm_trips(steps: int):
     def cut(p, R, xz, xi, xf, xo, state):
         hs, state = full(p, R, xz[:, :steps], xi[:, :steps], xf[:, :steps],
                          xo[:, :steps], state)
-        return hs + [hs[-1]] * (xz.shape[1] - len(hs)), state
+        rest = hs[:, -1:].expand(-1, xz.shape[1] - steps, -1, -1)
+        return torch.cat([hs, rest], dim=1), state
 
     xl._slstm_loop = cut
     try:

@@ -3,8 +3,10 @@
 
 A CHUNKED PARALLEL SCAN, as in the reference: the sequence is split into
 chunks of ``cfg.mamba_chunk``; a loop carries the (B, d_inner, d_state)
-state across chunks, and within a chunk a log-step (Hillis-Steele) scan
-composes the recurrence
+state across chunks (``repro_torch.graphs.scan``, a chunk a block: on a
+card captured once a chunk shape into a CUDA graph and replayed, the
+counterpart of the reference's ``lax.scan``), and within a chunk a
+log-step (Hillis-Steele) scan composes the recurrence
 
     h_t = a_t * h_{t-1} + b_t,   a_t = exp(dt_t A),  b_t = dt_t B_t x_t
 
@@ -20,6 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import graphs
 from repro_torch.device import resolve_device
 
 from .common import pdef
@@ -103,6 +106,22 @@ def _chunk_scan(a, b):
     return a, b
 
 
+# the weights a chunk reads, copied into a captured chunk's static buffers
+_SCAN_WEIGHTS = ("x_proj", "dt_w", "dt_b", "A_log")
+
+
+def _chunk(consts, xs, carry):
+    """One chunk of the selective scan: ``consts`` the ``_SCAN_WEIGHTS``,
+    ``xs`` the chunk's convolved input (B, Q, di), ``carry`` the state h
+    (B, di, ds) float32 -> ((the chunk's y (B, Q, di) float32,), (h at the
+    chunk's end,))."""
+    (x_conv,), (h,) = xs, carry
+    a, b, Cm = _ssm_inputs(dict(zip(_SCAN_WEIGHTS, consts)), x_conv)
+    Ac, Bc = _chunk_scan(a, b)                             # (B,Q,di,ds)
+    hs = Ac * h[:, None] + Bc                              # (B,Q,di,ds)
+    return (torch.einsum("bqds,bqs->bqd", hs, Cm),), (hs[:, -1],)
+
+
 def mamba_apply(p, x, cfg, return_cache: bool = False):
     """Full-sequence forward. x: (B, S, d) -> (B, S, d) [, MambaCache]."""
     B, S, d = x.shape
@@ -122,14 +141,10 @@ def mamba_apply(p, x, cfg, return_cache: bool = False):
         x_conv = F.pad(x_conv, (0, 0, 0, Sp - S))
 
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-    ys = []
-    for lo in range(0, Sp, Q):
-        a, b, Cm = _ssm_inputs(p, x_conv[:, lo:lo + Q])    # (B,Q,di,ds)
-        Ac, Bc = _chunk_scan(a, b)
-        hs = Ac * h[:, None] + Bc                          # (B,Q,di,ds)
-        ys.append(torch.einsum("bqds,bqs->bqd", hs, Cm))   # (B,Q,di)
-        h = hs[:, -1]
-    y = torch.cat(ys, dim=1)[:, :S]
+    ys, (h,) = graphs.scan(
+        "mamba", _chunk, tuple(p[k] for k in _SCAN_WEIGHTS), (x_conv,), (h,),
+        length=Sp, c=Q)
+    y = torch.cat([y for (y,) in ys], dim=1)[:, :S]
     x_conv = x_conv[:, :S]
     y = y + p["D"].float() * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)

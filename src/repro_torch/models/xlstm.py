@@ -7,9 +7,12 @@ matrix state (C: dk x dv, n: dk, log-scale m) across chunks; within a chunk
 the output is computed in quadratic attention form with exponential-gating
 decay weights.  The upper triangle is masked with -inf and m starts at
 -1e30, as in the reference: exp(-inf) = 0 is what zeroes it.  sLSTM has
-genuine recurrent weights R h_{t-1} in every gate, so it runs as a Python
-loop over time, a step of small operations each (paced by the host on the
-card).
+genuine recurrent weights R h_{t-1} in every gate, so it runs one step a
+token, a step of small operations each.  Both loops run as blocks over
+static buffers (``repro_torch.graphs.scan``: a chunk a block for the
+mLSTM, ``_SLSTM_BLOCK`` tokens for the sLSTM), which a card captures once
+a block shape into a CUDA graph and replays, the counterpart of the
+reference's ``lax.scan``.
 
 Stabilization follows the xLSTM appendix: every exponential is taken relative
 to a running max m; the hidden read is h = num / max(|den|, exp(-m*)).
@@ -22,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import graphs
 from repro_torch.device import resolve_device
 
 from .common import pdef, rmsnorm
@@ -85,6 +89,42 @@ def _mlstm_qkvg(p, x):
     return q, k, v, li, lf, z, xm
 
 
+def _mlstm_chunk(consts, xs, carry):
+    """One chunk of the chunkwise recurrence: ``consts`` (the causal mask
+    ``tri``, (Q, Q) bool), ``xs`` the chunk's q, k, v (B, Q, H, dk) and log
+    gates li, lf (B, Q, H), ``carry`` (C, n, m) -> ((the chunk's hidden
+    states (B, Q, H, dk),), (C, n, m) at the chunk's end)."""
+    (tri,) = consts
+    qc, kc, vc, lic, lfc = xs
+    C, n, m = carry
+    Fc = torch.cumsum(lfc, dim=1)                        # (B,Q,H) log decay
+    # intra-chunk log weights: w[t,s] = F_t - F_s + li_s  (s <= t)
+    wl = (Fc[:, :, None] - Fc[:, None, :]
+          + lic[:, None, :, :])                          # (B,Qt,Qs,H)
+    wl = torch.where(tri[None, :, :, None], wl, -math.inf)
+    # inter: log weight of carried state at t: F_t + m
+    inter_l = Fc + m[:, None]                            # (B,Q,H)
+    mstar = torch.maximum(wl.amax(dim=2), inter_l)       # (B,Q,H)
+    wts = torch.exp(wl - mstar[:, :, None])              # (B,Qt,Qs,H)
+    scores = torch.einsum("bthk,bshk->btsh", qc, kc) * wts
+    num = torch.einsum("btsh,bshv->bthv", scores, vc)
+    den = scores.sum(dim=2)          # q.n intra part: sum_s w_ts (q.k_s)
+    w_int = torch.exp(inter_l - mstar)                   # (B,Q,H)
+    num = num + w_int[..., None] * torch.einsum("bthk,bhkv->bthv", qc, C)
+    den = den + w_int * torch.einsum("bthk,bhk->bth", qc, n)
+    h = num / torch.maximum(torch.abs(den), torch.exp(-mstar))[..., None]
+    # state update to end of chunk
+    total = Fc[:, -1]                                    # (B,H)
+    upd_l = total[:, None] - Fc + lic                    # (B,Q,H) weight of s
+    m_new = torch.maximum(total + m, upd_l.amax(dim=1))
+    wu = torch.exp(upd_l - m_new[:, None])               # (B,Q,H)
+    carryw = torch.exp(total + m - m_new)                # (B,H)
+    C = carryw[..., None, None] * C + torch.einsum(
+        "bshk,bsh,bshv->bhkv", kc, wu, vc)
+    n = carryw[..., None] * n + torch.einsum("bshk,bsh->bhk", kc, wu)
+    return (h,), (C, n, m_new)
+
+
 def mlstm_apply(p, x, cfg, return_cache: bool = False):
     """Full-sequence chunkwise mLSTM. x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
@@ -102,39 +142,12 @@ def mlstm_apply(p, x, cfg, return_cache: bool = False):
         li, lf = (F.pad(t, (0, 0, 0, pad)) for t in (li, lf))
         z = F.pad(z, (0, 0, 0, pad))
 
-    C, n, m = init_mlstm_cache(cfg, B, x.dtype, device=x.device)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    hs = []
-    for lo in range(0, Sp, Q):
-        qc, kc, vc, lic, lfc = (t[:, lo:lo + Q] for t in (q, k, v, li, lf))
-        Fc = torch.cumsum(lfc, dim=1)                    # (B,Q,H) log decay
-        # intra-chunk log weights: w[t,s] = F_t - F_s + li_s  (s <= t)
-        wl = (Fc[:, :, None] - Fc[:, None, :]
-              + lic[:, None, :, :])                      # (B,Qt,Qs,H)
-        wl = torch.where(tri[None, :, :, None], wl, -math.inf)
-        # inter: log weight of carried state at t: F_t + m
-        inter_l = Fc + m[:, None]                        # (B,Q,H)
-        mstar = torch.maximum(wl.amax(dim=2), inter_l)   # (B,Q,H)
-        wts = torch.exp(wl - mstar[:, :, None])          # (B,Qt,Qs,H)
-        scores = torch.einsum("bthk,bshk->btsh", qc, kc) * wts
-        num = torch.einsum("btsh,bshv->bthv", scores, vc)
-        den = scores.sum(dim=2)          # q.n intra part: sum_s w_ts (q.k_s)
-        w_int = torch.exp(inter_l - mstar)               # (B,Q,H)
-        num = num + w_int[..., None] * torch.einsum("bthk,bhkv->bthv", qc, C)
-        den = den + w_int * torch.einsum("bthk,bhk->bth", qc, n)
-        hs.append(num / torch.maximum(torch.abs(den),
-                                      torch.exp(-mstar))[..., None])
-        # state update to end of chunk
-        total = Fc[:, -1]                                # (B,H)
-        upd_l = total[:, None] - Fc + lic                # (B,Q,H) weight of s
-        m_new = torch.maximum(total + m, upd_l.amax(dim=1))
-        wu = torch.exp(upd_l - m_new[:, None])           # (B,Q,H)
-        carryw = torch.exp(total + m - m_new)            # (B,H)
-        C = carryw[..., None, None] * C + torch.einsum(
-            "bshk,bsh,bshv->bhkv", kc, wu, vc)
-        n = carryw[..., None] * n + torch.einsum("bshk,bsh->bhk", kc, wu)
-        m = m_new
-    h = torch.cat(hs, dim=1).reshape(B, Sp, dp)[:, :S]    # (B,S,dp)
+    hs, (C, n, m) = graphs.scan(
+        "mlstm", _mlstm_chunk, (tri,), (q, k, v, li, lf),
+        tuple(init_mlstm_cache(cfg, B, x.dtype, device=x.device)),
+        length=Sp, c=Q)
+    h = torch.cat([h for (h,) in hs], dim=1).reshape(B, Sp, dp)[:, :S]
     h = rmsnorm(h, p["gn"])                              # per-channel norm
     h = h * F.silu(z[:, :S])
     out = torch.matmul(h.to(x.dtype), p["down"])
@@ -250,27 +263,52 @@ def _slstm_post(p, h, x, cfg):
     return torch.matmul(u, p["down"])
 
 
-def _slstm_loop(p, R, xz, xi, xf, xo, state: SLSTMCache):
-    """The recurrence over every position of the (B, S, H, dh) gate
-    inputs, one step a token -> (each step's hidden state, last state).
-    ``launch.roofline`` counts the flops of one step and multiplies them
-    by the trip count, as the reference's HLO analysis does a loop."""
+# tokens a block of the sLSTM loop holds (one CUDA graph replay on a card):
+# in xlstm-350m's captured prefill of 2 x 1024 tokens on an H100
+# (chip_smoke.py's serve phase) 64 ran fastest of 16 / 32 / 64 / 128, by
+# 0.2-2 % (the replays are device-bound), with half 128's graph
+_SLSTM_BLOCK = 64
+
+
+def _slstm_block(consts, xs, state):
+    """c steps of the recurrence: ``consts`` (``_recurrent(p)``, then the
+    biases bz, bi, bf, bo), ``xs`` the block's four gate inputs, each (B,
+    c, H, dh), ``state`` an ``SLSTMCache``'s leaves -> ((the c hidden
+    states (B, c, H, dh),), the state after them)."""
+    R, *biases = consts
+    p = dict(zip(("bz", "bi", "bf", "bo"), biases))
+    xz, xi, xf, xo = xs
+    state = SLSTMCache(*state)
     hs = []
     for t in range(xz.shape[1]):
         state = _slstm_cell(p, R, xz[:, t], xi[:, t], xf[:, t], xo[:, t],
                             state)
         hs.append(state.h)
-    return hs, state
+    return (torch.stack(hs, dim=1),), tuple(state)
+
+
+def _slstm_loop(p, R, xz, xi, xf, xo, state: SLSTMCache):
+    """The recurrence over every position of the (B, S, H, dh) gate
+    inputs -> (the hidden states (B, S, H, dh), the last state), as blocks
+    of ``_SLSTM_BLOCK`` tokens (``graphs.scan``: one replay a block on a
+    card).  ``launch.roofline`` counts the flops of one step and
+    multiplies them by the trip count, as the reference's HLO analysis
+    does a loop."""
+    hs, state = graphs.scan(
+        "slstm", _slstm_block, (R, p["bz"], p["bi"], p["bf"], p["bo"]),
+        (xz, xi, xf, xo), tuple(state), length=xz.shape[1], c=_SLSTM_BLOCK)
+    return torch.cat([h for (h,) in hs], dim=1), SLSTMCache(*state)
 
 
 def slstm_apply(p, x, cfg, return_cache: bool = False):
-    """Full-sequence sLSTM by a sequential loop. x: (B, S, d)."""
+    """Full-sequence sLSTM: the token loop as blocks of ``_SLSTM_BLOCK``
+    steps (``_slstm_loop``). x: (B, S, d)."""
     B, S, d = x.shape
     xz, xi, xf, xo = _slstm_inputs(p, x)
     R = _recurrent(p)
     state = init_slstm_cache(cfg, B, x.dtype, device=x.device)
     hs, state = _slstm_loop(p, R, xz, xi, xf, xo, state)
-    h = torch.stack(hs, dim=1).reshape(B, S, d)
+    h = hs.reshape(B, S, d)
     out = _slstm_post(p, h, x, cfg)
     if return_cache:
         return out, state

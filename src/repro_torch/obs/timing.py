@@ -87,11 +87,11 @@ class CompileWatch:
     ``with CompileWatch() as cw: ...`` leaves ``cw.total_s`` (wall),
     ``cw.compile_s`` (host seconds inside the region of the kernel
     library's first load, the ``nvcc`` builds, the link and the load, and
-    of the runners' CUDA graph captures, the port's counterpart of the
-    reference's trace and compile of its ``lax.scan``),
+    of the CUDA graph captures (``repro_torch.graphs``), the port's
+    counterpart of the reference's trace and compile of its ``lax.scan``),
     ``cw.execute_s`` (the remainder) and ``cw.compiles`` (``nvcc`` builds
     inside the region; 0 when the library was built or loaded before).
-    The split comes from the loader's and the runners' own counters
+    The split comes from the loader's and the capture tool's counters
     (``kernels._build.build_seconds``, ``builds`` and
     ``capture_seconds``), so no warm-up call is needed.  On the CPU
     nothing is captured and the captures add 0.

@@ -13,15 +13,16 @@ masks and the ring's read and write slots), and an objective block that
 one copy moves into the trace after it.  On a card, block 0 runs eagerly
 (it is also the warm-up: the kernel library's build and per-card
 attributes, cuBLAS's handle); the next full block is **captured** once
-into a CUDA graph on a side stream, which executes nothing; and that
-block and every later full block is a **replay** of the graph, so the
-host enqueues a few calls every c steps, not every op of every step.  A
-shorter last block runs eagerly.  The capture takes the place of the
-reference's trace and compile of its scan: its host seconds add to
-``kernels._build.capture_seconds`` (``obs.timing.CompileWatch`` counts
-them as compile time) and it is the obs span ``runner:capture``.  A
-capture that fails raises, naming the runner and the block; nothing falls
-back to the eager loop.  On the CPU nothing is captured: the same block
+into a CUDA graph on a side stream, which executes nothing (the port's
+capture tool, ``repro_torch.graphs``, which the model zoo's recurrences
+share); and that block and every later full block is a **replay** of the
+graph, so the host enqueues a few calls every c steps, not every op of
+every step.  A shorter last block runs eagerly.  A run captures its own
+graph.  The capture takes the place of the reference's trace and compile
+of its scan: its host seconds add to ``kernels._build.capture_seconds``
+(``obs.timing.CompileWatch`` counts them as compile time) and it is the
+obs span ``runner:capture``.  A capture that fails raises, naming the
+runner and the block; nothing falls back to the eager loop.  On the CPU nothing is captured: the same block
 function runs eagerly, block by block, so the CPU tests run the code that
 the card captures.  The kernels' wrappers count launches on the host when
 they are called (``kernels._build.launches``), so a capture's counts are
@@ -71,7 +72,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import time
 
 import numpy as np
 import torch
@@ -80,11 +80,11 @@ from repro_torch.core.data_parallel import (EncodedProblem, masked_gradient,
                                             original_objective, prox_l1)
 from repro_torch.core.model_parallel import LiftedProblem
 from repro_torch.device import full_f32_matmul
+from repro_torch.graphs import _capture, _counted, _Replay  # noqa: F401
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_step import (fused_enabled,
                                             fused_masked_gradient)
 from repro_torch.obs.trace import current_recorder as _obs_recorder
-from repro_torch.obs.trace import span as _obs_span
 
 __all__ = [
     "scan_gd", "scan_prox", "scan_bcd", "scan_async",
@@ -174,58 +174,6 @@ def _block_steps(eval_every: int) -> int:
     """Steps c of a block: the least multiple of ``eval_every`` at or above
     ``_BLOCK_STEPS``, so every block records whole objective strides."""
     return eval_every * -(-_BLOCK_STEPS // eval_every)
-
-
-def _counted(fn) -> dict:
-    """Run ``fn()``; return the launches it counted
-    (``kernels._build.launches``) and take them back out of the counts."""
-    before = _build.launches.copy()
-    try:
-        fn()
-    finally:
-        counted = dict(_build.launches - before)
-        _build.launches.clear()
-        _build.launches.update(before)
-    return counted
-
-
-class _Replay:
-    """A captured block: ``replay()`` launches the graph on the current
-    stream of its card and adds the launches its capture counted, once."""
-
-    def __init__(self, graph, counted: dict):
-        self.graph = graph
-        self.counted = counted
-
-    def replay(self) -> None:
-        self.graph.replay()
-        _build.launches.update(self.counted)
-
-
-def _capture(block, where: str, device: torch.device) -> _Replay:
-    """Capture ``block()`` into a CUDA graph on a side stream of
-    ``device``, with its own memory pool; the capture executes nothing.
-    Raises, naming ``where``, if the capture fails."""
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-
-    def run():
-        with _obs_span("runner:capture"), \
-                torch.cuda.stream(torch.cuda.Stream(device)):
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                block()
-            finally:
-                graph.capture_end()
-    try:
-        counted = _counted(run)
-    except Exception as exc:
-        raise RuntimeError(f"{where}: capturing the block into a CUDA graph "
-                           f"on {device} failed: {exc}") from exc
-    finally:
-        _build.capture_seconds += time.perf_counter() - t0
-        _build.captures += 1
-    return _Replay(graph, counted)
 
 
 def _blocks(name: str, device: torch.device, T: int, c: int, load, block,

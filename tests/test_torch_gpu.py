@@ -39,7 +39,10 @@ refuses raises and counts no launch; the signed slot map the card builds
 equals the host's, and a sign other than +-1 raises on every route.  The
 serve path (every architecture's smoke variant: prefill and decode on the
 card against the CPU, logits and caches to rel 1e-4, TF32 off) launches
-no kernel of the port; the coded step through the MoE dispatch launches
+no kernel of the port, and its recurrences (the sLSTM, mLSTM and Mamba
+loops at xlstm-350m's and jamba's smoke variants) captured into CUDA
+graphs equal the same blocks run eagerly bit for bit, one capture a loop
+shape; the coded step through the MoE dispatch launches
 one combine and matches the CPU's loss and gradient norm to rel 1e-4.
 The runners' step loops captured into CUDA graphs and replayed block by
 block (GD / ISTA at R = 1 and 4, ``eval_every`` 1 and 5, hold-mode
@@ -1193,6 +1196,40 @@ def test_serve_paths_on_card_match_cpu(cuda, arch):
     for x, y in zip(a, b):
         assert x.is_cuda and x.shape == y.shape and x.dtype == y.dtype
         _close(x.cpu(), y, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_scan_captured_equals_eager_on_card(cuda, arch):
+    """The model zoo's recurrences (``graphs.scan``: the sLSTM token loop,
+    the mLSTM and Mamba chunk loops) captured into CUDA graphs and
+    replayed equal the same blocks run eagerly (``capturing(False)``) bit
+    for bit, logits and every cache leaf, in the first call (block 0 the
+    warm-up, the capture at block 1) and in the second (every full block
+    a replay); one capture a loop shape across the layers and the calls;
+    the card against the CPU, logits rel 1e-4."""
+    from repro_torch import graphs
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_leaves
+    cfg = ARCHS[arch].smoke_variant()
+    host = init_params(cfg, 0, device="cpu")
+    S = 160            # 2 sLSTM blocks of 64 and 32 tokens; 10 chunks
+    graphs.clear()
+    with graphs.capturing(False):
+        le, ce = _serve(cfg, host, cuda, S=S)
+    assert graphs.cached() == []
+    for _ in range(2):
+        lc, cc = _serve(cfg, host, cuda, S=S)
+        assert torch.equal(lc, le)
+        a, b = tree_leaves(cc), tree_leaves(ce)
+        assert len(a) == len(b)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    loops = sorted(key[0] for key in graphs.cached())
+    assert loops == (["mlstm", "slstm"] if arch == "xlstm-350m"
+                     else ["mamba"])
+    lh, _ = _serve(cfg, host, torch.device("cpu"), S=S)
+    _close(lc, lh, 1e-4)
+    graphs.clear()
 
 
 def test_serve_bfloat16_on_card_runs(cuda):
