@@ -179,32 +179,44 @@ Phases, each of which ends the run with a non-zero exit on failure:
              captured (block 1 of 10 steps captured and replayed, the
              cluster launches inside the graph) equal to the same steps
              uncaptured bit for bit, with equal launches;
-   serve   - the model zoo's serve path (``repro_torch.models``' prefill
-             and decode_step, ``repro_torch.serve``), which runs no kernel
-             of the port: the launch counters are cleared before the
-             phase and must read 0 after it.  (1) every architecture at
-             its smoke variant: prefill (batch 2, 64 tokens, cache 72) and
-             8 teacher-forced decode steps on the card and on the CPU from
-             the same port-initialized float32 parameters (TF32 off),
-             logits to rel 1e-4 of the largest |logit|, cache trees of
-             equal structure and shapes; (2) gemma2-27b at its published
-             width (arXiv:2408.00118) with one period of 2 layers of 46
-             (the local layer, window 4096, and the global one; a
-             ``reduced:`` line), 2 312 151 552 parameters in bfloat16:
-             batch 4, prompt 8192 (the local ring keeps the last 4096
-             keys), 32 greedy decode steps; prefill ms and decode ms a
-             token (CUDA events, five samples after the warm-up, every
-             sample), tokens/s, peak device memory, profiler breakdowns
-             of the prefill and of one decode step with the idle share;
+   serve   - the model zoo's serve path (``repro_torch.models``' prefill,
+             decode_step and ``Decoder``, ``repro_torch.serve``), which
+             runs no kernel of the port: the launch counters are cleared
+             before the phase and must read 0 after it.  (1) every
+             architecture at its smoke variant: prefill (batch 2, 64
+             tokens, cache 72) and 8 teacher-forced decode steps on the
+             card and on the CPU from the same port-initialized float32
+             parameters (TF32 off), logits to rel 1e-4 of the largest
+             |logit|, cache trees of equal structure and shapes; (2)
+             gemma2-27b at its published width (arXiv:2408.00118) with one
+             period of 2 layers of 46 (the local layer, window 4096, and
+             the global one; a ``reduced:`` line), 2 312 151 552
+             parameters in bfloat16: batch 4, prompt 8192 (the local ring
+             keeps the last 4096 keys), 32 greedy tokens through
+             ``models.Decoder`` (the decode step captured once into a CUDA
+             graph with its position in a device buffer, a replay a token;
+             the local ring's KV chunk loop recorded inline) held bit for
+             bit (tokens, last logits, every cache leaf) to the eager
+             ``decode_step`` loop from the same prefill; prefill ms and
+             decode ms a token captured and eager in turns (CUDA events,
+             five samples each, every sample), tokens/s, the capture's host
+             seconds and the decoder's graph pool, peak device memory,
+             profiler breakdowns with the idle share of one captured and
+             one eager decode step; the prefill with its KV chunk loop
+             captured (``graphs.scan``: a graph for the local layer and one
+             for the global, equal shapes but other masks) against the
+             same blocks eager, bit for bit, timed in turns, each graph's
+             pool, the loop's share and the prefill's profiler breakdown;
              then in float32 at batch 1 prefill's last logits and the
              first decode step's against ``forward`` over 8193 tokens,
              within 1e-3 of the largest |logit|; (3) phi3.5-moe-42b-a6.6b
              at its published width (hf:microsoft/Phi-3.5-MoE-instruct),
              1 layer of 32, 1 431 646 208 parameters in bfloat16, batch 2,
-             prompt 4096, 16 decode steps, the same times and the
-             assignments the prefill drops for capacity; (4) xlstm-350m
-             whole (arXiv:2405.04517), 393 131 104 parameters, batch 2,
-             prompt 1024, 16 decode steps, the same times; its sLSTM
+             prompt 4096, 16 decode steps, the same decoder checks and
+             times and the assignments the prefill drops for capacity;
+             (4) xlstm-350m whole (arXiv:2405.04517), 393 131 104
+             parameters, batch 2, prompt 1024, 16 decode steps, the same
+             decoder checks and times; its sLSTM
              token loop and mLSTM chunk loop run as blocks captured once
              a block shape into CUDA graphs (``repro_torch.graphs.scan``)
              and replayed: the captures printed (one a loop shape across
@@ -219,16 +231,18 @@ Phases, each of which ends the run with a non-zero exit on failure:
              (arXiv:2403.19887), depth cut to the first three blocks of
              its period (attention, Mamba with MoE, Mamba dense; a
              ``reduced:`` line), 12 400 353 280 parameters in bfloat16,
-             batch 1, prompt 8192, 16 decode steps: the times of (2), the
-             capacity drops, then (4)'s captured-against-eager checks and
-             times for its Mamba chunk loop (no float32 consistency
+             batch 1, prompt 8192, 16 decode steps: the decoder checks and
+             times of (2), the capacity drops, then (4)'s
+             captured-against-eager checks and times for its Mamba chunk
+             loop and its attention's KV chunk loop (no float32 consistency
              check: 49.6 GB of float32 parameters and 64 heads' 17 GB of
              float32 scores over 8193 tokens do not fit one card);
              ``graphs.clear()`` between the models, so
              one model's graph pools do not count in the next one's peak
              memory; (6) ``python -m repro_torch.serve --arch
              gemma2-27b`` through ``main(argv)`` on the card,
-             in-process; the phase's host seconds;
+             in-process, its decode loop a ``Decoder`` (one capture); the
+             phase's host seconds;
    launch  - the launchers (``repro_torch.launch``, ``repro_torch.sharding``),
              each entry driven with the launch counts cleared just before
              and read just after: (1) ``python -m repro_torch.launch.train
@@ -1680,23 +1694,30 @@ def tree_layout(tree):
 def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
                    dev, count_drops: bool = False) -> dict:
     """One architecture served on the card at ``cfg``'s width through the
-    port's entry points (``init_params``, ``prefill``, ``decode_step``):
+    port's entry points (``init_params``, ``prefill``, ``models.Decoder``):
     parameters from seed 0, a batch of B random prompts of S tokens, a
-    greedy continuation of ``new`` tokens (the result), then the times:
-    prefill ms and decode ms a token (CUDA events; five samples after the
-    warm-up that the greedy run is, every sample printed), tokens/s and
-    peak device memory (this model's own: what was allocated before its
-    parameters is not counted).  With ``count_drops`` the MoE layers'
-    capacity drops in the prefill are counted in one more, untimed
-    prefill, which must reach every MoE layer.
-    Returns the parameters, the prompts, the greedy tokens and the
-    prefill as a function."""
+    greedy continuation of ``new`` tokens through the decoder (the step
+    captured once into a CUDA graph, a replay a token: the result), held
+    bit for bit (tokens, last logits, every cache leaf) to the eager
+    ``decode_step`` loop from the same prefill; then the times: prefill ms
+    (CUDA events; five samples after the warm-up, every sample printed),
+    decode ms a token captured and eager in turns (medians of five, every
+    sample), tokens/s, the capture's host seconds, the decoder's graph
+    pool, the profiler breakdown and idle share of one captured and one
+    eager step, and peak device memory (this model's own: what was
+    allocated before its parameters is not counted).  With
+    ``count_drops`` the MoE layers' capacity drops in the prefill are
+    counted in one more, untimed prefill, which must reach every MoE
+    layer.  Returns the parameters, the prompts, the greedy tokens and
+    the prefill as a function."""
     import numpy as np
     import torch
-    from repro_torch.models import count_params, decode_step, init_params
+    from repro_torch.models import (Decoder, count_params, decode_step,
+                                    init_params)
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import prefill
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
 
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1708,32 +1729,55 @@ def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
                               dtype=torch.int32, device=dev)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
 
     def pre():
         return prefill(params, cfg, prompts, cache_len=S + new)
 
-    def greedy(lg, caches):
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        out = [tok]
+    def greedy(tok, caches):
+        """The eager loop: ``decode_step`` with Python-int positions."""
+        out = []
         for i in range(new):
             lg, caches = decode_step(params, cfg, tok, caches, S + i)
             tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
             out.append(tok)
-        return torch.cat(out, dim=1), lg
+        return torch.cat(out, dim=1).int(), lg
 
     with torch.no_grad():
         t0 = time.perf_counter()
         lg0, caches = pre()
-        toks, lg_last = greedy(lg0, caches)
-        torch.cuda.synchronize()
+        tok0 = torch.argmax(lg0[:, -1], dim=-1)[:, None].int()
+        dec = Decoder(params, cfg, B, S + new)
+        dec.load(caches, S)
+        got = dec.generate(new, token=tok0)      # warm-up, capture, replays
         t_first = time.perf_counter() - t0
+        toks = torch.cat([tok0, got], dim=1)
+        want, lg_last = greedy(tok0, caches)     # in place, from the prefill
+        a, b = tree_leaves(dec.caches), tree_leaves(caches)
+        require(torch.equal(got, want) and torch.equal(dec.logits, lg_last)
+                and len(a) == len(b)
+                and all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{label}: the captured decoder differs from the eager "
+                f"decode_step loop")
+        require(dec.captures == 1, f"{label}: {dec.captures} decode "
+                                   f"captures, expected 1")
         require(bool(torch.isfinite(lg0).all()) and
                 bool(torch.isfinite(lg_last).all()),
                 f"{label}: non-finite logits")
+        n_leaves = len(a)
+        del a, b
         pre_ms = samples_ms(pre, 5, warmup=0)
-        lg1, caches = pre()
-        dec_ms = [t / new for t in samples_ms(lambda: greedy(lg1, caches), 5,
-                                              warmup=0)]
+        dec_ms = {"captured": [], "eager": []}
+        for mode in ["captured", "eager", "eager", "captured"] * 2 + [
+                "captured", "eager"]:
+            if mode == "captured":
+                dec.load(caches, S)
+                fn = functools.partial(dec.generate, new, token=tok0)
+            else:
+                fn = functools.partial(greedy, tok0, caches)
+            dec_ms[mode] += [t / new for t in samples_ms(fn, 1, warmup=0)]
+        require(dec.captures == 1, f"{label}: new decode captures while "
+                                   f"timing")
         drops = None
         if count_drops:
             seen = []
@@ -1752,16 +1796,40 @@ def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
                     f"{len(seen)} of {n_moe} MoE layers")
             drops = sum(seen)
     peak = torch.cuda.max_memory_allocated() - base
-    med_dec = sorted(dec_ms)[2]
+    peak_reserved = torch.cuda.max_memory_reserved() - base_reserved
+    med = {k: sorted(v)[2] for k, v in dec_ms.items()}
     n_params = int(count_params(cfg))
     print(f"serve {label}: {n_params} parameters ({cfg.param_dtype}), "
           f"batch {B}, prompt {S}, {new} greedy tokens; init {t_init:.1f} s,"
           f" first prefill + decode {t_first:.2f} s host clock  [{smi}]")
     print(f"serve {label} prefill {B}x{S}: {spread(pre_ms, 'ms')}  [{smi}]")
-    print(f"serve {label} decode a token (batch {B}): {spread(dec_ms, 'ms')};"
-          f" {B * 1e3 / med_dec:.1f} tokens/s; peak device memory "
-          f"{(peak + base - before) / 1e9:.2f} GB ({peak / 1e9:.2f} GB above"
-          f" the parameters)  [{smi}]")
+    print(f"serve {label} decode a token (batch {B}), captured (the "
+          f"decoder): {spread(dec_ms['captured'], 'ms')}; eager "
+          f"(decode_step): {spread(dec_ms['eager'], 'ms')}; eager / captured"
+          f" {med['eager'] / med['captured']:.2f}; "
+          f"{B * 1e3 / med['captured']:.1f} tokens/s captured; peak device "
+          f"memory {(peak + base - before) / 1e9:.2f} GB ({peak / 1e9:.2f} GB"
+          f" above the parameters; reserved, graph pools included, "
+          f"{peak_reserved / 1e9:.2f} GB above)  [{smi}]")
+    print(f"serve {label} decoder: captured == eager bit for bit ({new} "
+          f"greedy tokens, the last logits, {n_leaves} cache leaves); 1 "
+          f"capture, {dec.capture_s:.3f} s host clock; graph pool "
+          f"{dec.pool_bytes / 1e9:.3f} GB  [{smi}]")
+    with torch.no_grad():
+        steps = {
+            "captured": (med["captured"], dec.step),
+            "eager": (med["eager"], lambda: decode_step(
+                params, cfg, toks[:, :1], caches, S))}
+        for mode, (ms, fn) in steps.items():
+            rows = device_breakdown(fn, f"{label} decode step {mode} "
+                                        f"(batch {B})")
+            busy = sum(r[0] for r in rows) / 1e3
+            print(f"serve {label} decode step {mode}: device busy "
+                  f"{busy:.4f} ms of {ms:.4f} ms a token by events (idle "
+                  f"share {max(0.0, 1 - busy / ms):.2f}; the profiler's "
+                  f"wall above holds its own host work)  [{smi}]")
+    dec.release()
+    del dec
     if drops is not None:
         C = moe_mod.moe_capacity(cfg, S)
         print(f"serve {label}: {drops} of {B * S * cfg.top_k * n_moe}"
@@ -1839,13 +1907,15 @@ def scan_events(fn) -> tuple[float, dict]:
 
 
 def scan_ab(label: str, g: dict, loops: list, smi: str) -> None:
-    """``serve_at_width``'s prefill with the model zoo's recurrences
-    captured (``graphs.scan``, as users run it) against the same blocks
-    run eagerly (``graphs.capturing(False)``): the captures (one a loop
-    shape, across the layers and every call so far), logits and every
-    cache leaf bit for bit, the prefill's time both ways in turns
-    (medians of five, every sample), the loops' share of a captured
-    prefill and its profiler breakdown with the device's idle share."""
+    """``serve_at_width``'s prefill with its loops (the model zoo's
+    recurrences, the attention's KV chunk loop) captured (``graphs.scan``,
+    as users run it) against the same blocks run eagerly
+    (``graphs.capturing(False)``): the captures (one a loop shape and its
+    constants, across the layers and every call so far; ``loops`` lists
+    their names) with each graph's memory pool, logits and every cache
+    leaf bit for bit, the prefill's time both ways in turns (medians of
+    five, every sample), the loops' share of a captured prefill and its
+    profiler breakdown with the device's idle share."""
     import torch
     from repro_torch import graphs
     from repro_torch.tree import tree_leaves
@@ -1853,11 +1923,13 @@ def scan_ab(label: str, g: dict, loops: list, smi: str) -> None:
     keys = graphs.cached()
     names = sorted(k[0] for k in keys)
     require(names == sorted(loops), f"{label}: captured block shapes "
-            f"{names}, expected one each of {sorted(loops)}")
-    print(f"serve {label}: captures {len(keys)} (one a loop shape, every "
-          f"layer and prefill so far): " + "; ".join(
-              f"{k[0]} block of {k[2]} ({len(k[3])} weights, inputs "
-              f"{[list(s) for s, _ in k[4]]})" for k in keys))
+            f"{names}, expected {sorted(loops)}")
+    pools = graphs.pool_bytes()
+    print(f"serve {label}: captures {len(keys)} (one a loop shape and its "
+          f"constants, every layer and call so far): " + "; ".join(
+              f"{k[0]} block of {k[2]} ({len(k[3])} consts, inputs "
+              f"{[list(s) for s, _ in k[4]]}, static {k[-1]}; graph pool "
+              f"{pools[k] / 1e9:.3f} GB)" for k in keys) + f"  [{smi}]")
     with torch.no_grad():
         lc, cc = pre()
         with graphs.capturing(False):
@@ -1971,6 +2043,7 @@ def serve_phase(smi: str) -> None:
               f"tol 1e-4); caches: {len(tree_leaves(cc))} leaves, structure "
               f"and shapes equal")
     del runs, host, params, caches
+    graphs.clear()          # the smoke variants' loop graphs
 
     # (2) gemma2-27b at its published width, depth cut to one period
     gcfg = ARCHS["gemma2-27b"].with_overrides(n_layers=2)
@@ -1981,16 +2054,14 @@ def serve_phase(smi: str) -> None:
           f"d_model 4608, 32 heads (16 KV) of 128, d_ff 36864, vocab 256000, "
           f"soft-caps 50 / 30, bfloat16; {n_g} parameters")
     g = serve_at_width("gemma2-27b", gcfg, 4, 8192, 32, smi, dev)
-    with torch.no_grad():
-        lg, caches = g["prefill"]()
-        device_breakdown(g["prefill"], "gemma2-27b prefill 4x8192")
-        tok = g["tokens"][:, :1]
-        device_breakdown(lambda: decode_step(g["params"], gcfg, tok, caches,
-                                             8192),
-                         "gemma2-27b decode step (batch 4)")
-    del lg, caches
+    # the KV chunk loop: the local and the global layer's prefill graphs
+    # (equal shapes, other masks) and the local ring's at decode (the
+    # eager decode_step loop; inside the decoder's graph it runs inline)
+    scan_ab("gemma2-27b", g, ["attention"] * 3, smi)
+    graphs.clear()
     # the consistency check in float32 at B = 1 on the same width and depth
     serve_consistency(g, gcfg, 8192)
+    graphs.clear()
     del g
     torch.cuda.empty_cache()
 
@@ -2036,18 +2107,23 @@ def serve_phase(smi: str) -> None:
           f"{jcfg.mamba_chunk}, vocab 65536, bfloat16; {n_j} parameters")
     g = serve_at_width("jamba-1.5-large", jcfg, 1, 8192, 16, smi, dev,
                        count_drops=True)
-    scan_ab("jamba-1.5-large", g, ["mamba"], smi)
+    scan_ab("jamba-1.5-large", g, ["attention", "mamba"], smi)
     del g
     graphs.clear()
 
-    # (6) the serve CLI, in-process, on the card
+    # (6) the serve CLI, in-process, on the card: its decode loop is a
+    # Decoder, one capture
     buf = io.StringIO()
+    n_cap = _build.captures
     with contextlib.redirect_stdout(buf):
         rc = serve_main(["--arch", "gemma2-27b"])
     lines = buf.getvalue().splitlines()
     require(rc == 0 and len(lines) == 3 and lines[0].startswith("prefill:")
             and lines[1].startswith("decoded "),
             f"python -m repro_torch.serve: rc {rc}, output {lines}")
+    require(_build.captures == n_cap + 1, f"python -m repro_torch.serve: "
+            f"{_build.captures - n_cap} captures, expected the decoder's 1")
+    graphs.clear()
     for line in lines:
         print(f"python -m repro_torch.serve --arch gemma2-27b: {line}")
 

@@ -6,14 +6,18 @@ program.  The port runs such a loop as **blocks** over static buffers
 and, on a card, captures a block into a CUDA graph and replays it, so the
 host enqueues a few calls a block rather than every op of every step.
 
-The capture itself (``_capture``, ``_Replay``, ``_counted``) serves two
+The capture itself (``_capture``, ``_Replay``, ``_counted``) serves three
 callers.  The runners (``runtime/runners.py``) capture a graph a run.
-``scan`` (the sLSTM token loop, the mLSTM and Mamba chunk loops in
-``models/``) keeps one graph a **block shape** for the life of the
-process, keyed by the loop's name, its device, the static buffers' shapes
-and dtypes and the block length: one capture serves every layer of that
-shape and every later call.  ``clear()`` drops the cached graphs and
-their memory pools.
+``scan`` (the sLSTM token loop, the mLSTM and Mamba chunk loops and the
+attention's KV chunk loop in ``models/``) keeps one graph a **block
+shape** for the life of the process, keyed by the loop's name, its
+device, the block length, the static buffers' shapes and dtypes and the
+block's Python constants (``static``: a window, a soft-cap, causality),
+so two layers of equal shapes that mask differently never share a graph:
+one capture serves every layer of that shape and constants and every
+later call.  The decoder (``models/decoder.py``) captures one decode step
+and registers itself (``hold``).  ``clear()`` drops the cached graphs,
+the held decoders' graphs and their memory pools.
 
 ``scan`` never bakes a weight into a graph: the weights a block reads
 (``consts``) are copied into its static buffers at the start of every
@@ -22,8 +26,11 @@ block's inputs before its replay; each replay's outputs are copied out.
 A capture happens only where it can: every tensor of the loop on a CUDA
 card, none requiring grad, no functorch transform active (the train
 step's ``torch.func.grad``), no ``TorchDispatchMode`` active (the dry
-run's ``FlopCounterMode`` on the meta device), and ``capturing(False)``
-not in force.
+run's ``FlopCounterMode`` on the meta device), ``capturing(False)`` not
+in force, and no capture already under way on the current stream: a
+``scan`` reached while an outer graph is being captured (the KV loop of
+the decoder's step over a long cache) runs its blocks eagerly, so the
+outer graph records them inline.
 Elsewhere (the CPU, the meta device, training) the same block function
 runs eagerly, block by block, on the loop's own tensors, so the CPU tests
 run the code that the card captures.  An eager block takes its inputs
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 
 import torch
 from torch.utils._python_dispatch import is_in_torch_dispatch_mode
@@ -48,7 +56,7 @@ from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 from repro_torch.kernels import _build
 from repro_torch.obs.trace import span as _obs_span
 
-__all__ = ["scan", "clear", "capturing", "cached"]
+__all__ = ["scan", "clear", "capturing", "cached", "pool_bytes", "hold"]
 
 
 def _counted(fn) -> dict:
@@ -66,11 +74,14 @@ def _counted(fn) -> dict:
 
 class _Replay:
     """A captured block: ``replay()`` launches the graph on the current
-    stream of its card and adds the launches its capture counted, once."""
+    stream of its card and adds the launches its capture counted, once.
+    ``pool_bytes``: what the card's reserved memory grew by during the
+    capture, the segments of the graph's own memory pool."""
 
-    def __init__(self, graph, counted: dict):
+    def __init__(self, graph, counted: dict, pool_bytes: int = 0):
         self.graph = graph
         self.counted = counted
+        self.pool_bytes = pool_bytes
 
     def replay(self) -> None:
         self.graph.replay()
@@ -85,6 +96,7 @@ def _capture(block, where: str, device: torch.device,
     the obs span ``span``.  Raises, naming ``where``, if the capture
     fails."""
     t0 = time.perf_counter()
+    reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
 
     def run():
@@ -102,7 +114,8 @@ def _capture(block, where: str, device: torch.device,
     finally:
         _build.capture_seconds += time.perf_counter() - t0
         _build.captures += 1
-    return _Replay(graph, counted)
+    return _Replay(graph, counted,
+                   torch.cuda.memory_reserved(device) - reserved)
 
 
 # -- the model zoo's loops: a graph a block shape -----------------------------
@@ -131,8 +144,10 @@ class _Loop:
         self.graph = _capture(body, where, device, span="scan:capture")
 
 
-# (name, device, block length, static shapes and dtypes) -> _Loop
+# (name, device, block length, static shapes and dtypes, static) -> _Loop
 _CACHE: dict[tuple, _Loop] = {}
+# objects holding graphs of their own (the decoders): ``release()`` drops them
+_HELD: "weakref.WeakSet" = weakref.WeakSet()
 _capture_on = True
 
 
@@ -149,9 +164,18 @@ def capturing(on: bool):
         _capture_on = was
 
 
+def hold(obj) -> None:
+    """Register ``obj`` (it has ``release()``, which drops its graphs) for
+    ``clear()``; the registry keeps no reference that would keep it alive."""
+    _HELD.add(obj)
+
+
 def clear() -> None:
-    """Drop every cached block shape, its graph and its memory pool."""
+    """Drop every cached block shape, its graph and its memory pool, and
+    every held decoder's graph."""
     _CACHE.clear()
+    for obj in list(_HELD):
+        obj.release()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
 
@@ -161,8 +185,20 @@ def cached() -> list[tuple]:
     return [key for key, loop in _CACHE.items() if loop.graph is not None]
 
 
+def pool_bytes() -> dict[tuple, int]:
+    """The memory pool of each captured block shape (``_Replay``), by key."""
+    return {key: loop.graph.pool_bytes for key, loop in _CACHE.items()
+            if loop.graph is not None}
+
+
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+def _stream_capturing() -> bool:
+    """Whether a CUDA graph is being captured on the current stream."""
+    return (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing())
 
 
 def _capturable(tensors) -> bool:
@@ -172,21 +208,27 @@ def _capturable(tensors) -> bool:
     if any(t.requires_grad for t in tensors):
         return False
     return not (torch._C._are_functorch_transforms_active()
-                or is_in_torch_dispatch_mode())
+                or is_in_torch_dispatch_mode() or _stream_capturing())
 
 
-def _key(name: str, c: int, *groups) -> tuple:
+def _key(name: str, c: int, static: tuple, *groups) -> tuple:
     dev = groups[0][0].device
     return (name, str(dev), c) + tuple(
-        tuple((tuple(t.shape), t.dtype) for t in g) for g in groups)
+        tuple((tuple(t.shape), t.dtype) for t in g) for g in groups) + (
+        tuple(static),)
 
 
 def scan(name: str, block, consts: tuple, xs: tuple, carry: tuple, *,
-         length: int, c: int):
+         length: int, c: int, static: tuple):
     """Run ``block(consts, xs_block, carry) -> (ys_block, carry)`` over
     positions [0, length) of dim 1 of every tensor in ``xs``, in blocks of
     c positions (a shorter last block when c does not divide ``length``).
     Returns (the list of each block's ``ys``, the last carry).
+
+    ``static`` holds every Python value ``block`` closes over that changes
+    what it computes (a mask's window, a soft-cap): it is part of the
+    graph cache's key, so ``()`` says the block depends on its tensors
+    alone.
 
     On a card (module docstring) the first call for a block shape runs its
     first full block eagerly (the warm-up: cuBLAS's handle and workspace
@@ -201,7 +243,7 @@ def scan(name: str, block, consts: tuple, xs: tuple, carry: tuple, *,
         n = min(c, length - t0)
         xb = tuple(x[:, t0:t0 + n] for x in xs)
         if capture and n == c and loop is None:
-            key = _key(name, c, consts, xb, carry)
+            key = _key(name, c, static, consts, xb, carry)
             loop = _CACHE.get(key)
             if loop is None:         # first sight: this block is the warm-up
                 _CACHE[key] = _Loop(consts, xb, carry)

@@ -8,15 +8,27 @@ float32 score order.  KV is processed in chunks of ``cfg.attn_chunk`` with
 a running (max, denom, acc) carry — the flash-attention recurrence —
 whenever the KV length is a multiple of the chunk above one chunk (decode
 over a long cache included); shorter or ragged lengths take the direct
-softmax.  Scores and the softmax run in float32 whatever the activations'
-dtype (the reference's ``preferred_element_type``).
+softmax.  The chunk loop is the reference's ``lax.scan``: a chunk a block
+of ``repro_torch.graphs.scan`` (on a card one CUDA graph a chunk shape
+and mask, replayed; inside the decoder's captured step, recorded inline).
+Scores and the softmax run in float32 whatever the activations' dtype
+(the reference's ``preferred_element_type``).
+
+Decode takes its position as a Python int or as a 0-d integer tensor on
+the model's device (the reference's traced scalar): every value that
+depends on it (the rotary angles, the ring slot, the slots' positions) is
+computed on the device from it, and the new key and value are written at
+the slot by ``index_copy_``, so nothing is read back to the host and a
+captured step reads its position from a device buffer.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import graphs
 from repro_torch.device import resolve_device
 
 from .common import pdef, softcap
@@ -95,28 +107,43 @@ def attention(q, k, v, *, causal: bool, window: Optional[int],
                                  scale=scale, chunk=chunk, qpos=qpos,
                                  out_dtype=q.dtype)
 
-    m_run = torch.full((B, K, G, Sq), _NEG, dtype=torch.float32,
-                       device=q.device)
-    l_run = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, K, G, Sq, hd), dtype=torch.float32,
-                      device=q.device)
-    for lo in range(0, Skv, chunk):
-        kb, vb = k[:, lo:lo + chunk], v[:, lo:lo + chunk]
-        s = _scores(qh, kb, scale, cap)                    # (B,K,G,Sq,C)
-        msk = _mask(qpos, kpos[lo:lo + chunk], kvalid[lo:lo + chunk],
-                    causal, window)
-        s = torch.where(msk[None, None, None], s, _NEG)
-        m_new = torch.maximum(m_run, s.amax(dim=-1))
-        r = torch.exp(m_run - m_new)
-        # Explicitly zero masked entries: when a whole chunk is masked,
-        # s - m_new == 0 would otherwise give weight exp(0) = 1.
-        p = torch.exp(s - m_new[..., None]) * msk[None, None, None]
-        l_run = l_run * r + p.sum(dim=-1)
-        acc = acc * r[..., None] + torch.einsum("bkgsc,bckh->bkgsh", p,
-                                                vb.float())
-        m_run = m_new
+    carry = (torch.full((B, K, G, Sq), _NEG, dtype=torch.float32,
+                        device=q.device),
+             torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device),
+             torch.zeros((B, K, G, Sq, hd), dtype=torch.float32,
+                         device=q.device))
+    # the queries in float32 once (the scores' cast), contiguous as a
+    # graph's static buffer holds them; key positions and validity with a
+    # leading axis, as scan slices dim 1
+    _, (_, l_run, acc) = graphs.scan(
+        "attention", functools.partial(_kv_chunk, causal=causal,
+                                       window=window, cap=cap, scale=scale),
+        (qh.float().contiguous(), qpos), (k, v, kpos[None], kvalid[None]),
+        carry, length=Skv, c=chunk, static=(causal, window, cap, scale))
     o = acc / torch.clamp(l_run, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _kv_chunk(consts, xs, carry, *, causal, window, cap, scale):
+    """One KV chunk of the online softmax: ``consts`` the grouped queries
+    (B, K, G, Sq, hd) float32 and their positions (Sq,), ``xs`` the chunk's
+    keys and values (B, C, K, hd) and its key positions and validity (1, C),
+    ``carry`` the running (max, denominator, accumulator) -> ((), carry)."""
+    qh, qpos = consts
+    kb, vb, kp, kv_ok = xs
+    m_run, l_run, acc = carry
+    s = _scores(qh, kb, scale, cap)                        # (B,K,G,Sq,C)
+    msk = _mask(qpos, kp[0], kv_ok[0], causal, window)
+    s = torch.where(msk[None, None, None], s, _NEG)
+    m_new = torch.maximum(m_run, s.amax(dim=-1))
+    r = torch.exp(m_run - m_new)
+    # Explicitly zero masked entries: when a whole chunk is masked,
+    # s - m_new == 0 would otherwise give weight exp(0) = 1.
+    p = torch.exp(s - m_new[..., None]) * msk[None, None, None]
+    l_run = l_run * r + p.sum(dim=-1)
+    acc = acc * r[..., None] + torch.einsum("bkgsc,bckh->bkgsh", p,
+                                            vb.float())
+    return (), (m_new, l_run, acc)
 
 
 def _banded_attention(qh, k, v, *, window, cap, scale, chunk, qpos,
@@ -176,42 +203,55 @@ def init_kv_cache(B: int, cache_len: int, K: int, hd: int, dtype, *,
         torch.zeros((B, cache_len, K, hd), dtype=dtype, device=device))
 
 
-def ring_slot_positions(cache_len: int, index: int, *, device=None
+def ring_slot_positions(cache_len: int, index, *, device=None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Positions and validity of ring-buffer slots given current length.
 
     Slot s holds the largest position p < index with p = s (mod cache_len);
     valid iff p >= 0.  For a non-ring (full) cache this reduces to
-    pos = s, valid = s < index.  ``index`` is a Python int; the tensors
-    lie on ``device`` (unset: the CUDA card).
+    pos = s, valid = s < index.  ``index`` is a Python int, and the tensors
+    lie on ``device`` (unset: the CUDA card), or an integer tensor of one
+    element, and they lie on its device.
     """
-    s = torch.arange(cache_len, dtype=torch.int32,
-                     device=resolve_device(device))
+    dev = index.device if isinstance(index, torch.Tensor) else \
+        resolve_device(device)
+    s = torch.arange(cache_len, dtype=torch.int32, device=dev)
     # floor modulo (``%`` on a tensor): idx - 1 - s is negative for most
     # slots, where fmod would keep the sign
     p = index - 1 - torch.remainder(index - 1 - s, cache_len)
     return p, p >= 0
 
 
-def decode_attend(p, x, cache: AttnCache, index: int, *, cfg, window, cap,
+def position(index, device) -> torch.Tensor:
+    """The decode position as a (1,) int32 tensor: a Python int's on
+    ``device``, or a view of a one-element integer tensor (nothing is read
+    back to the host)."""
+    if isinstance(index, torch.Tensor):
+        return index.reshape(1).to(torch.int32)
+    index = int(index)
+    return torch.arange(index, index + 1, dtype=torch.int32, device=device)
+
+
+def decode_attend(p, x, cache: AttnCache, index, *, cfg, window, cap,
                   rope_fn, pre: str = "") -> tuple[torch.Tensor, AttnCache]:
     """Single-token decode: write (k, v) at slot index % C, attend over cache.
 
-    x: (B, 1, d); index: the current position, a Python int (the serve
-    loop knows it, so nothing is read back from the card).  rope_fn(q_or_k,
-    pos) applies rotary for this arch (identity for non-rope archs).  The
-    new key and value are written INTO ``cache`` (no cache is copied per
-    token); the returned ``AttnCache`` holds the same tensors.
+    x: (B, 1, d); index: the current position, a Python int or a
+    one-element integer tensor on x's device (``position``).
+    rope_fn(q_or_k, pos) applies rotary for this arch (identity for
+    non-rope archs).  The new key and value are written INTO ``cache`` (no
+    cache is copied per token); the returned ``AttnCache`` holds the same
+    tensors.
     """
     q, k_new, v_new = qkv_proj(p, x, pre)
-    pos = torch.arange(index, index + 1, dtype=torch.int32, device=x.device)
+    pos = position(index, x.device)
     q = rope_fn(q, pos)
     k_new = rope_fn(k_new, pos)
     C = cache.k.shape[1]
-    slot = index % C
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-    kpos, kvalid = ring_slot_positions(C, index + 1, device=x.device)
+    slot = torch.remainder(pos, C).long()
+    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    kpos, kvalid = ring_slot_positions(C, pos + 1)
     o = attention(q, cache.k, cache.v, causal=True, window=window, cap=cap,
                   qpos=pos, kpos=kpos, kvalid=kvalid, chunk=cfg.attn_chunk)
     return out_proj(p, o, pre), cache

@@ -143,7 +143,7 @@ def mamba_apply(p, x, cfg, return_cache: bool = False):
     h = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
     ys, (h,) = graphs.scan(
         "mamba", _chunk, tuple(p[k] for k in _SCAN_WEIGHTS), (x_conv,), (h,),
-        length=Sp, c=Q)
+        length=Sp, c=Q, static=())
     y = torch.cat([y for (y,) in ys], dim=1)[:, :S]
     x_conv = x_conv[:, :S]
     y = y + p["D"].float() * x_conv.float()

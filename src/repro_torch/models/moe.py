@@ -87,7 +87,9 @@ def moe_apply(p, x, cfg):
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
 
     order, e_sorted, rank_c, keep = _ranks(top_e, E, C)
-    flat_tok = torch.arange(S, device=dev).repeat_interleave(k)
+    # token t's k slots (t, t, ..., t): an expand, which no CUDA graph
+    # capture refuses (``repeat_interleave`` may size its output on the host)
+    flat_tok = torch.arange(S, device=dev)[:, None].expand(S, k).reshape(-1)
     t_sorted = flat_tok[order]                             # token of a slot
     w_sorted = torch.gather(top_w.to(x.dtype).reshape(B, -1), -1, order)
     rows = torch.arange(B, device=dev)[:, None].expand_as(order)

@@ -408,24 +408,26 @@ def _write_back(dst, src) -> None:
             d.copy_(x)
 
 
-def decode_step(params, cfg: ArchConfig, token, caches, index: int, *,
+def decode_step(params, cfg: ArchConfig, token, caches, index, *,
                 mrope_positions=None):
     """One decode step. token: (B, 1) int; index: the current position, a
-    Python int.  ``mrope_positions`` is accepted for the reference's
-    signature: at decode every M-RoPE stream takes ``index``, as there.
+    Python int or a 0-d integer tensor on the model's device (the
+    reference's traced scalar: every value that depends on it is computed
+    on the device, nothing is read back, and a CUDA graph of the step reads
+    it from its buffer; ``models.decoder``).  ``mrope_positions`` is
+    accepted for the reference's signature: at decode every M-RoPE stream
+    takes ``index``, as there.
 
     Writes the step's keys, values and states INTO ``caches`` (a tree as
     ``prefill`` or ``init_caches`` returns) and returns (logits (B, 1, V),
     the same caches).
     """
-    index = int(index)
     dev = token.device
-    x = _embed_inputs(params, cfg, token, None,
-                      positions=torch.arange(index, index + 1, device=dev))
+    pos = attn.position(index, dev)                        # (1,) int32
+    x = _embed_inputs(params, cfg, token, None, positions=pos)
 
     if cfg.mrope_sections is not None:
-        pos3 = torch.full((3, token.shape[0], 1), index, dtype=torch.int32,
-                          device=dev)
+        pos3 = pos.reshape(1, 1, 1).expand(3, token.shape[0], 1)
         rope_decode = _make_rope_fn(mrope_angles(
             pos3, cfg.hd, cfg.mrope_sections, cfg.rope_theta))
     elif cfg.learned_pos:
@@ -438,7 +440,7 @@ def decode_step(params, cfg: ArchConfig, token, caches, index: int, *,
     for bps, cps in zip(_periods(params, cfg),
                         _per_period(caches, cfg.n_periods)):
         for bp, spec, cache in zip(bps, cfg.period, cps):
-            x, new = _block_decode(bp, spec, x, cfg, cache, index,
+            x, new = _block_decode(bp, spec, x, cfg, cache, pos,
                                    rope_decode)
             _write_back(cache, new)
     return _logits(params, cfg, x), caches

@@ -146,7 +146,7 @@ def mlstm_apply(p, x, cfg, return_cache: bool = False):
     hs, (C, n, m) = graphs.scan(
         "mlstm", _mlstm_chunk, (tri,), (q, k, v, li, lf),
         tuple(init_mlstm_cache(cfg, B, x.dtype, device=x.device)),
-        length=Sp, c=Q)
+        length=Sp, c=Q, static=())
     h = torch.cat([h for (h,) in hs], dim=1).reshape(B, Sp, dp)[:, :S]
     h = rmsnorm(h, p["gn"])                              # per-channel norm
     h = h * F.silu(z[:, :S])
@@ -296,7 +296,8 @@ def _slstm_loop(p, R, xz, xi, xf, xo, state: SLSTMCache):
     does a loop."""
     hs, state = graphs.scan(
         "slstm", _slstm_block, (R, p["bz"], p["bi"], p["bf"], p["bo"]),
-        (xz, xi, xf, xo), tuple(state), length=xz.shape[1], c=_SLSTM_BLOCK)
+        (xz, xi, xf, xo), tuple(state), length=xz.shape[1], c=_SLSTM_BLOCK,
+        static=())
     return torch.cat([h for (h,) in hs], dim=1), SLSTMCache(*state)
 
 

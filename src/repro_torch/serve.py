@@ -1,7 +1,9 @@
 """Batched serving on the port (counterpart of ``examples/serve.py``):
 prefill a batch of prompts, then decode tokens greedily with the KV and
 state caches, on the architecture's smoke variant with random parameters
-from seed 0.
+from seed 0.  The decode loop is a ``models.Decoder``: on a card the step
+is captured once into a CUDA graph and every token is one replay, as the
+reference jits its decode step once for every position.
 
   python -m repro_torch.serve --arch gemma2-27b --tokens 16
   python -m repro_torch.serve --arch xlstm-350m --device cpu
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.device import resolve_device
-from repro_torch.models import Model
+from repro_torch.models import Decoder, Model
 
 __all__ = ["main", "serve_inputs"]
 
@@ -77,16 +79,13 @@ def main(argv=None) -> int:
     t_prefill = time.perf_counter() - t0
     print(f"prefill: {B}x{S} in {t_prefill * 1e3:.0f} ms")
 
-    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    out_tokens = [tok]
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].int()
+    decoder = Decoder(params, cfg, B, S + args.tokens)
+    decoder.load(caches, S)
     t0 = time.perf_counter()
-    for i in range(args.tokens - 1):
-        logits, caches = model.decode(params, tok, caches, S + i)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        out_tokens.append(tok)
-    _sync(device)
+    rest = decoder.generate(args.tokens - 1, token=tok)   # synchronizes
     dt = time.perf_counter() - t0
-    toks = torch.cat(out_tokens, dim=1).cpu().numpy()
+    toks = torch.cat([tok, rest], dim=1).cpu().numpy()
     print(f"decoded {args.tokens - 1} steps x batch {B} in {dt * 1e3:.0f} ms"
           f"  ({(args.tokens - 1) * B / max(dt, 1e-9):.1f} tok/s)")
     print("sample continuation token ids:", toks[0][:12])

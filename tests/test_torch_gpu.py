@@ -42,7 +42,11 @@ card against the CPU, logits and caches to rel 1e-4, TF32 off) launches
 no kernel of the port, and its recurrences (the sLSTM, mLSTM and Mamba
 loops at xlstm-350m's and jamba's smoke variants) captured into CUDA
 graphs equal the same blocks run eagerly bit for bit, one capture a loop
-shape; the coded step through the MoE dispatch launches
+shape; every smoke variant decoded through ``models.Decoder`` (the step
+captured once, a replay a token, the KV chunk loop inline, the rings
+wrapping) equals the eager ``decode_step`` loop bit for bit in tokens,
+logits and caches, and gemma2's prefill with the KV loop captured equals
+it uncaptured bit for bit; the coded step through the MoE dispatch launches
 one combine and matches the CPU's loss and gradient norm to rel 1e-4.
 The runners' step loops captured into CUDA graphs and replayed block by
 block (GD / ISTA at R = 1 and 4, ``eval_every`` 1 and 5, hold-mode
@@ -1229,6 +1233,107 @@ def test_scan_captured_equals_eager_on_card(cuda, arch):
                      else ["mamba"])
     lh, _ = _serve(cfg, host, torch.device("cpu"), S=S)
     _close(lc, lh, 1e-4)
+    graphs.clear()
+
+
+def _ring16(cfg):
+    """``cfg`` with every local window cut to 16 keys, so a short decode
+    wraps the ring."""
+    import dataclasses
+    return cfg.with_overrides(period=tuple(
+        dataclasses.replace(b, window=16) if b.window else b
+        for b in cfg.period))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-7b", "gemma2-27b",
+                                  "jamba-1.5-large-398b",
+                                  "phi3.5-moe-42b-a6.6b", "qwen2-vl-7b",
+                                  "stablelm-12b", "starcoder2-3b",
+                                  "whisper-small", "xlstm-350m"])
+def test_decoder_captured_equals_eager_on_card(cuda, arch):
+    """Every smoke variant (local windows cut to 16, a cache of 128: two KV
+    chunks of 64, so the global layers' decode takes the chunked loop,
+    recorded inside the step's graph, and the local rings wrap): 40 greedy
+    tokens through ``models.Decoder`` (one capture, every step after the
+    warm-up a replay) equal the eager ``decode_step`` loop's bit for bit,
+    and so do the last logits and every cache leaf; a second request
+    loaded into the same decoder replays the same graph.  No kernel of the
+    port launches."""
+    from repro_torch import graphs
+    from repro_torch.configs import ARCHS
+    from repro_torch.device import full_f32_matmul
+    from repro_torch.models import Decoder, decode_step, init_params, prefill
+    from repro_torch.serve import serve_inputs
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = _ring16(ARCHS[arch].smoke_variant())
+    params = tree_map(lambda t: t.to(cuda),
+                      init_params(cfg, 0, device="cpu"))
+    B, S, L, new = 2, 64, 128, 40
+    graphs.clear()
+    before = dict(launches)
+
+    @full_f32_matmul
+    def both(seed, dec):
+        prompts, kw = serve_inputs(cfg, B, S, np.random.default_rng(seed),
+                                   cuda)
+        with torch.no_grad():
+            lg, caches = prefill(params, cfg, prompts, cache_len=L, **kw)
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            dec.load(caches, S)
+            got = dec.generate(new, token=tok)
+            want = []
+            for i in range(new):
+                lg, caches = decode_step(params, cfg, tok, caches, S + i)
+                tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                want.append(tok)
+        assert torch.equal(got, torch.cat(want, dim=1).int())
+        assert torch.equal(dec.logits, lg)
+        a, b = tree_leaves(dec.caches), tree_leaves(caches)
+        assert len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    dec = Decoder(params, cfg, B, L)
+    both(0, dec)
+    both(1, dec)
+    torch.cuda.synchronize()
+    assert dec.captures == 1 and dec.pool_bytes > 0
+    assert dict(launches) == before
+    graphs.clear()
+
+
+def test_prefill_kv_loop_captured_equals_eager_on_card(cuda):
+    """gemma2's smoke variant (local window 16), prompt 256 (four KV chunks
+    of 64): the prefill with the KV loop captured (``graphs.scan``, one
+    graph for the local layer and one for the global: equal shapes, other
+    masks) equals ``capturing(False)`` bit for bit, logits and every cache
+    leaf, in the first call and the second."""
+    from repro_torch import graphs
+    from repro_torch.configs import ARCHS
+    from repro_torch.device import full_f32_matmul
+    from repro_torch.models import init_params, prefill
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = _ring16(ARCHS["gemma2-27b"].smoke_variant())
+    params = tree_map(lambda t: t.to(cuda),
+                      init_params(cfg, 0, device="cpu"))
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256)), dtype=torch.int32, device=cuda)
+
+    @full_f32_matmul
+    def run():
+        with torch.no_grad():
+            return prefill(params, cfg, prompts, cache_len=256)
+    graphs.clear()
+    with graphs.capturing(False):
+        le, ce = run()
+    assert graphs.cached() == []
+    for _ in range(2):
+        lc, cc = run()
+        assert torch.equal(lc, le)
+        a, b = tree_leaves(cc), tree_leaves(ce)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    keys = graphs.cached()
+    assert [k[0] for k in keys] == ["attention", "attention"]
+    assert sorted(k[-1][1] or 0 for k in keys) == [0, 16]
     graphs.clear()
 
 
