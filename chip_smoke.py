@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 
 (``--phase sharded`` runs the device probe, the build and the sharded
 phase alone: on a host with several cards, the split over all of them;
-``--phase serve`` the device probe and the serve phase alone.)
+``--phase serve`` the device probe and the serve phase alone; ``--phase
+train`` the device probe, the build and the train and launch phases.)
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
@@ -134,12 +135,25 @@ Phases, each of which ends the run with a non-zero exit on failure:
              on the CPU from the same port-initialized parameters, losses
              to rel 1e-4 and step 1's combined gradient to rel 1e-5 in
              norm; (3) the FRC update under masks 11110000 and 00001111
-             equal bit for bit; the step's time (five samples) and its
-             profiler breakdown (workers' forward and backward, flatten,
-             combine, AdamW, idle share); (4) deepseek-7b at its published
-             width with one layer of 30 (bfloat16, 621 817 856 parameters)
-             through ``CodedTrainer``, 3 steps, 3 combines at (8,
-             621 817 856), peak device memory; (5) ``experiments.run
+             equal bit for bit; the eager step's profiler breakdown
+             (workers' forward and backward, flatten, combine, AdamW, idle
+             share); (4) ``CodedTrainer.run`` with its step captured once
+             into a CUDA graph (``train.stepper.Stepper``: step 0 the
+             warm-up, step 1 the capture, a replay a step from it) against
+             the same run under ``graphs.capturing(False)``, from the same
+             parameters, at ``100m`` (30 steps), deepseek-7b at its
+             published width with one layer of 30 (bfloat16, 621 817 856
+             parameters, 4 steps) and xlstm-350m whole (24 layers, 393 M
+             parameters, 3 steps: the sLSTM and mLSTM loops' forward and
+             backward recorded inside the graph): parameters, AdamW m, v
+             and count, every loss and grad_norm bit for bit, one combine
+             launch a step, the combine's shape checked at the warm-up and
+             the capture, one capture, its host seconds and graph pool,
+             the reserved peak; the step captured and eager in turns (CUDA
+             events, five samples each; at deepseek-7b the graph's pool is
+             freed before each eager step and recaptured after it: the two
+             do not fit the card together) and the idle share and the
+             combine's device time of one profiled replay; (5) ``experiments.run
              --train deepseek-7b`` (coded-sgd and uncoded, 10 steps) on the
              card and with ``--device cpu``, final losses to rel 1e-4; (6)
              the combine at (8, 97 536 768) and (8, 621 817 856) beside its
@@ -252,12 +266,13 @@ Phases, each of which ends the run with a non-zero exit on failure:
              times bit for bit; (2) the CLI's body (``launch.train.train``)
              at deepseek-7b's published width with one layer of 30 (a
              ``reduced:`` line; 621 817 856 parameters, bfloat16), its
-             default flags, 4 steps: the step time by CUDA events between
-             steps 2-4 (median and every sample; the first step carries
-             the warm-up and is printed apart), the combine's time inside
-             those steps by CUDA events around its call and its share of
-             the step, peak device memory, finite losses and one combine a
-             step at (8, 621 817 856); (3)
+             default flags, 6 steps: the step time by CUDA events between
+             steps 3-6, the replays (median and every sample; the warm-up
+             step and the capture step printed apart), the combine's
+             device time inside step 6 from the profiler by kernel name and
+             its share of the step, the reserved peak, finite losses, one
+             combine launch a step and its shape (8, 621 817 856) at the
+             warm-up and the capture; (3)
              ``grad_specs`` from ``make_shardings`` on a one-card
              ``make_local_mesh()`` (NCCL): one ``build_train_step`` step
              with it equal bit for bit to the step without it (parameters,
@@ -320,6 +335,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
@@ -1012,6 +1028,8 @@ def train_phase(smi: str, drive, co: dict) -> None:
     comb = "coded_combine"
     t_phase = time.perf_counter()
     m, k, steps = 8, 6, 30
+    on_device = lambda a, dev: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(dev)
     engine = lambda: ClusterEngine(bimodal_delays(), m, seed=0)  # noqa: E731
     spec = TrainProblem(arch="deepseek-7b", preset="100m", seq_len=128)
     cfg = spec.build_cfg()
@@ -1069,7 +1087,7 @@ def train_phase(smi: str, drive, co: dict) -> None:
             toks, labels, coeff = tr.batcher.next_batch(tr.code.at_step(t))
             d = np.asarray(tr.code.decode_weights(np.asarray(masks[t])),
                            np.float32)
-            p, o, met = tr._step(p, o, *(tr._on_device(a) for a in
+            p, o, met = tr._step(p, o, *(on_device(a, tr.device) for a in
                                          (toks, labels, coeff, d)))
             out.append(float(met["loss"]))
         return out
@@ -1098,14 +1116,14 @@ def train_phase(smi: str, drive, co: dict) -> None:
           f"{card_loss == loss[:2].tolist()}")
 
     # (3) FRC invariance: one replica of every cluster survives either way
-    batch = [card._on_device(a) for a in card.batcher.next_batch()]
+    batch = [on_device(a, card.device) for a in card.batcher.next_batch()]
 
     def both_masks():
         outs = []
         for mask in ([1, 1, 1, 1, 0, 0, 0, 0], [0, 0, 0, 0, 1, 1, 1, 1]):
             d = card.code.decode_weights(np.asarray(mask, np.float64))
-            outs.append(card._step(params, opt, *batch, card._on_device(
-                np.asarray(d, np.float32))))
+            outs.append(card._step(params, opt, *batch, on_device(
+                np.asarray(d, np.float32), card.device)))
         return outs
 
     a, b = drive("coded-sgd 100m FRC invariance", both_masks, {comb: 2})
@@ -1118,19 +1136,24 @@ def train_phase(smi: str, drive, co: dict) -> None:
           f" equal bit for bit")
     del a, b
 
-    # the 100m step's time (the step is functional: each sample starts from
-    # the same parameters) and its profiler breakdown
-    d = card._on_device(np.asarray(card.code.decode_weights(
-        np.asarray(masks[0])), np.float32))
+    # the eager step's profiler breakdown (the functional step: each call
+    # starts from the same parameters); its time comes from (4)
+    d = on_device(np.asarray(card.code.decode_weights(
+        np.asarray(masks[0])), np.float32), card.device)
     step_fn = lambda: card._step(params, opt, *batch, d)  # noqa: E731
-    step_ms = samples_ms(step_fn, 5)
-    print(f"coded-sgd 100m step (m {m}, seq 128, one combine): "
-          f"{spread(step_ms, 'ms')}  [{smi}]")
-    train_breakdown(step_fn, smi, sorted(step_ms)[len(step_ms) // 2])
-    del params, opt, card, host, step_fn, batch
+    del host
     torch.cuda.empty_cache()
 
-    # (4) deepseek-7b at its published width, one layer of 30
+    # (4) the trainer's captured step against the same run eager: 100m (30
+    # steps), deepseek-7b at its published width with one layer of 30 (4
+    # steps; the captured and the eager step do not fit the card together,
+    # so its turns free the graph's pool before each eager step) and
+    # xlstm-350m whole (3 steps: the sLSTM and mLSTM loops' forward and
+    # backward inside the graph)
+    ab = train_ab("100m", cfg, steps, smi, drive)
+    train_breakdown(step_fn, smi, ab["eager_ms"])
+    del params, opt, card, step_fn, batch
+    torch.cuda.empty_cache()
     cfg7 = get_config("deepseek-7b").with_overrides(n_layers=1)
     p7 = int(count_params(cfg7))
     require(p7 == 621_817_856, f"deepseek-7b 1 layer has {p7} parameters")
@@ -1138,34 +1161,13 @@ def train_phase(smi: str, drive, co: dict) -> None:
           f"(deepseek-7b: d_model {cfg7.d_model}, {cfg7.n_heads} heads, "
           f"d_ff {cfg7.d_ff}, vocab {cfg7.vocab}, {cfg7.param_dtype}; "
           f"P_total {p7})")
-    trainer = CodedTrainer(cfg7, TrainerConfig(
-        m_workers=m, beta=2, wait_k=k, seq_len=128, steps=3, lr=3e-3,
-        warmup=1, log_every=0), engine(), policy=FastestK(k))
-    shapes: list = []
-
-    def watch(g, c):
-        shapes.append(tuple(g.shape))
-        return plain_call(g, c)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    coded.coded_combine_call = watch
-    try:
-        _, _, hist = drive("coded-sgd deepseek-7b 1 layer",
-                           lambda: trainer.run(), {comb: 3})
-    finally:
-        coded.coded_combine_call = plain_call
-    peak7 = torch.cuda.max_memory_allocated() / 1e9
-    l7 = [h["loss"] for h in hist]
-    require(np.isfinite(l7).all(), "deepseek-7b 1 layer: non-finite loss")
-    require(shapes == [(m, p7)] * 3, f"deepseek-7b combines at {shapes}")
-    print(f"coded-sgd deepseek-7b 1 layer (m {m}, FRC beta 2, k {k}, seq "
-          f"128, 3 steps): losses {[round(x, 4) for x in l7]}; 3 combine "
-          f"launches at ({m}, {p7}); step host s "
-          f"{[round(h['execute_s'], 3) for h in hist]}; peak device memory "
-          f"{peak7:.2f} GB  [{smi}]")
-    del trainer, hist
-    torch.cuda.empty_cache()
+    train_ab("deepseek-7b 1 layer", cfg7, 4, smi, drive, release=True)
+    cfgx = get_config("xlstm-350m")
+    px = int(count_params(cfgx))
+    print(f"xlstm-350m whole ({cfgx.source}: {cfgx.n_layers} layers, "
+          f"d_model {cfgx.d_model}, vocab {cfgx.vocab}, "
+          f"{cfgx.param_dtype}; P_total {px})")
+    train_ab("xlstm-350m", cfgx, 3, smi, drive)
 
     # (5) a train-kind cell through the harness, on the card and the CPU
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
@@ -1218,8 +1220,163 @@ def train_phase(smi: str, drive, co: dict) -> None:
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s host clock")
 
 
+def train_ab(label: str, cfg, steps: int, smi: str, drive, *,
+             release: bool = False) -> dict:
+    """``CodedTrainer.run`` over ``steps`` steps with the step captured (a
+    ``train.stepper.Stepper``: step 0 the warm-up, step 1 the capture, a
+    replay a step from it) against the same run under
+    ``graphs.capturing(False)``, from the same parameters (m 8, k 6, FRC
+    beta 2, seq 128): parameters, AdamW m, v and count, every loss and
+    grad_norm bit for bit, one combine launch a step each, the combine's
+    shape checked in the Python wrapper (the eager run's every step, the
+    captured run's warm-up and capture; a replay runs no Python); one
+    capture, its host seconds and graph pool, the reserved peak.  Then the
+    step time of one stepper, captured and eager in turns (CUDA events
+    around a step, five samples each); with ``release`` every eager turn
+    follows ``graphs.clear()`` (the graph's pool and an eager step's
+    temporaries do not fit the card together) and every captured turn
+    follows an untimed recapture.  Last, one profiled captured step: the
+    device's busy and idle share and the combine's device time, by kernel
+    name.  Returns the medians."""
+    import numpy as np
+    import torch
+    import repro_torch.train.coded as coded
+    from repro_torch import graphs
+    from repro_torch.core import bimodal_delays
+    from repro_torch.models import count_params
+    from repro_torch.runtime import ClusterEngine, FastestK
+    from repro_torch.train import CodedTrainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+
+    m, k, comb = 8, 6, "coded_combine"
+    P = int(count_params(cfg))
+    tcfg = TrainerConfig(m_workers=m, beta=2, wait_k=k, seq_len=128,
+                         steps=steps, lr=3e-3, warmup=min(6, steps), seed=0,
+                         log_every=0, code="frc")
+
+    def trainer():
+        return CodedTrainer(cfg, tcfg, ClusterEngine(bimodal_delays(), m,
+                                                     seed=0),
+                            policy=FastestK(k))
+
+    shapes: list = []
+    plain_call = coded.coded_combine_call
+
+    def watch(g, c):
+        shapes.append(tuple(g.shape))
+        return plain_call(g, c)
+
+    def run(tr, params, opt, mode):
+        shapes.clear()
+        coded.coded_combine_call = watch
+        t0 = time.perf_counter()
+        try:
+            with (graphs.capturing(False) if mode == "eager"
+                  else contextlib.nullcontext()):
+                out = drive(f"train {label} {mode}",
+                            lambda: tr.run(params, opt), {comb: steps})
+        finally:
+            coded.coded_combine_call = plain_call
+        want = steps if mode == "eager" else 2
+        require(shapes == [(m, P)] * want,
+                f"train {label} {mode}: combines at {shapes}")
+        return out, time.perf_counter() - t0
+
+    t_ab = time.perf_counter()
+    graphs.clear()
+    tr = trainer()
+    params, opt = tr.init_state()
+    (pe, oe, he), eager_s = run(tr, params, opt, "eager")
+    require(tr.stepper.captures == 0, f"train {label}: the eager run "
+                                      f"captured")
+    want = [t.cpu() for t in tree_leaves((pe, oe))]
+    del tr, pe, oe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer()
+    (pc, oc, hc), captured_s = run(tr, params, opt, "captured")
+    peak = torch.cuda.max_memory_reserved() / 1e9
+    alloc = torch.cuda.max_memory_allocated() / 1e9
+    st = tr.stepper
+    got = tree_leaves((pc, oc))
+    same = len(got) == len(want) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    key = lambda h: [(r["loss"], r["grad_norm"]) for r in h]  # noqa: E731
+    losses = [r["loss"] for r in hc]
+    require(np.isfinite(losses).all(), f"train {label}: non-finite loss")
+    require(same and key(hc) == key(he), f"train {label}: captured != "
+            f"eager (state equal {same}; losses {losses} vs "
+            f"{[r['loss'] for r in he]})")
+    require(st.captures == 1 and int(oc.count) == steps,
+            f"train {label}: {st.captures} captures, count {int(oc.count)}")
+    print(f"train {label} (P_total {P}, m {m}, k {k}, FRC beta 2, seq 128, "
+          f"{steps} steps): captured == eager (graphs.capturing(False)) bit "
+          f"for bit in parameters, AdamW m, v and count, every loss and "
+          f"grad_norm; losses {[round(x, 4) for x in losses]}; {steps} "
+          f"combine launches each at ({m}, {P}); one capture, "
+          f"{st.capture_s:.3f} s of host time, graph pool "
+          f"{st.pool_bytes / 1e9:.3f} GB; captured run's reserved peak "
+          f"{peak:.2f} GB (allocated {alloc:.2f}); host s a run captured "
+          f"{captured_s:.2f}, eager {eager_s:.2f}  [{smi}]")
+    del pc, oc, got, want, params, opt
+
+    t_turns = time.perf_counter()
+    toks, labels, coeff = tr.batcher.next_batch(tr.code.at_step(0))
+    batch = (toks, labels, coeff, np.asarray(
+        tr.code.decode_weights(np.ones(m)), np.float32))
+    times: dict = {"captured": [], "eager": []}
+    recaptures = 0
+    for i in range(5):
+        for mode in (("captured", "eager") if i % 2 == 0
+                     else ("eager", "captured")):
+            if release and mode == "eager":
+                graphs.clear()
+            if release and mode == "captured" and st._graph is None:
+                st.step(*batch)
+                recaptures += 1
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            with (graphs.capturing(False) if mode == "eager"
+                  else contextlib.nullcontext()):
+                a.record()
+                st.step(*batch)
+                b.record()
+            torch.cuda.synchronize()
+            times[mode].append(a.elapsed_time(b))
+    med = {mode: sorted(v)[2] for mode, v in times.items()}
+    print(f"train {label} step (CUDA events around a step, in turns"
+          f"{'; the pool freed before each eager step, ' + str(recaptures) + ' recaptures' if release else ''}"
+          f"): captured {spread(times['captured'], 'ms', 2)}; eager "
+          f"{spread(times['eager'], 'ms', 2)}; eager / captured "
+          f"{med['eager'] / med['captured']:.2f}x  [{smi}]")
+    if st._graph is None:               # the last turn freed the pool
+        st.step(*batch)
+    t_prof = time.perf_counter()
+    wall_us, rows = profile_device(lambda: st.step(*batch))
+    busy = sum(r[0] for r in rows)
+    comb_us = sum(us for us, _, name in rows if "combine_kernel" in name)
+    if busy > 0:
+        print(f"profile train {label} captured step (one replay): wall "
+              f"{wall_us:.0f} us, device busy {busy:.0f} us (idle share "
+              f"{max(0.0, 1 - busy / wall_us):.3f} of the profiled wall, "
+              f"{max(0.0, 1 - busy / (med['captured'] * 1e3)):.3f} of the "
+              f"{med['captured']:.2f} ms step); the combine {comb_us:.0f} "
+              f"us ({comb_us / busy:.2%} of busy); {sum(r[1] for r in rows)}"
+              f" kernels and copies  [{smi}]")
+    else:
+        print(f"profile train {label} captured step: the profiler recorded "
+              f"no device time (idle share not measured)")
+    print(f"train {label}: host s {t_turns - t_ab:.1f} the two runs, "
+          f"{t_prof - t_turns:.1f} the turns, {time.perf_counter() - t_prof:.1f}"
+          f" the profiled replay")
+    del tr, st
+    graphs.clear()
+    return {"captured_ms": med["captured"], "eager_ms": med["eager"]}
+
+
 def train_breakdown(step_fn, smi: str, step_ms: float) -> None:
-    """Where one coded train step's device time goes: the combine kernel
+    """Where one eager coded train step's device time goes (a replay of the
+    captured step carries no ``coded:`` ranges): the combine kernel
     (by name), the kernels under the step's ``coded:flatten`` and
     ``coded:adamw`` ranges, and the workers' forward and backward as the
     rest (the backward runs on autograd's own thread, outside the ranges;
@@ -1251,15 +1408,16 @@ def train_breakdown(step_fn, smi: str, step_ms: float) -> None:
             ranges[ev.key[6:]] = getattr(ev, "device_time_total",
                                          getattr(ev, "cuda_time_total", 0.0))
     if busy <= 0:
-        print("profile coded-sgd 100m step: the profiler recorded no device "
-              "time (breakdown not measured)")
+        print("profile coded-sgd 100m eager step: the profiler recorded no "
+              "device time (breakdown not measured)")
         return
     comb = sum(us for us, _, key in kernels if "combine_kernel" in key)
     flat, adamw = ranges.get("flatten", 0.0), ranges.get("adamw", 0.0)
     workers = busy - comb - flat - adamw
     span = spans.get("worker_grad", 0.0)
     fwd = ranges.get("worker_grad", 0.0)
-    print(f"profile coded-sgd 100m step: wall {wall_us:.0f} us, device busy "
+    print(f"profile coded-sgd 100m eager step: wall {wall_us:.0f} us, "
+          f"device busy "
           f"{busy:.0f} us (idle share {max(0.0, 1 - busy / wall_us):.2f} of "
           f"the profiled wall, {max(0.0, 1 - busy / (step_ms * 1e3)):.2f} of "
           f"the {step_ms:.1f} ms step); workers' forward and backward "
@@ -1692,7 +1850,7 @@ def tree_layout(tree):
 
 
 def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
-                   dev, count_drops: bool = False) -> dict:
+                   dev, count_drops: bool = False, host=None) -> dict:
     """One architecture served on the card at ``cfg``'s width through the
     port's entry points (``init_params``, ``prefill``, ``models.Decoder``):
     parameters from seed 0, a batch of B random prompts of S tokens, a
@@ -1708,8 +1866,10 @@ def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
     allocated before its parameters is not counted).  With
     ``count_drops`` the MoE layers' capacity drops in the prefill are
     counted in one more, untimed prefill, which must reach every MoE
-    layer.  Returns the parameters, the prompts, the greedy tokens and
-    the prefill as a function."""
+    layer.  ``host``: a future of ``init_params(cfg, 0, device="cpu")``
+    drawn in a thread while earlier models ran (the same parameters, moved
+    to the card).  Returns the parameters, the prompts, the greedy tokens
+    and the prefill as a function."""
     import numpy as np
     import torch
     from repro_torch.models import (Decoder, count_params, decode_step,
@@ -1717,11 +1877,14 @@ def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import prefill
     from repro_torch.models import transformer as T
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = init_params(cfg, 0, device=dev)
+    if host is None:
+        params = init_params(cfg, 0, device=dev)
+    else:
+        params = tree_map(lambda t: t.to(dev), host.result())
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -1800,7 +1963,8 @@ def serve_at_width(label: str, cfg, B: int, S: int, new: int, smi: str,
     med = {k: sorted(v)[2] for k, v in dec_ms.items()}
     n_params = int(count_params(cfg))
     print(f"serve {label}: {n_params} parameters ({cfg.param_dtype}), "
-          f"batch {B}, prompt {S}, {new} greedy tokens; init {t_init:.1f} s,"
+          f"batch {B}, prompt {S}, {new} greedy tokens; init {t_init:.1f} s"
+          f"{' (drawn on the host in a thread meanwhile; the wait and the copy)' if host is not None else ''},"
           f" first prefill + decode {t_first:.2f} s host clock  [{smi}]")
     print(f"serve {label} prefill {B}x{S}: {spread(pre_ms, 'ms')}  [{smi}]")
     print(f"serve {label} decode a token (batch {B}), captured (the "
@@ -1991,6 +2155,36 @@ def serve_phase(smi: str) -> None:
     """The model zoo's serve path on the card (module docstring, phase
     "serve"): no kernel of the port runs here, and the launch counters,
     cleared at the start, must read zero at the end."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _build.launches.clear()
+    # jamba-1.5-large's 12.4 B parameters take about two minutes to draw on
+    # the host (init_params draws every leaf there): a thread draws them
+    # while the other models run
+    jcfg = ARCHS["jamba-1.5-large-398b"]
+    jcfg = jcfg.with_overrides(n_layers=3, period=jcfg.period[:3])
+    drawer = ThreadPoolExecutor(1)
+    jamba_host = drawer.submit(init_params, jcfg, 0, device="cpu")
+    try:
+        _serve_models(smi, jcfg, jamba_host)
+    finally:
+        jamba_host.cancel()
+        drawer.shutdown(wait=True)
+    del jamba_host
+    require(not {k: v for k, v in _build.launches.items() if v},
+            "serve phase launched kernels of the port")
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f} s host clock; "
+          f"no kernel of the port launched (counters read 0)  [{smi}]")
+
+
+def _serve_models(smi: str, jcfg, jamba_host) -> None:
+    """The serve phase's models (``serve_phase``); ``jamba_host`` is the
+    future of jamba-1.5-large's parameters on the host."""
     import numpy as np
     import torch
     from repro_torch import graphs
@@ -2003,9 +2197,6 @@ def serve_phase(smi: str) -> None:
     from repro_torch.serve import serve_inputs
     from repro_torch.tree import tree_leaves, tree_map
 
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    _build.launches.clear()
     dev, cpu = torch.device("cuda"), torch.device("cpu")
 
     # (1) every architecture at its smoke variant, card against CPU, from
@@ -2095,8 +2286,6 @@ def serve_phase(smi: str) -> None:
 
     # (5) jamba-1.5-large at its published width, depth cut to the first
     # three blocks of its period
-    jcfg = ARCHS["jamba-1.5-large-398b"]
-    jcfg = jcfg.with_overrides(n_layers=3, period=jcfg.period[:3])
     n_j = int(count_params(jcfg))
     require(n_j == 12400353280, f"jamba-1.5-large 3 layers: {n_j} "
                                 f"parameters")
@@ -2106,7 +2295,7 @@ def serve_phase(smi: str) -> None:
           f"d_ff 24576, 16 experts top-2, Mamba d_state 16, expand 2, chunk "
           f"{jcfg.mamba_chunk}, vocab 65536, bfloat16; {n_j} parameters")
     g = serve_at_width("jamba-1.5-large", jcfg, 1, 8192, 16, smi, dev,
-                       count_drops=True)
+                       count_drops=True, host=jamba_host)
     scan_ab("jamba-1.5-large", g, ["attention", "mamba"], smi)
     del g
     graphs.clear()
@@ -2127,10 +2316,6 @@ def serve_phase(smi: str) -> None:
     for line in lines:
         print(f"python -m repro_torch.serve --arch gemma2-27b: {line}")
 
-    got = {k: v for k, v in _build.launches.items() if v}
-    require(not got, f"serve phase launched kernels of the port: {got}")
-    print(f"serve phase: {time.perf_counter() - t_phase:.1f} s host clock; "
-          f"no kernel of the port launched (counters read 0)  [{smi}]")
 
 
 def launch_phase(smi: str, drive) -> None:
@@ -2143,7 +2328,10 @@ def launch_phase(smi: str, drive) -> None:
     import numpy as np
     import torch
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
     import repro_torch.train.coded as coded
+    from repro_torch import graphs
     from repro_torch.configs import get_config
     from repro_torch.launch import make_local_mesh
     from repro_torch.launch.train import main as train_main
@@ -2193,29 +2381,31 @@ def launch_phase(smi: str, drive) -> None:
           f"arXiv:2401.02954: d_model {cfg7.d_model}, {cfg7.n_heads} heads, "
           f"d_ff {cfg7.d_ff}, vocab {cfg7.vocab}, {cfg7.param_dtype}; "
           f"{p7} parameters)")
-    # four steps: the first carries the warm-up and is not timed
-    args = parser().parse_args(["--arch", "deepseek-7b", "--steps", "4"])
+    # six steps: step 1 is the warm-up (eager), step 2 the capture, steps
+    # 3-6 replays; step 6 runs under the profiler, which times the combine
+    # inside the replay by kernel name (a replay runs no Python, and no
+    # CUDA event can be recorded inside a capture)
+    args = parser().parse_args(["--arch", "deepseek-7b", "--steps", "6"])
     shapes: list = []
-    comb_ev: list = []
     plain_call = coded.coded_combine_call
 
     def watch(g, c):
         shapes.append(tuple(g.shape))
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = plain_call(g, c)
-        ev[1].record()
-        comb_ev.append(ev)
-        return out
+        return plain_call(g, c)
 
     marks = []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def tick(rec):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         marks.append(ev)
+        if rec is not None and rec["step"] == 4:
+            prof.start()
+        elif rec is not None and rec["step"] == 5:
+            prof.stop()
 
-    torch.cuda.empty_cache()
+    graphs.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg7, 0)       # the trainer's own seeded draw
@@ -2224,31 +2414,40 @@ def launch_phase(smi: str, drive) -> None:
         tick(None)
         _, _, hist = drive("launch.train body deepseek-7b 1 layer",
                            lambda: train(cfg7, args, params, callback=tick),
-                           {comb: 4})
+                           {comb: 6})
     finally:
         coded.coded_combine_call = plain_call
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = torch.cuda.max_memory_reserved() / 1e9
     step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-    comb_ms = [a.elapsed_time(b) for a, b in comb_ev]
+    comb_us = [(ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and "combine_kernel" in ev.key]
     losses = [h["loss"] for h in hist]
     require(np.isfinite(losses).all(), "launch.train deepseek-7b 1 layer: "
                                        "non-finite loss")
-    require(shapes == [(args.m_workers, p7)] * 4,
+    require(shapes == [(args.m_workers, p7)] * 2,
             f"launch.train deepseek-7b combines at {shapes}")
-    share = sum(comb_ms[1:]) / sum(step_ms[1:])
+    timed_ms = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    if comb_us and comb_us[0][1] == 1:
+        cms = comb_us[0][0] / 1e3
+        comb_text = (f"the combine inside step 6 (profiler, by kernel name) "
+                     f"{cms:.4f} ms, {cms / timed_ms:.2%} of the median step")
+    else:
+        comb_text = (f"the combine's device time not measured (profiler rows"
+                     f" {comb_us})")
     print(f"launch.train body, deepseek-7b 1 layer (m {args.m_workers}, "
           f"k {args.wait_k}, beta {args.beta}, {args.rows_per_worker} rows a "
-          f"group, seq {args.seq_len}, 4 steps): losses "
+          f"group, seq {args.seq_len}, 6 steps): losses "
           f"{[round(x, 4) for x in losses]}; warm-up step "
-          f"{step_ms[0]:.2f} ms; steps 2-4 (CUDA events between steps) "
-          f"{spread(step_ms[1:], 'ms', 2)}; the combine inside them (CUDA "
-          f"events around its call) {spread(comb_ms[1:], 'ms', 4)}, "
-          f"{share:.2%} of the step; 4 combine launches at "
-          f"({args.m_workers}, {p7}); peak device memory {peak:.2f} GB  "
-          f"[{smi}]")
+          f"{step_ms[0]:.2f} ms, capture step {step_ms[1]:.2f} ms; steps "
+          f"3-6, replays (CUDA events between steps; step 6 profiled) "
+          f"{spread(step_ms[2:], 'ms', 2)}; {comb_text}; 6 combine launches,"
+          f" the shape ({args.m_workers}, {p7}) checked at the warm-up and "
+          f"the capture; reserved peak {peak:.2f} GB  [{smi}]")
     del hist, params
-    torch.cuda.empty_cache()
+    graphs.clear()
 
     # (3) grad_specs on a one-card mesh: bit for bit the step without it
     mesh = make_local_mesh()
@@ -2682,12 +2881,14 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one card "
                                  "(module docstring).")
-    ap.add_argument("--phase", choices=("all", "sharded", "serve"),
+    ap.add_argument("--phase", choices=("all", "sharded", "serve", "train"),
                     default="all",
                     help="'sharded': the build and the sharded phase alone "
                     "(on a host with several cards, the split over all of "
                     "them); 'serve': the serve phase alone (no build: it "
-                    "runs no kernel of the port); default: every phase")
+                    "runs no kernel of the port); 'train': the build and "
+                    "the train and launch phases alone; default: every "
+                    "phase")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2756,10 +2957,14 @@ def main(argv=None) -> int:
     counts: dict[str, int] = {}
     by_path: dict[str, dict[str, int]] = {}
     drive = make_drive(counts, by_path)
-    if args.phase == "sharded":
-        spec = ProblemSpec.synthetic(cfg.n, cfg.p, noise=0.5, lam=cfg.lam,
-                                     seed=0)
-        sharded_phase(cfg, ridge_step(spec, cfg.n, dev)[1], smi, drive)
+    if args.phase in ("sharded", "train"):
+        if args.phase == "sharded":
+            spec = ProblemSpec.synthetic(cfg.n, cfg.p, noise=0.5,
+                                         lam=cfg.lam, seed=0)
+            sharded_phase(cfg, ridge_step(spec, cfg.n, dev)[1], smi, drive)
+        else:
+            train_phase(smi, drive, {})
+            launch_phase(smi, drive)
         print(f"launches by path: {json.dumps(by_path)}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,

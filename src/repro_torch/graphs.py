@@ -6,7 +6,7 @@ program.  The port runs such a loop as **blocks** over static buffers
 and, on a card, captures a block into a CUDA graph and replays it, so the
 host enqueues a few calls a block rather than every op of every step.
 
-The capture itself (``_capture``, ``_Replay``, ``_counted``) serves three
+The capture itself (``_capture``, ``_Replay``, ``_counted``) serves four
 callers.  The runners (``runtime/runners.py``) capture a graph a run.
 ``scan`` (the sLSTM token loop, the mLSTM and Mamba chunk loops and the
 attention's KV chunk loop in ``models/``) keeps one graph a **block
@@ -16,8 +16,9 @@ block's Python constants (``static``: a window, a soft-cap, causality),
 so two layers of equal shapes that mask differently never share a graph:
 one capture serves every layer of that shape and constants and every
 later call.  The decoder (``models/decoder.py``) captures one decode step
-and registers itself (``hold``).  ``clear()`` drops the cached graphs,
-the held decoders' graphs and their memory pools.
+and the stepper (``train/stepper.py``) one coded train step, and each
+registers itself (``hold``).  ``clear()`` drops the cached graphs, the
+held decoders' and steppers' graphs and their memory pools.
 
 ``scan`` never bakes a weight into a graph: the weights a block reads
 (``consts``) are copied into its static buffers at the start of every
@@ -30,7 +31,9 @@ run's ``FlopCounterMode`` on the meta device), ``capturing(False)`` not
 in force, and no capture already under way on the current stream: a
 ``scan`` reached while an outer graph is being captured (the KV loop of
 the decoder's step over a long cache) runs its blocks eagerly, so the
-outer graph records them inline.
+outer graph records them inline; so does one reached under the train
+step's ``torch.func.grad`` and ``vmap``, so the stepper's graph holds
+every loop's forward and backward.
 Elsewhere (the CPU, the meta device, training) the same block function
 runs eagerly, block by block, on the loop's own tensors, so the CPU tests
 run the code that the card captures.  An eager block takes its inputs
@@ -92,10 +95,14 @@ def _capture(block, where: str, device: torch.device,
              span: str = "runner:capture") -> _Replay:
     """Capture ``block()`` into a CUDA graph on a side stream of
     ``device``, with its own memory pool; the capture executes nothing.
-    Its host seconds add to ``kernels._build.capture_seconds`` and it is
-    the obs span ``span``.  Raises, naming ``where``, if the capture
-    fails."""
+    The general pool's cached blocks go back to the card first: a capture
+    cannot free them while it is under way, so a large cache left by
+    earlier work (a train step's warm-up, an encode) would starve the
+    graph's pool.  Its host seconds add to
+    ``kernels._build.capture_seconds`` and it is the obs span ``span``.
+    Raises, naming ``where``, if the capture fails."""
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
 
@@ -172,7 +179,7 @@ def hold(obj) -> None:
 
 def clear() -> None:
     """Drop every cached block shape, its graph and its memory pool, and
-    every held decoder's graph."""
+    every held decoder's and stepper's graph."""
     _CACHE.clear()
     for obj in list(_HELD):
         obj.release()
@@ -224,6 +231,13 @@ def scan(name: str, block, consts: tuple, xs: tuple, carry: tuple, *,
     positions [0, length) of dim 1 of every tensor in ``xs``, in blocks of
     c positions (a shorter last block when c does not divide ``length``).
     Returns (the list of each block's ``ys``, the last carry).
+
+    Its callers: the sLSTM token loop and the mLSTM chunk loop
+    (``models/xlstm.py``), the Mamba chunk loop (``models/mamba.py``) and
+    the attention's KV chunk loop (``models/attention.py``), reached by
+    the serve path (captured here a block shape), the decoder's captured
+    step and the train step under ``train.stepper.Stepper``'s capture
+    (both recorded inline: eager blocks inside the outer capture).
 
     ``static`` holds every Python value ``block`` closes over that changes
     what it computes (a mask's window, a soft-cap): it is part of the

@@ -119,7 +119,7 @@ class Decoder:
                 # card the first step is the warm-up
                 with graphs.capturing(False):
                     self._step()
-                self._warm = capture
+                self._warm = self._warm or capture
                 return
             if self._graph is None:
                 t0 = time.perf_counter()

@@ -31,6 +31,12 @@ exact code the decoded update equals the full-batch update, and a
 stochastic code is unbiased.  Matrix products run in full float32 (TF32
 off), as the reference computes.
 
+``CodedTrainer`` runs its steps through a ``train.stepper.Stepper`` (one
+per trainer, built on its first run): on a card the step is captured once
+into a CUDA graph, the workers' forward and backward, the combine and
+AdamW in it, and every later step is one replay; ``self._step`` stays the
+functional eager step, the A/B reference.
+
 ``run_coded_sgd`` adapts the trainer to the Strategy interface
 (``RunResult`` with engine times as the x-axis); ``runtime.strategies``
 registers it as ``coded-sgd``.  Every entry point takes ``device``: the
@@ -59,6 +65,8 @@ from repro_torch.obs.trace import span as _obs_span
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.runtime.engine import ClusterEngine, FastestK, _policy_k_min
 from repro_torch.tree import tree_leaves, tree_unflatten
+
+from .stepper import Stepper
 
 __all__ = ["TrainerConfig", "TrainProblem", "build_coded_train_step",
            "CodedTrainer", "run_coded_sgd"]
@@ -195,9 +203,18 @@ class CodedTrainer:
     Straggler/fault realization, active-set policy and wall-clock all come
     from one pre-sampled ``ClusterEngine`` schedule (so runs are resumable
     and reproducible per engine seed); per-step host time is split into
-    the kernels' build and the rest via ``obs.timing.CompileWatch``; the
-    realized schedule is kept as ``last_schedule``.  The model and the
-    optimizer state live on ``device`` (unset: the CUDA card).
+    the kernels' build and the step's capture and the rest via
+    ``obs.timing.CompileWatch``; the realized schedule is kept as
+    ``last_schedule``.  The model and the optimizer state live on
+    ``device`` (unset: the CUDA card).
+
+    The steps run through ``stepper`` (a ``Stepper``, built on the first
+    run and kept for the later ones: on a card one capture a trainer, a
+    replay a step).  ``run(params, opt)`` copies the caller's trees into
+    its static buffers and returns clones of them, so a run leaves the
+    caller's trees as they were and a later run does not change what an
+    earlier one returned; checkpoints are written from the static
+    buffers.
     """
 
     def __init__(self, cfg: ArchConfig, tcfg: TrainerConfig,
@@ -228,6 +245,7 @@ class CodedTrainer:
             cfg, lr_fn, rows_per_group=tcfg.rows_per_worker,
             num_groups=self.code.num_groups)
         self.last_schedule = None
+        self.stepper: Optional[Stepper] = None
 
     def init_state(self, key=None):
         """Random parameters (``key``: an int seed or a CPU
@@ -237,9 +255,6 @@ class CodedTrainer:
         params = T.init_params(self.cfg, key, device=self.device)
         opt = adamw_init(params, dtype=Dtype.of(self.cfg.optstate_dtype))
         return params, opt
-
-    def _on_device(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def run(self, params=None, opt=None, callback: Optional[Callable] = None):
         if params is None:
@@ -255,12 +270,12 @@ class CodedTrainer:
                 code_t = self.code.at_step(t)
                 tokens, labels, coeff = self.batcher.next_batch(code_t)
                 mask = np.asarray(sched.masks[t])
-                decode = code_t.decode_weights(mask)
+                batch = (tokens, labels, coeff,
+                         np.asarray(code_t.decode_weights(mask), np.float32))
+                if t == 0:
+                    self._bind(params, opt, batch)
                 with CompileWatch() as cw:
-                    params, opt, metrics = block(self._step(
-                        params, opt, self._on_device(tokens),
-                        self._on_device(labels), self._on_device(coeff),
-                        self._on_device(np.asarray(decode, np.float32))))
+                    metrics = block(self.stepper.step(*batch))
                 rec = {"step": t, "loss": float(metrics["loss"]),
                        "grad_norm": float(metrics["grad_norm"]),
                        "sim_time_s": float(sched.times[t]),
@@ -279,8 +294,22 @@ class CodedTrainer:
                 if (tc.checkpoint_dir and tc.checkpoint_every
                         and (t + 1) % tc.checkpoint_every == 0):
                     from repro_torch.checkpoint import save
-                    save(tc.checkpoint_dir, t + 1, (params, opt))
+                    save(tc.checkpoint_dir, t + 1,
+                         (self.stepper.params, self.stepper.opt))
+        if tc.steps:
+            params, opt = self.stepper.state()
         return params, opt, history
+
+    def _bind(self, params, opt, batch) -> None:
+        """Build the stepper on the first run (its buffers take ``batch``'s
+        shapes) and copy the caller's trees into it."""
+        if self.stepper is None:
+            tokens = batch[0]
+            self.stepper = Stepper(
+                self._step, params, opt, batch,
+                f"train {self.cfg.name}, m {tokens.shape[0]}, rows "
+                f"{tokens.shape[1]}, sequence length {tokens.shape[2]}")
+        self.stepper.load(params, opt)
 
 
 def run_coded_sgd(spec: TrainProblem, engine: ClusterEngine, *,

@@ -47,7 +47,10 @@ captured once, a replay a token, the KV chunk loop inline, the rings
 wrapping) equals the eager ``decode_step`` loop bit for bit in tokens,
 logits and caches, and gemma2's prefill with the KV loop captured equals
 it uncaptured bit for bit; the coded step through the MoE dispatch launches
-one combine and matches the CPU's loss and gradient norm to rel 1e-4.
+one combine and matches the CPU's loss and gradient norm to rel 1e-4;
+``CodedTrainer.run`` with its step captured once into a CUDA graph (every
+token-only smoke variant, 5 steps) equals the same run under
+``graphs.capturing(False)`` bit for bit, one combine launch a step.
 The runners' step loops captured into CUDA graphs and replayed block by
 block (GD / ISTA at R = 1 and 4, ``eval_every`` 1 and 5, hold-mode
 ``degrade``, ``REPRO_FUSED=0``, BCD single and batched, two chunks of one
@@ -1394,6 +1397,55 @@ def test_coded_step_over_moe_on_card_matches_cpu(cuda):
     mc, mh = out["cuda"][1], out["cpu"][1]
     _close(mc["loss"].cpu(), mh["loss"], 1e-4)
     _close(mc["grad_norm"].cpu(), mh["grad_norm"], 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "deepseek-7b", "gemma2-27b",
+                                  "jamba-1.5-large-398b",
+                                  "phi3.5-moe-42b-a6.6b", "stablelm-12b",
+                                  "starcoder2-3b", "xlstm-350m"])
+def test_trainer_captured_equals_eager_on_card(cuda, arch):
+    """Every token-only smoke variant (seq 16, FRC over 8 workers), 5
+    steps of ``CodedTrainer.run``: the step captured once into a CUDA
+    graph (step 0 the warm-up, step 1 the capture, a replay a step from
+    it; the workers' forward and backward through the recurrences and the
+    KV loop inline) equals the same run under ``graphs.capturing(False)``
+    bit for bit in parameters, AdamW m, v and count, losses and grad
+    norms; one ``coded_combine`` launch a step either way."""
+    import contextlib
+
+    from repro_torch import graphs
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import bimodal_delays
+    from repro_torch.runtime import ClusterEngine, FastestK
+    from repro_torch.train import CodedTrainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    cfg = ARCHS[arch].smoke_variant()
+    tcfg = TrainerConfig(m_workers=8, seq_len=16, steps=5, lr=3e-3,
+                         warmup=2, log_every=0)
+
+    def run(capture):
+        tr = CodedTrainer(cfg, tcfg, ClusterEngine(bimodal_delays(), 8,
+                                                   seed=0),
+                          policy=FastestK(6))
+        before = dict(launches)
+        with (contextlib.nullcontext() if capture
+              else graphs.capturing(False)):
+            params, opt, hist = tr.run()
+        torch.cuda.synchronize()
+        assert _launched(before) == {COMB: 5}
+        return tr, (params, opt), hist
+
+    graphs.clear()
+    te, we, he = run(False)
+    tc, wc, hc = run(True)
+    assert te.stepper.captures == 0
+    assert tc.stepper.captures == 1 and tc.stepper.pool_bytes > 0
+    a, b = tree_leaves(wc), tree_leaves(we)
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(wc[1].count) == 5
+    for key in ("loss", "grad_norm"):
+        assert [h[key] for h in hc] == [h[key] for h in he]
+    graphs.clear()
 
 
 # ---------------------------------------------------------------------------
