@@ -8,7 +8,9 @@ Run from the repository root, with no arguments:
 (``--phase sharded`` runs the device probe, the build and the sharded
 phase alone: on a host with several cards, the split over all of them;
 ``--phase serve`` the device probe and the serve phase alone; ``--phase
-train`` the device probe, the build and the train and launch phases.)
+train`` the device probe, the build and the train and launch phases;
+``--phase ranks`` the device probe and the launch phase's check (5),
+the partitioned train step over every card, alone.)
 
 Phases, each of which ends the run with a non-zero exit on failure:
 
@@ -274,14 +276,35 @@ Phases, each of which ends the run with a non-zero exit on failure:
              combine launch a step and its shape (8, 621 817 856) at the
              warm-up and the capture; (3)
              ``grad_specs`` from ``make_shardings`` on a one-card
-             ``make_local_mesh()`` (NCCL): one ``build_train_step`` step
-             with it equal bit for bit to the step without it (parameters,
-             optimizer state, loss); (4) ``python -m
+             ``make_local_mesh()`` (NCCL), the parameters and moments
+             placed as ``DTensor`` shards (``place_train_state``): one
+             ``build_train_step`` step with it writes into them and,
+             gathered, equals bit for bit the step without it
+             (parameters, optimizer state, loss); (3b) the dry run's
+             live-bytes tracker (``roofline.LiveBytes``) over the same
+             step again, its peak within 15 % of
+             ``torch.cuda.max_memory_allocated()`` above what was
+             allocated at the step's start; (5) with two cards or more,
+             the partitioned step over every card (``ranks_check``: one
+             process a card, NCCL, deepseek-7b's published width with 1
+             layer, 3 steps, each rank its own batch) against the
+             one-rank step on the ranks' batches together, in float32
+             and in bfloat16, and a witness, the one-rank step on the
+             same batches in the reverse order: ``grad_norm`` every step,
+             the moments every step and the parameters after step 3
+             within 10 times the witness's distance plus the dtype's eps
+             (to each leaf's largest entry), in float32 also
+             ``grad_norm`` and step 1's moments to rel 1e-5, the last
+             update AdamW's of the gathered moments bit for bit, each
+             rank's parameters and moments 1/n of the one-rank's bytes
+             within 1 %, the step times by CUDA events; on one card it
+             prints that it needs two; (4) ``python -m
              repro_torch.launch.dryrun`` in three processes started
-             together (deepseek-7b train_4k on both meshes, phi3.5-moe
-             decode_32k, jamba-1.5-large long_500k), each record's roofline
-             terms, argument bytes a device and host seconds; any failed
-             combination fails the phase;
+             together (deepseek-7b train_4k on both
+             meshes, phi3.5-moe decode_32k, jamba-1.5-large long_500k),
+             each record's roofline terms, argument, output, temp and
+             alias bytes a device (all numbers) and host seconds; any
+             failed combination fails the phase;
    sharded - the realization axis over cards: ``torch.cuda.device_count()``
              printed; at PAPER_RIDGE's width with R = 8, coded-gd (100
              steps), coded-prox (50) and async (320 updates) through
@@ -325,6 +348,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import io
 import json
 import math
@@ -2338,8 +2362,10 @@ def launch_phase(smi: str, drive) -> None:
     from repro_torch.launch.train import parser, train
     from repro_torch.models import count_params, init_params, param_axes
     from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.launch.roofline import LiveBytes, held_bytes
     from repro_torch.sharding import make_shardings
-    from repro_torch.train.steps import build_train_step
+    from repro_torch.train.steps import (build_train_step, gather,
+                                         place_train_state)
     from repro_torch.tree import tree_leaves
 
     comb = "coded_combine"
@@ -2449,7 +2475,9 @@ def launch_phase(smi: str, drive) -> None:
     del hist, params
     graphs.clear()
 
-    # (3) grad_specs on a one-card mesh: bit for bit the step without it
+    # (3) grad_specs on a one-card mesh: the partitioned step (parameters
+    # and moments as DTensor shards, written in place) bit for bit the
+    # step without it
     mesh = make_local_mesh()
     try:
         params = init_params(cfg7, 0)
@@ -2462,20 +2490,58 @@ def launch_phase(smi: str, drive) -> None:
         sh = make_shardings(mesh, params, param_axes(cfg7))
         lr = cosine_schedule(3e-3, 2, 10)
         a = build_train_step(cfg7, lr)(params, opt, batch)
-        b = build_train_step(cfg7, lr, grad_specs=sh)(params, opt, batch)
-        same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[:2]),
-                                                     tree_leaves(b[:2])))
+        lp, lo = place_train_state(params, opt, sh)
+        del params, opt
+        laid = build_train_step(cfg7, lr, grad_specs=sh)
+        b = laid(lp, lo, batch)
+        require(b[0] is lp and b[1] is lo,
+                "grad_specs: the step did not write into its shards")
+        same = all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a[:2]), tree_leaves(gather(b[:2]))))
         require(same and torch.equal(a[2]["loss"], b[2]["loss"]),
                 "grad_specs on a 1 x 1 mesh changed the step")
         print(f"grad_specs on a 1 x 1 mesh ({mesh.device_type}, "
               f"{dist.get_backend()}): deepseek-7b 1 layer, batch 2 x 128, "
-              f"parameters, optimizer state and loss "
-              f"({float(a[2]['loss']):.6f}) equal bit for bit to the step "
+              f"parameters and moments as DTensor shards written in place; "
+              f"gathered, they, the count and the loss "
+              f"({float(a[2]['loss']):.6f}) equal bit for bit the step "
               f"without it")
-        del a, b, params, opt
+        del a, b
+        # (3b) the dry run's live-bytes tracker over the same step on the
+        # card, beside the allocator's peak above what is live at its start
+        args = held_bytes(lp) + held_bytes(lo) + held_bytes(batch)
+        arg_bytes = sum(n for _, n in args)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        live = LiveBytes(known=[t for t, _ in args])
+        t0 = time.perf_counter()
+        with live:
+            out = laid(lp, lo, batch)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        alloc = torch.cuda.max_memory_allocated() - before
+        ratio = live.peak / alloc
+        print(f"live-bytes tracker (roofline.LiveBytes, what the dry run's "
+              f"temp_bytes_per_device reads) over the same step on the card:"
+              f" {live.peak} bytes; torch.cuda.max_memory_allocated() less "
+              f"what was allocated at the step's start ({before} bytes: the "
+              f"arguments' {arg_bytes} and {before - arg_bytes} else) "
+              f"{alloc} bytes; ratio {ratio:.4f} (tol 0.85-1.15); the step "
+              f"under the tracker {host_s:.2f} s host clock  [{smi}, one "
+              f"card]")
+        require(abs(ratio - 1.0) <= 0.15,
+                f"live-bytes tracker {live.peak} vs allocator {alloc}")
+        del out, lp, lo, live
     finally:
         dist.destroy_process_group()
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # (5) the partitioned step over every card, one process a card
+    ranks_check(smi)
 
     # (4) the meta-device dry run, in processes of its own (their fake
     # 512-rank groups never meet this process's groups), the three started
@@ -2509,11 +2575,16 @@ def launch_phase(smi: str, drive) -> None:
                 f"dryrun {arch} {shape}: {len(recs)} records")
         for rec in recs:
             require("error" not in rec, f"dryrun {arch} {shape}: {rec}")
+            require(all(isinstance(v, int) for v in rec["memory"].values()),
+                    f"dryrun {arch} {shape}: memory {rec['memory']}")
             rl = rec["roofline"]
+            mem = rec["memory"]
             print(f"dryrun {arch} {shape} {rec['mesh']} ({rec['n_chips']} "
-                  f"chips, {rec['kind']}): argument bytes a device "
-                  f"{rec['memory']['argument_bytes_per_device']}, output "
-                  f"{rec['memory']['output_bytes_per_device']}; roofline "
+                  f"chips, {rec['kind']}): bytes a device: argument "
+                  f"{mem['argument_bytes_per_device']}, output "
+                  f"{mem['output_bytes_per_device']}, temp "
+                  f"{mem['temp_bytes_per_device']}, alias "
+                  f"{mem['alias_bytes_per_device']}; roofline "
                   f"compute {rl['compute_s']:.6g} s, memory "
                   f"{rl['memory_s']:.6g} s, collective "
                   f"{rl['collective_s']:.6g} s -> {rl['bottleneck']}; flops "
@@ -2525,6 +2596,257 @@ def launch_phase(smi: str, drive) -> None:
     shutil.rmtree(tmp)
     print(f"launch phase: {time.perf_counter() - t_phase:.1f} s host clock"
           f"  [{smi}]")
+
+
+def _rank_batch(cfg, rank: int, step: int, device):
+    """Rank ``rank``'s batch of 2 x 128 tokens at step ``step``: every
+    rank's weights sum to 2, so the mean of the ranks' gradients is the
+    gradient of their batches put together."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(1000 * step + rank)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128)),
+                          dtype=torch.int32, device=device)
+    return {"tokens": tok, "labels": torch.roll(tok, -1, 1),
+            "weights": torch.ones(2, device=device)}
+
+
+def _rank_worker(rank: int, n: int, port: int, out: str, f32: bool) -> None:
+    """One rank of ``ranks_check``: 3 partitioned steps on its card; rank
+    0 also runs the one-rank step on the ranks' batches put together and
+    the witness (the same step on the batches put together in the
+    reverse order) and writes the comparison to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.models import init_params, param_axes
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.sharding import make_shardings
+    from repro_torch.train.steps import (build_train_step, gather,
+                                         place_train_state)
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=n,
+                            timeout=timedelta(seconds=300), device_id=dev)
+    try:
+        cfg = get_config("deepseek-7b").with_overrides(n_layers=1)
+        if f32:
+            cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
+        mesh = make_local_mesh(device=dev)
+        lr = cosine_schedule(3e-3, 2, 10)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        params = init_params(cfg, 0, device=dev)
+        opt = adamw_init(params)
+        whole = sum(t.untyped_storage().nbytes() for t in tree_leaves(
+            (params, opt.m, opt.v)))
+        sh = make_shardings(mesh, params, param_axes(cfg))
+        lp, lo = place_train_state(params, opt, sh)
+        del params, opt
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev) - base
+        step = build_train_step(cfg, lr, grad_specs=sh)
+
+        def worst(a, b):
+            """(max |a - b| over each leaf's largest |b|, elements that
+            differ, elements off by more than both rel 1e-5 of their leaf's
+            largest |b| and one unit in the last place of b's dtype at
+            |b|)."""
+            rel, diff, bad = 0.0, 0, 0
+            for x, y in zip(tree_leaves(a), tree_leaves(b)):
+                d = (x.float() - y.float()).abs()
+                top = max(float(y.float().abs().max()), 1e-30)
+                rel = max(rel, float(d.max()) / top)
+                diff += int((d > 0).sum())
+                bits = 1 - int(math.log2(torch.finfo(y.dtype).eps))
+                _, e = torch.frexp(y.float())
+                ulp = torch.ldexp(torch.ones_like(d), e - bits)
+                bad += int((d > torch.clamp(ulp, min=1e-5 * top)).sum())
+            return rel, diff, bad
+
+        def timed(fn, times):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
+            ev[0].record()
+            got = fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+            return got
+
+        if rank == 0:       # the one-rank step and its witness, in step
+            params = init_params(cfg, 0, device=dev)
+            opt = adamw_init(params)
+            w_params = init_params(cfg, 0, device=dev)
+            w_opt = adamw_init(w_params)
+            plain = build_train_step(cfg, lr)
+        norms, ms, ref_ms = [], [], []
+        ref_norms, w_norms, mv, w_mv = [], [], [], []
+        for t in range(3):
+            if t == 2:                 # the parameters before the last step
+                before = gather(lp)
+            batch = _rank_batch(cfg, rank, t, dev)
+            dist.barrier()
+            _, _, met = timed(lambda: step(lp, lo, batch), ms)
+            norms.append(float(met["grad_norm"]))
+            got_m, got_v = gather((lo.m, lo.v))
+            if rank == 0:
+                bs = [_rank_batch(cfg, r, t, dev) for r in range(n)]
+                both = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+                rev = {k: torch.cat([b[k] for b in bs[::-1]])
+                       for k in bs[0]}
+                params, opt, met = timed(lambda: plain(params, opt, both),
+                                         ref_ms)
+                w_params, w_opt, w_met = plain(w_params, w_opt, rev)
+                ref_norms.append(float(met["grad_norm"]))
+                w_norms.append(float(w_met["grad_norm"]))
+                mv.append((worst(got_m, opt.m)[0], worst(got_v, opt.v)[0]))
+                w_mv.append((worst(w_opt.m, opt.m)[0],
+                             worst(w_opt.v, opt.v)[0]))
+        got_p = gather(lp)
+        res = None
+        if rank == 0:
+            # the last step's parameters are AdamW's update of those before
+            # it from the gathered moments, bit for bit
+            b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
+            cf = torch.full((), 3.0, device=dev)
+            c1, c2 = 1.0 - b1 ** cf, 1.0 - b2 ** cf
+            lr2 = lr(torch.full((), 2, dtype=torch.int32, device=dev))
+            exact = True
+            for x, p0, m, v in zip(tree_leaves(got_p), tree_leaves(before),
+                                   tree_leaves(got_m), tree_leaves(got_v)):
+                upd = lr2 * (m.float() / c1) / (
+                    torch.sqrt(v.float() / c2) + eps)
+                upd = upd + lr2 * wd * p0.float()
+                exact &= bool(torch.equal(x, (p0.float() - upd).to(x.dtype)))
+            res = {"norms": norms, "ref_norms": ref_norms,
+                   "w_norms": w_norms, "mv": mv, "w_mv": w_mv,
+                   "params": worst(got_p, params),
+                   "w_params": worst(w_params, params),
+                   "exact_last_update": exact,
+                   "elements": sum(t.numel() for t in tree_leaves(got_p)),
+                   "held": held, "whole": whole, "ms": ms, "ref_ms": ref_ms,
+                   "param_dtype": str(tree_leaves(got_p)[0].dtype)}
+        held_all = [None] * n
+        dist.all_gather_object(held_all, {"held": held, "ms": ms})
+        if rank == 0:
+            res["ranks"] = held_all
+            Path(out).write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+# how far the n-rank step may lie from the one-rank step: within WITNESS_X
+# times the witness's distance (the one-rank step on the same batches in
+# another order: the same arithmetic, another reduction order), plus the
+# parameters' dtype's eps (float32 2^-23, bfloat16 2^-7: one unit in the
+# last place is at most eps of the value)
+WITNESS_X = 10.0
+
+
+def ranks_check(smi: str) -> None:
+    """The partitioned train step (``build_train_step(grad_specs=)``) over
+    every card, one process a card (NCCL), at deepseek-7b's published
+    width with 1 layer: 3 steps from the seeded parameters, each rank its
+    own batch, against the one-rank step on the ranks' batches put
+    together (rank 0), and against a witness of what another reduction
+    order alone does: the one-rank step on the same batches put together
+    in the reverse order.  Run in float32 (parameters and activations)
+    and as published (bfloat16).  Held: ``grad_norm`` every step, the
+    moments after every step (each leaf's largest entry the scale) and
+    the parameters after step 3 within ``WITNESS_X`` times the witness's
+    distance from the one-rank step plus the dtype's eps; in
+    float32 also ``grad_norm`` and step 1's moments to rel 1e-5; the last
+    update AdamW's of the gathered moments bit for bit; each rank's
+    allocated bytes for its parameters and moments 1/n of the one-rank's
+    within 1 %.  Printed: the step times by CUDA events.  Below two cards
+    it says so and returns."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"grad_specs over n ranks: this check needs two cards or "
+              f"more; {n} here, not run")
+        return
+    for f32 in (True, False):
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+        out = tmp / "ranks.json"
+        t0 = time.perf_counter()
+        try:
+            mp.spawn(_rank_worker, args=(n, port, str(out), f32), nprocs=n,
+                     join=True)
+            res = json.loads(out.read_text())
+        finally:
+            shutil.rmtree(tmp)
+        host_s = time.perf_counter() - t0
+        dt = res["param_dtype"]
+        eps = 2.0 ** -23 if f32 else 2.0 ** -7
+        rel = lambda got: [abs(a - b) / abs(b) for a, b in zip(  # noqa: E731
+            got, res["ref_norms"])]
+        norm_rel, w_norm_rel = rel(res["norms"]), rel(res["w_norms"])
+        p_rel, p_diff, p_bad = res["params"]
+        w_p_rel = res["w_params"][0]
+        held = [r["held"] / res["whole"] for r in res["ranks"]]
+        # (what, the n ranks' distance, the witness's)
+        pairs = [(f"grad_norm step {t + 1}", a, b)
+                 for t, (a, b) in enumerate(zip(norm_rel, w_norm_rel))]
+        for t, ((m, v), (wm, wv)) in enumerate(zip(res["mv"], res["w_mv"])):
+            pairs += [(f"m step {t + 1}", m, wm), (f"v step {t + 1}", v, wv)]
+        pairs.append(("parameters after step 3", p_rel, w_p_rel))
+        print(f"grad_specs over {n} ranks (one process a card, NCCL; "
+              f"deepseek-7b 1 layer, {dt}, 3 steps, 2 x 128 tokens a rank) "
+              f"against the one-rank step on the ranks' batches together, "
+              f"rel to each leaf's largest entry, the n ranks' (the "
+              f"witness's: the one-rank step on the batches in reverse "
+              f"order): " + "; ".join(f"{w} {a:.2e} ({b:.2e})"
+                                       for w, a, b in pairs)
+              + f"; grad_norm {res['norms']}, the one-rank step's "
+              f"{res['ref_norms']}; parameters after step 3: {p_diff} of "
+              f"{res['elements']} elements differ, {p_bad} by more than rel "
+              f"1e-5 of their leaf's largest entry and one unit in their "
+              f"last place (held: each within {WITNESS_X:g} x the "
+              f"witness's + {eps:.2e}"
+              + ("; grad_norm and step 1's moments within rel 1e-5"
+                 if f32 else "") + "); last update AdamW's of the gathered "
+              f"moments bit for bit: {res['exact_last_update']}; parameters "
+              f"and moments a rank {[round(h, 5) for h in held]} of the "
+              f"one-rank's {res['whole']} bytes (tol 1/{n} within 1 %); "
+              f"{host_s:.1f} s host clock")
+        per = [spread(r["ms"][1:], "ms", 2) for r in res["ranks"]]
+        print(f"grad_specs over {n} ranks, {dt}: a step (CUDA events, "
+              f"steps 2-3) by rank {per}; the one-rank step on the {n} "
+              f"ranks' batches together, on card 0, "
+              f"{spread(res['ref_ms'][1:], 'ms', 2)}  [{smi}, {n} cards]")
+        require(res["exact_last_update"],
+                f"grad_specs over {n} ranks: the last update is not AdamW's"
+                f" of the gathered moments")
+        require(all(abs(h * n - 1.0) <= 0.01 for h in held),
+                f"grad_specs over {n} ranks: held {held} of the whole")
+        far = [(w, a, b) for w, a, b in pairs if a > WITNESS_X * b + eps]
+        require(not far, f"grad_specs over {n} ranks, {dt}: beyond "
+                         f"{WITNESS_X:g} x the witness: {far}")
+        if f32:
+            require(max(norm_rel) <= 1e-5, f"grad_specs over {n} ranks: "
+                                           f"grad_norm rel {norm_rel}")
+            require(max(res["mv"][0]) <= 1e-5,
+                    f"grad_specs over {n} ranks: step 1's moments rel "
+                    f"{res['mv'][0]}")
 
 
 def sharded_phase(cfg, step: float, smi: str, drive) -> None:
@@ -2881,14 +3203,16 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one card "
                                  "(module docstring).")
-    ap.add_argument("--phase", choices=("all", "sharded", "serve", "train"),
+    ap.add_argument("--phase", choices=("all", "sharded", "serve", "train",
+                                        "ranks"),
                     default="all",
                     help="'sharded': the build and the sharded phase alone "
                     "(on a host with several cards, the split over all of "
                     "them); 'serve': the serve phase alone (no build: it "
                     "runs no kernel of the port); 'train': the build and "
-                    "the train and launch phases alone; default: every "
-                    "phase")
+                    "the train and launch phases alone; 'ranks': the "
+                    "partitioned train step over every card alone; "
+                    "default: every phase")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2931,6 +3255,12 @@ def main(argv=None) -> int:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
     torch.backends.cudnn.allow_tf32 = False
+    if args.phase == "ranks":
+        ranks_check(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase == "serve":
         serve_phase(smi)
         print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,11 @@ naming the loop and the block; nothing falls back to the eager loop.
 Code inside a block must not read a value back to the host, synchronize,
 or allocate outside PyTorch's allocator: a replay repeats what its capture
 recorded.
+
+The dry run (``launch.roofline``) counts a loop as one body times its trip
+count, as the reference's HLO analysis multiplies a while body: under
+``counting`` a ``scan`` over meta tensors runs a run of like blocks once
+and hands it, with the number of blocks it stands for, to the counters.
 """
 from __future__ import annotations
 
@@ -59,7 +64,8 @@ from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 from repro_torch.kernels import _build
 from repro_torch.obs.trace import span as _obs_span
 
-__all__ = ["scan", "clear", "capturing", "cached", "pool_bytes", "hold"]
+__all__ = ["scan", "clear", "capturing", "cached", "pool_bytes", "hold",
+           "counting"]
 
 
 def _counted(fn) -> dict:
@@ -225,8 +231,88 @@ def _key(name: str, c: int, static: tuple, *groups) -> tuple:
         tuple(static),)
 
 
+# -- counting: a loop on the meta device as one body times its trip count ---
+
+_COUNT: list = []        # the hooks of the ``counting`` contexts, innermost last
+
+
+@contextlib.contextmanager
+def counting(hook):
+    """Within, ``scan`` over meta tensors runs a run of like blocks once:
+    ``hook(run, times, alone)`` gets ``run`` (runs the block in its place
+    in the trace and returns its ``(ys, carry)``; ``hook`` returns that),
+    ``times`` (the number of the loop's blocks it stands for) and
+    ``alone``: where the block has a backward pass (grad mode, an input
+    that requires grad), a function that runs a copy of the block by
+    itself on fresh meta tensors like its inputs, forward and backward,
+    for counters that see the backward pass, which the block in its
+    place has once; else ``None``.  Blocks are like where they have the
+    same length and their carry comes in with the same ``requires_grad``
+    and strides; the first block (its carry the loop's initial state),
+    the block after it where the carry changed, the last full block (its
+    carry leaves the loop) and a shorter last block run on their own, so
+    every count equals the whole loop's.  Entered by the dry run's
+    counters (``launch.roofline``) and their tests only."""
+    _COUNT.append(hook)
+    try:
+        yield
+    finally:
+        _COUNT.pop()
+
+
+def _alone(block, consts, xs, carry) -> None:
+    """``block`` run by itself on fresh meta tensors of its inputs' shapes,
+    strides and dtypes, forward and backward (``torch.func.vjp``, a
+    cotangent for every output that requires grad)."""
+    ins = (*consts, *xs, *carry)
+    fresh = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                 device="meta") for t in ins]
+    diff = [i for i, t in enumerate(ins) if t.requires_grad]
+    n1, n2 = len(consts), len(consts) + len(xs)
+
+    def run(*d):
+        args = list(fresh)
+        for i, t in zip(diff, d):
+            args[i] = t
+        ys, cy = block(tuple(args[:n1]), tuple(args[n1:n2]),
+                       tuple(args[n2:]))
+        return (*ys, *cy)
+
+    outs, pull = torch.func.vjp(run, *(fresh[i] for i in diff))
+    pull(tuple(torch.empty_like(o) for o in outs))
+
+
+def _counted_scan(block, consts, xs, held: list, length: int, c: int,
+                  hook):
+    """``scan``'s blocks on meta under ``counting``: a block whose carry
+    comes in as the block before's did stands for every full block up to
+    the last full one.  ``held``: a list holding the initial carry."""
+    carry = held.pop()
+    n_full = length // c
+    ys, before, b = [], None, 0
+    while b * c < length:
+        # the block's inputs are made inside it, as the eager loop makes
+        # them, so they are its temporaries
+        xb = lambda t0=b * c: tuple(  # noqa: E731
+            x[:, t0:t0 + c].contiguous() for x in xs)
+        now = tuple((t.requires_grad, t.stride()) for t in carry)
+        times = 1
+        if b < n_full and now == before and n_full - 1 - b >= 2:
+            times = n_full - 1 - b
+        before = now
+        backward = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*consts, *xs, *carry))
+        y, carry = hook(
+            lambda xb=xb, cy=carry: block(consts, xb(), cy), times,
+            (lambda xb=xb, cy=carry: _alone(block, consts, xb(), cy))
+            if backward else None)
+        ys.extend([tuple(y)] * times)
+        b += times
+    return ys, tuple(carry)
+
+
 def scan(name: str, block, consts: tuple, xs: tuple, carry: tuple, *,
-         length: int, c: int, static: tuple):
+         length: int, c: int, static: tuple, per_position: bool = False):
     """Run ``block(consts, xs_block, carry) -> (ys_block, carry)`` over
     positions [0, length) of dim 1 of every tensor in ``xs``, in blocks of
     c positions (a shorter last block when c does not divide ``length``).
@@ -248,7 +334,22 @@ def scan(name: str, block, consts: tuple, xs: tuple, carry: tuple, *,
     first full block eagerly (the warm-up: cuBLAS's handle and workspace
     are set up outside any capture) and captures the shape at its next
     full block, in this call or the next; from then on every full block
-    is a replay.  A shorter last block runs eagerly."""
+    is a replay.  A shorter last block runs eagerly.
+
+    On the meta device under ``counting`` (the dry run) like blocks run
+    once, each standing for its run of blocks, and the returned list
+    holds each block's ``ys`` once for every block it stands for.
+    ``per_position``: ``block`` computes one position after another from
+    the carry, so every c computes the same (the sLSTM token loop); there
+    the counted loop's blocks are one position, the reference's scan
+    body, and its trace costs one position's operators, not c's."""
+    if _COUNT and all(t.is_meta for t in (*consts, *xs, *carry)):
+        # handed over in a list so that this frame keeps no reference to
+        # the initial carry, as the eager loop drops it after block 0
+        held = [carry]
+        del carry
+        return _counted_scan(block, consts, xs, held, length,
+                             1 if per_position else c, _COUNT[-1])
     capture = _capturable((*consts, *xs, *carry))
     loop = None
     ys = []

@@ -4,11 +4,15 @@ the production mesh's placements and extract H100 roofline terms (port of
 
 The reference lowers and compiles each step for 512 placeholder devices.
 Here the step runs once on meta tensors (shapes and dtypes, no storage)
-under ``FlopCounterMode``, the parameters, optimizer state and inputs
-placed by ``sharding.make_shardings`` / ``launch.specs.input_shardings`` on
-a ``DeviceMesh`` of a fake 512-rank process group; nothing is allocated, so
-every configuration runs on the CPU.  ``launch.roofline`` says what each
-term counts and what it cannot see.
+under ``FlopCounterMode`` and ``roofline.LiveBytes``, on a ``DeviceMesh``
+of a fake 512-rank process group: a train step's parameters and AdamW
+moments are ``DTensor`` shards laid out by ``sharding.make_shardings``
+(``train.steps.place_train_state``, the reference's ``in_shardings``) and
+the step is the partitioned program (``build_train_step(grad_specs=)``);
+the other placements (prefill's and decode's parameters, every input:
+``launch.specs.input_shardings``) give each leaf's local bytes.  Nothing
+is allocated, so every configuration runs on the CPU.
+``launch.roofline`` says what each term counts and what it cannot see.
 
 Runs as its own process: ``main`` creates the fake group (which serves the
 16 x 16 and the 2 x 16 x 16 mesh), importing this module does not.
@@ -35,12 +39,14 @@ from repro_torch.models.common import Dtype
 from repro_torch.optim import adamw_init, cosine_schedule
 from repro_torch.sharding import make_shardings
 from repro_torch.train.steps import (batch_extras, build_decode_step,
-                                     build_prefill_step, build_train_step)
+                                     build_prefill_step, build_train_step,
+                                     gather, place_train_state)
 from repro_torch.tree import tree_map
 
 from .mesh import make_production_mesh
-from .roofline import (COLLECTIVES, collective_bytes, count_flops,
-                       local_bytes, remat_flops, roofline, step_flops)
+from .roofline import (COLLECTIVES, LiveBytes, alias_bytes,
+                       collective_bytes, count_flops, held_bytes,
+                       remat_flops, roofline)
 from .specs import (input_shardings, input_specs, output_shardings,
                     param_structs, shape_config)
 
@@ -59,30 +65,31 @@ def fake_group() -> None:
                             world_size=WORLD)
 
 
-def _scalar_bytes(metrics: dict) -> int:
-    return sum(v.numel() * v.element_size() for v in metrics.values()
-               if isinstance(v, torch.Tensor))
-
-
 def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
-               grad_specs=None) -> tuple[dict, tuple]:
+               grad_specs=None, loops: bool = True,
+               live: LiveBytes | None = None) -> tuple[dict, tuple]:
     """Run one ``kind`` step ("train", "prefill" or "decode") on meta
     ``params`` and ``inputs`` (``specs.input_specs``' structure; ``opt``
     the AdamW state of a train step) under the flop counters -> (flops by
     operator, with the global program's ``"total"`` and the ``"remat"``
     recompute it includes, zero but for a train step; the step's
-    outputs).  The sLSTM
-    loop's ``seq_len`` tokens count as its trip count
-    (``roofline.step_flops``)."""
+    outputs).  ``seq_len`` is prefill's cache length and decode's position
+    plus one.  ``loops``: each ``graphs.scan`` loop counted as one body
+    times its trip count (``roofline.count_flops``); ``False`` traces
+    every block.  ``live``: a ``roofline.LiveBytes`` that the step runs
+    under."""
     outs: dict = {}
     forward = None
     if kind == "train":
         step = build_train_step(cfg, cosine_schedule(3e-4, 100, 10000),
                                 grad_specs=grad_specs)
         run = lambda: step(params, opt, inputs)  # noqa: E731
-        pgrad = tree_map(lambda p: p.detach().requires_grad_(), params)
-        forward = lambda: T.forward(  # noqa: E731
-            pgrad, cfg, inputs["tokens"], **batch_extras(cfg, inputs))
+
+        def forward():
+            pgrad = tree_map(lambda p: p.detach().requires_grad_(),
+                             gather(params))
+            return T.forward(pgrad, cfg, inputs["tokens"],
+                             **batch_extras(cfg, inputs))
     elif kind == "prefill":
         step = build_prefill_step(cfg, cache_len=seq_len)
         run = lambda: step(params, inputs)  # noqa: E731
@@ -91,13 +98,10 @@ def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
         step = build_decode_step(cfg)
         run = lambda: step(params, token, caches, seq_len - 1)  # noqa: E731
 
-    def trace() -> dict:
-        flops, by_op = count_flops(lambda: outs.update(out=run()))
-        re = remat_flops(cfg, forward) if forward else 0.0
-        return {"total": flops + re, "remat": re, **by_op}
-
-    counts = step_flops(cfg, trace, seq_len if kind != "decode" else 1)
-    return counts, outs["out"]
+    flops, by_op = count_flops(lambda: outs.update(out=run()), loops=loops,
+                               live=live)
+    re = remat_flops(cfg, forward, loops=loops) if forward else 0.0
+    return {"total": flops + re, "remat": re, **by_op}, outs["out"]
 
 
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
@@ -107,14 +111,21 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
     the reference's keys.
 
     ``lower_s`` is the host time of the traces on meta.  ``compile_s`` is
-    0.0: PyTorch compiles nothing here.  The memory entries a device holds
-    are each leaf's local shard bytes under its placements: arguments
-    (parameters; for a train step the AdamW moments, which take the
-    parameters' placements, and the replicated step count; the inputs)
-    and outputs (a train step's new parameters, state and replicated
-    metrics; prefill's last-position logits and caches; decode's logits
-    and caches).  ``temp_bytes_per_device`` and ``alias_bytes_per_device``
-    are null: PyTorch has no compiler memory plan for a program on meta.
+    0.0: PyTorch compiles nothing here.  The memory entries are a
+    device's bytes: ``argument_bytes_per_device`` the shards the program
+    holds (parameters; for a train step the AdamW moments' shards, which
+    take the parameters' placements, and the replicated step count; the
+    inputs), ``output_bytes_per_device`` likewise of what it returns (a
+    train step's new parameters, state and replicated metrics; prefill's
+    last-position logits and caches; decode's logits and caches),
+    ``alias_bytes_per_device`` the arguments it writes in place and
+    returns (``roofline.alias_bytes``: a train step's parameters, moments
+    and count, decode's caches; prefill none) and ``temp_bytes_per_device``
+    the traced step's peak live bytes above its arguments
+    (``roofline.LiveBytes``) over ``n_chips``: an estimate of the eager,
+    un-rematerialised program, high where the reference rematerialises
+    and low in a train step's counted loops (``launch.roofline`` names
+    both biases).
     """
     cfg = shape_config(ARCHS[arch], shape_name)
     if extra_overrides:
@@ -130,26 +141,28 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
     axes = T.param_axes(cfg)
     psh = make_shardings(mesh, params, axes,
                          fsdp_min_elems=cfg.fsdp_min_elems)
-    arg_bytes = local_bytes(params, psh) + local_bytes(inputs, in_sh)
     opt = None
     if kind == "train":
         opt = adamw_init(params, dtype=Dtype.of(cfg.optstate_dtype))
         # the moments take the parameters' placements, the count replicated
-        arg_bytes += 2 * local_bytes(opt.m, psh) + opt.count.element_size()
+        params, opt = place_train_state(params, opt, psh)
+        args = held_bytes(params) + held_bytes(opt)
+    else:
+        args = held_bytes(params, psh)
+    args += held_bytes(inputs, in_sh)
+    live = LiveBytes(known=[t for t, _ in args])
 
     t0 = time.perf_counter()
     counts, out = trace_step(cfg, kind, params, inputs, S, opt=opt,
-                             grad_specs=psh)
+                             grad_specs=psh, live=live)
     t_lower = time.perf_counter() - t0
     flops = counts.pop("total")
 
     if kind == "train":
-        new_params, new_opt, metrics = out
-        out_bytes = (local_bytes(new_params, psh)
-                     + 2 * local_bytes(new_opt.m, psh)
-                     + new_opt.count.element_size() + _scalar_bytes(metrics))
+        out_bytes = sum(n for _, n in held_bytes(out))
     else:
-        out_bytes = local_bytes(out, output_shardings(cfg, shape_name, mesh))
+        out_bytes = sum(n for _, n in held_bytes(
+            out, output_shardings(cfg, shape_name, mesh)))
 
     if hotspots:
         print("--- top operators by flops (FlopCounterMode) ---")
@@ -167,6 +180,7 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
         passes = 3 if cfg.remat_policy == "full" else 2
     coll = collective_bytes(params, psh, axes, passes=passes,
                             reduce_scatter=kind == "train")
+    arg_bytes = sum(n for _, n in args)
     rl = roofline(flops, arg_bytes + out_bytes, coll, n_chips,
                   model_flops=model_flops)
 
@@ -180,8 +194,8 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
         "memory": {
             "argument_bytes_per_device": arg_bytes,
             "output_bytes_per_device": out_bytes,
-            "temp_bytes_per_device": None,
-            "alias_bytes_per_device": None,
+            "temp_bytes_per_device": live.peak // n_chips,
+            "alias_bytes_per_device": alias_bytes(args, out),
         },
         "roofline": rl,
         "collectives": {**{k: coll[k] for k in COLLECTIVES},

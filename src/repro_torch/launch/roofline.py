@@ -26,17 +26,36 @@ has no counterpart here.  The three terms come from:
     values, the experts' batched products), since
     ``dots_with_no_batch_dims_saveable`` saves the others; ``"none"`` adds
     nothing.  The rule is held against the reference's analysis
-    (``tests/test_torch_roofline.py``) at the smoke variants of
-    deepseek-7b and phi3.5-moe under each policy and of jamba, xlstm-350m
-    and whisper-small under ``"full"``; the other architectures' recompute
-    is not checked against it;
-  - the sLSTM's token loop (``models.xlstm._slstm_loop``): the step is
-    traced with the loop cut to one and to two tokens, and the difference,
-    one step of the loop, is multiplied by the trip count, as the
-    reference's analysis multiplies a while body.
+    (``tests/test_torch_roofline.py``) at the smoke variant of every
+    architecture under ``"full"`` and of deepseek-7b, phi3.5-moe and
+    whisper-small under each policy;
+  - the model zoo's loops (the sLSTM token loop, the mLSTM and Mamba chunk
+    loops, the attention's KV chunk loop; ``graphs.scan``): each is counted
+    as one body times its trip count, as the reference's analysis
+    multiplies a while body.  Under ``graphs.counting`` a run of like
+    blocks is traced once and its operators, forward and backward, and its
+    recompute's products are counted once for every block it stands for;
+    the first block, the last full block and a shorter last block are
+    traced on their own.  The counts equal the whole loop traced block by
+    block exactly (``tests/test_torch_dryrun_terms.py``).
 
 * **bytes**: the argument bytes a device holds (each leaf's local shard
   under its placements) plus the step's output bytes.
+
+* **temp bytes** (``LiveBytes``): the peak, over the traced step, of the
+  bytes of the storages its operators create, alive at once (the
+  arguments are not counted); in a loop's run of like blocks, what one
+  block leaves alive counts once for every block of the run.  The dry run
+  divides it by ``n_chips``.  It is an estimate of the eager,
+  un-rematerialised program, neither bound on what a compiled,
+  partitioned step holds, with two biases of opposite sign: it counts
+  high where the reference rematerialises, since the port's step keeps
+  every activation its backward pass reads (2.93 times the reference's
+  ``temp_size_in_bytes`` under ``"full"`` at deepseek-7b's smoke variant,
+  1.56 under ``"none"``, where XLA fuses elementwise chains into one
+  buffer); and it counts low in a train step's counted loops, whose
+  blocks' backward temporaries are seen once a run (0.86-0.95 of the
+  whole trace's peak; ``tests/test_torch_dryrun_terms.py``).
 
 * **collectives**: what the placements imply: one all-gather of each
   FSDP-sharded parameter in the forward pass, one in the backward pass and,
@@ -51,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import weakref
 from typing import Callable
 
 import torch
@@ -58,12 +78,11 @@ import torch.utils._pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, bmm_flop, mm_flop
 
+from repro_torch import graphs
 from repro_torch.models import transformer as T
-from repro_torch.models import xlstm as xl
 
-__all__ = ["H100", "COLLECTIVES", "count_flops", "step_flops",
-           "remat_flops", "slstm_trips", "local_bytes", "collective_bytes",
-           "roofline"]
+__all__ = ["H100", "COLLECTIVES", "count_flops", "remat_flops", "LiveBytes",
+           "held_bytes", "alias_bytes", "collective_bytes", "roofline"]
 
 H100 = {
     # dense bfloat16 tensor-core peak, FLOP/s (NVIDIA H100 SXM5 datasheet)
@@ -79,55 +98,142 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 
 
-def count_flops(fn: Callable) -> tuple[float, dict]:
-    """(total flops, flops by operator) of ``fn()`` by ``FlopCounterMode``."""
-    with FlopCounterMode(display=False) as fc:
+def count_flops(fn: Callable, *, loops: bool = True,
+                live: "LiveBytes | None" = None) -> tuple[float, dict]:
+    """(total flops, flops by operator) of ``fn()`` by ``FlopCounterMode``.
+    ``loops``: each ``graphs.scan`` loop on meta counted as one body times
+    its trip count (``graphs.counting``); ``False`` traces it block by
+    block.  ``live``: a ``LiveBytes`` that ``fn()`` runs under too."""
+    fc = FlopCounterMode(display=False)
+
+    def scaled(fn, extra):
+        """Run ``fn()`` and count its flops ``extra`` times more."""
+        g = fc.flop_counts["Global"]
+        before = dict(g)
+        out = fn()
+        for k in list(g):
+            g[k] += extra * (g[k] - before.get(k, 0))
+        return out
+
+    def hook(run, times, alone):
+        with live.repeated(times) if live else contextlib.nullcontext() \
+                as once:
+            # no backward: the block in its place counts for all
+            out = scaled(run, times - 1 if alone is None else 0)
+            if once is not None:      # the carry: the next block takes it
+                once.update(_storage(t)._cdata for t in out[1])
+        if times > 1 and alone is not None:
+            # the block in its place counts once, forward and (later)
+            # backward; a copy by itself makes up the rest
+            with live.paused() if live else contextlib.nullcontext():
+                scaled(alone, times - 2)
+        return out
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(fc)
+        if live is not None:
+            stack.enter_context(live)
+        if loops:
+            stack.enter_context(graphs.counting(hook))
         fn()
     by_op = {str(k): float(v)
              for k, v in fc.get_flop_counts().get("Global", {}).items()}
     return float(fc.get_total_flops()), by_op
 
 
-# ------------------------------------------------------------ sLSTM trips --
+# ------------------------------------------------------------- live bytes --
 
-@contextlib.contextmanager
-def slstm_trips(steps: int):
-    """Run the sLSTM token loop for its first ``steps`` tokens only, the
-    last hidden state standing in for the rest (same shapes, the loop's
-    own flops ``steps`` times)."""
-    full = xl._slstm_loop
+def _storage(t: torch.Tensor):
+    """The storage of ``t``: a ``DTensor``'s local shard's, a functorch
+    wrapper's (a tensor seen inside ``torch.func.grad``) underlying
+    tensor's."""
+    from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
+    from torch.distributed.tensor import DTensor
 
-    def cut(p, R, xz, xi, xf, xo, state):
-        hs, state = full(p, R, xz[:, :steps], xi[:, :steps], xf[:, :steps],
-                         xo[:, :steps], state)
-        rest = hs[:, -1:].expand(-1, xz.shape[1] - steps, -1, -1)
-        return torch.cat([hs, rest], dim=1), state
-
-    xl._slstm_loop = cut
-    try:
-        yield
-    finally:
-        xl._slstm_loop = full
+    if isinstance(t, DTensor):
+        t = t.to_local()
+    while is_functorch_wrapped_tensor(t):
+        t = get_unwrapped(t)
+    return t.untyped_storage()
 
 
-def _has_slstm(cfg) -> bool:
-    return any(b.kind == "slstm" for b in cfg.period)
+class LiveBytes(TorchDispatchMode):
+    """The bytes alive at once of the storages the operators under it
+    create: a new storage adds its bytes, its freeing (a weak reference's
+    finalizer) takes them off, and ``peak`` is the most at any time.  The
+    storages of ``known`` (a tree of the step's arguments; a ``DTensor``
+    by its local shard) are not counted, nor a view's or an in-place
+    result's, whose storage is not new.  Works on meta (sizes without
+    data) and on a card."""
 
+    def __init__(self, known=()):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._bytes: dict = {}   # storage key -> [bytes counted, weak ref]
+        self._known = {_storage(t)._cdata for t in pytree.tree_leaves(known)
+                       if isinstance(t, torch.Tensor)}
+        self._off = False
+        self._new = None         # the keys of the storages made in a repeat
 
-def step_flops(cfg, fn: Callable[[], dict], trips: int) -> dict:
-    """``fn()`` -> a dict of flop counts, with the sLSTM loop's ``trips``
-    tokens counted as one traced step times the trip count: ``fn`` is
-    traced with the loop cut to 1 and to 2 tokens and each count
-    extrapolated, f1 + (trips - 1) (f2 - f1).  Other architectures trace
-    once."""
-    if not _has_slstm(cfg) or trips <= 2:
-        return fn()
-    with slstm_trips(1):
-        f1 = fn()
-    with slstm_trips(2):
-        f2 = fn()
-    return {k: f1.get(k, 0.0) + (trips - 1) * (f2.get(k, 0.0) - f1.get(k, 0.0))
-            for k in set(f1) | set(f2)}
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self._off:
+            for t in ((out,) if isinstance(out, torch.Tensor)
+                      else pytree.tree_leaves(out)):
+                if isinstance(t, torch.Tensor):
+                    self._add(_storage(t))
+        return out
+
+    def _add(self, st) -> None:
+        key = st._cdata
+        if key in self._bytes or key in self._known:
+            return
+        n = st.nbytes()
+        ref = weakref.ref(st, lambda _, key=key: self._free(key))
+        self._bytes[key] = [n, ref]
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        if self._new is not None:
+            self._new.add(key)        # a key freed and reused comes once
+
+    def _free(self, key) -> None:
+        n, _ = self._bytes.pop(key, (0, None))
+        self.live -= n
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Nothing created within is counted (``count_flops``' copy of a
+        block by itself)."""
+        was, self._off = self._off, True
+        try:
+            yield
+        finally:
+            self._off = was
+
+    @contextlib.contextmanager
+    def repeated(self, times: int):
+        """A block that stands for ``times`` blocks (``graphs.counting``):
+        what it leaves alive counts ``times`` times, and its own peak sits
+        above what the other ``times - 1`` left alive; the storages whose
+        keys the caller adds to the set it yields (the carry, which each
+        block hands on to the next) count once."""
+        once: set = set()
+        if times == 1:
+            yield once
+            return
+        peak, self.peak, self._new = self.peak, self.live, set()
+        try:
+            yield once
+        finally:
+            kept = [self._bytes[k] for k in self._new
+                    if k in self._bytes and k not in once]
+            extra = (times - 1) * sum(e[0] for e in kept)
+            for e in kept:
+                e[0] *= times
+            self.live += extra
+            self.peak = max(peak, self.peak + extra)
+            self._new = None
 
 
 # ---------------------------------------------------------- remat recompute --
@@ -154,6 +260,7 @@ class _Tape(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.on = False
+        self.times = 1                # the blocks a loop's block stands for
         self.ops: list = []
         self.carries: dict = {}       # id -> tensor leaving a period
 
@@ -164,8 +271,18 @@ class _Tape(TorchDispatchMode):
                    if isinstance(a, torch.Tensor)]
             outs = [o for o in pytree.tree_leaves(out)
                     if isinstance(o, torch.Tensor)]
-            self.ops.append((func._overloadpacket.__name__, ins, outs))
+            self.ops.append((func._overloadpacket.__name__, ins, outs,
+                             self.times))
         return out
+
+    def repeat(self, run, times, alone):
+        """``graphs.counting``'s hook: the block's products count
+        ``times`` times."""
+        was, self.times = self.times, times
+        try:
+            return run()
+        finally:
+            self.times = was
 
 
 def _needed_inputs(name: str, ins: list) -> list:
@@ -227,23 +344,29 @@ def _periods_taped(cfg, tape: _Tape):
         T._block_full, T._encode = block, encode
 
 
-def remat_flops(cfg, forward: Callable[[], object]) -> float:
+def remat_flops(cfg, forward: Callable[[], object], *,
+                loops: bool = True) -> float:
     """The products ``cfg.remat_policy`` recomputes in the backward pass of
     a train step whose forward pass is ``forward()`` (run here with the
-    parameters requiring grad, under plain autograd)."""
+    parameters requiring grad, under plain autograd).  ``loops`` as
+    ``count_flops``'."""
     policy = cfg.remat_policy
     if policy == "none":
         return 0.0
     if policy not in ("full", "dots"):
         raise ValueError(f"unknown remat_policy {policy!r}")
     tape = _Tape()
-    with tape, _periods_taped(cfg, tape):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(tape)
+        stack.enter_context(_periods_taped(cfg, tape))
+        if loops:
+            stack.enter_context(graphs.counting(tape.repeat))
         forward()
     needed = set()
-    for name, ins, _ in tape.ops:
+    for name, ins, _, _ in tape.ops:
         needed.update(id(t) for t in _needed_inputs(name, ins))
     total = 0.0
-    for name, ins, outs in reversed(tape.ops):
+    for name, ins, outs, times in reversed(tape.ops):
         if not any(id(o) in needed for o in outs):
             continue
         if any(id(o) in tape.carries for o in outs):
@@ -253,7 +376,7 @@ def remat_flops(cfg, forward: Callable[[], object]) -> float:
             flops, batched = prod
             if policy == "dots" and not batched:
                 continue              # saved: a dot with no batch dims
-            total += flops
+            total += flops * times
         needed.update(id(t) for t in ins)
     return total
 
@@ -264,15 +387,48 @@ def _local_bytes(t: torch.Tensor, sharding) -> int:
     return math.prod(sharding.shard_shape(tuple(t.shape))) * t.element_size()
 
 
-def local_bytes(tree, shardings) -> int:
-    """The bytes one device holds of a tensor tree under a matching tree of
-    ``NamedSharding``s (each leaf's local shard)."""
+def held_bytes(tree, shardings=None) -> list:
+    """(leaf, the bytes a device holds of it) for each tensor leaf of
+    ``tree``: a ``DTensor``'s local shard, a plain leaf's shard under the
+    matching leaf of ``shardings`` (unset or ``None``: the whole leaf,
+    replicated)."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.tree import tree_leaves
 
-    leaves, shs = tree_leaves(tree), tree_leaves(shardings)
+    leaves = tree_leaves(tree)
+    shs = (tree_leaves(shardings) if shardings is not None
+           else [None] * len(leaves))
     if len(leaves) != len(shs):
-        raise ValueError(f"{len(leaves)} tensors but {len(shs)} shardings")
-    return sum(_local_bytes(t, sh) for t, sh in zip(leaves, shs))
+        raise ValueError(f"{len(leaves)} leaves but {len(shs)} shardings")
+    out = []
+    for t, sh in zip(leaves, shs):
+        if not isinstance(t, torch.Tensor):
+            continue
+        if isinstance(t, DTensor):
+            n = t.to_local().numel() * t.element_size()
+        elif sh is None:
+            n = t.numel() * t.element_size()
+        else:
+            n = _local_bytes(t, sh)
+        out.append((t, n))
+    return out
+
+
+def alias_bytes(args: list, outputs) -> int:
+    """The bytes a device holds of the arguments (``held_bytes`` pairs)
+    whose storage the step's ``outputs`` return: what it wrote in place
+    into its inputs (the reference's aliased donated buffers)."""
+    from repro_torch.tree import tree_leaves
+
+    out = {_storage(t)._cdata for t in tree_leaves(outputs)
+           if isinstance(t, torch.Tensor)}
+    seen: dict = {}
+    for t, n in args:
+        key = _storage(t)._cdata
+        if key in out:
+            seen.setdefault(key, n)
+    return sum(seen.values())
 
 
 def collective_bytes(params, shardings, axes, *, passes: int,
@@ -327,7 +483,7 @@ def roofline(flops: float, nbytes: float, coll: dict, n_chips: int,
            "hlo_bytes_traffic_est": float(nbytes),
            "collective_bytes_per_device": cbytes,
            "collective_count": coll.get("count", 0),
-           # the one loop with a trip count (the sLSTM's) is counted
+           # every loop (graphs.scan) is counted by its trip count
            "unknown_trip_counts": 0,
            "n_chips": n_chips}
     if model_flops is not None:

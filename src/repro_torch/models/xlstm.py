@@ -291,13 +291,13 @@ def _slstm_loop(p, R, xz, xi, xf, xo, state: SLSTMCache):
     """The recurrence over every position of the (B, S, H, dh) gate
     inputs -> (the hidden states (B, S, H, dh), the last state), as blocks
     of ``_SLSTM_BLOCK`` tokens (``graphs.scan``: one replay a block on a
-    card).  ``launch.roofline`` counts the flops of one step and
-    multiplies them by the trip count, as the reference's HLO analysis
-    does a loop."""
+    card).  ``launch.roofline`` counts the loop as one token's step times
+    the trip count (``graphs.counting``), as the reference's HLO analysis
+    does its scan."""
     hs, state = graphs.scan(
         "slstm", _slstm_block, (R, p["bz"], p["bi"], p["bf"], p["bo"]),
-        (xz, xi, xf, xo), tuple(state), length=xz.shape[1], c=_SLSTM_BLOCK,
-        static=())
+        (xz, xi, xf, xo), tuple(state), length=xz.shape[1],
+        c=_SLSTM_BLOCK, static=(), per_position=True)
     return torch.cat([h for (h,) in hs], dim=1), SLSTMCache(*state)
 
 

@@ -5,9 +5,11 @@ The paper's technique enters ``train_step`` through the per-sample weight
 vector: the host computes FRC decode weights from the straggler mask
 (core.gradient_coding) and the weighted loss makes the gradient a masked,
 rescaled sum over surviving workers' shards.  Everything is a function of
-(params, opt_state, batch) that returns new values: nothing passed in is
-updated in place, but the decode step writes into the caches it is given
-(``models.decode_step``).
+(params, opt_state, batch) that returns new values, with two exceptions:
+the train step built with ``grad_specs`` (the partitioned program) writes
+the new parameters and AdamW state into the shards it is given, as the
+reference's ``donate_argnums=(0, 1)`` reuses the input buffers, and the
+decode step writes into the caches it is given (``models.decode_step``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.optim import adamw_update
 from repro_torch.tree import tree_map
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
-           "batch_extras"]
+           "batch_extras", "place_train_state", "gather"]
 
 
 def batch_extras(cfg: ArchConfig, batch: dict) -> dict:
@@ -36,18 +38,71 @@ def batch_extras(cfg: ArchConfig, batch: dict) -> dict:
     return kw
 
 
+def _shard(t: torch.Tensor, sharding):
+    """``t`` (every rank's whole copy) as a ``DTensor`` of ``sharding``'s
+    layout holding only this rank's shard, in storage of its own."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    d = distribute_tensor(t, sharding.mesh, sharding.placements,
+                          src_data_rank=None)
+    return DTensor.from_local(d.to_local().clone(), sharding.mesh,
+                              sharding.placements, run_check=False,
+                              shape=d.shape, stride=d.stride())
+
+
+def _by_spec(tree, specs, fn, rest=lambda t: t):
+    """``fn(leaf, sharding)`` over the leaves of ``tree`` that ``specs``
+    (a tree of ``NamedSharding``s or a prefix of one, as ``grad_specs``)
+    covers; ``rest(part)`` for each part it does not."""
+    from repro_torch.sharding import NamedSharding
+
+    if isinstance(specs, NamedSharding):
+        return tree_map(lambda t: fn(t, specs), tree)
+    if isinstance(specs, dict) and isinstance(tree, dict):
+        return {k: _by_spec(t, specs.get(k), fn, rest)
+                for k, t in tree.items()}
+    return rest(tree)
+
+
 @torch.no_grad()
-def _lay_out(g: torch.Tensor, sharding) -> torch.Tensor:
-    """The mean of every rank's ``g``: reduce-scattered to ``sharding``'s
-    placements (each rank's ``g`` a partial sum over the whole mesh) and
-    gathered back, so every rank holds the same gradient."""
+def place_train_state(params, opt_state, shardings):
+    """(params, opt_state) on a mesh, the counterpart of the reference's
+    ``in_shardings=(psh, osh, ...)``: every leaf of ``params`` and of the
+    AdamW moments ``m`` / ``v`` becomes a ``DTensor`` of the matching
+    ``NamedSharding`` of ``shardings`` (``sharding.make_shardings``; the
+    moments take the parameters' layouts) holding this rank's shard; the
+    step count stays a replicated plain tensor.  Each rank passes the
+    same whole trees (a seeded draw) and keeps 1/n of each sharded leaf;
+    the caller drops the whole trees."""
+    return (_by_spec(params, shardings, _shard),
+            type(opt_state)(_by_spec(opt_state.m, shardings, _shard),
+                            _by_spec(opt_state.v, shardings, _shard),
+                            opt_state.count))
+
+
+def gather(tree):
+    """Every ``DTensor`` leaf of ``tree`` as the whole tensor (its
+    all-gather: the FSDP gather); plain leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+@torch.no_grad()
+def _lay_out(g: torch.Tensor, sharding):
+    """The mean of every rank's ``g``, reduce-scattered to ``sharding``'s
+    placements (each rank's ``g`` a partial sum over the whole mesh): a
+    ``DTensor`` holding this rank's shard of it."""
     from torch.distributed.tensor import DTensor, Partial
 
     mesh = sharding.mesh
     d = DTensor.from_local(g, mesh, [Partial("sum")] * mesh.ndim,
                            run_check=False)
-    full = d.redistribute(mesh, sharding.placements).full_tensor()
-    return full / mesh.size()
+    d = d.redistribute(mesh, sharding.placements)
+    return DTensor.from_local(d.to_local() / mesh.size(), mesh,
+                              sharding.placements, run_check=False,
+                              shape=d.shape, stride=d.stride())
 
 
 def _constrain(grads, specs):
@@ -55,18 +110,15 @@ def _constrain(grads, specs):
     a prefix of one (``build_train_step``'s ``grad_specs``)."""
     import torch.distributed as dist
 
-    from repro_torch.sharding import NamedSharding
+    def rest(part):
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError(
+                f"grad_specs leaves a gradient without a NamedSharding on a "
+                f"group of {dist.get_world_size()} ranks: it would stay each"
+                f" rank's own, and the ranks' parameters would drift apart")
+        return part
 
-    if isinstance(specs, NamedSharding):
-        return tree_map(lambda g: _lay_out(g, specs), grads)
-    if isinstance(specs, dict) and isinstance(grads, dict):
-        return {k: _constrain(g, specs.get(k)) for k, g in grads.items()}
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        raise ValueError(
-            f"grad_specs leaves a gradient without a NamedSharding on a "
-            f"group of {dist.get_world_size()} ranks: it would stay each "
-            f"rank's own, and the ranks' parameters would drift apart")
-    return grads
+    return _by_spec(grads, specs, _lay_out, rest)
 
 
 def build_train_step(cfg: ArchConfig, lr_fn: Callable,
@@ -82,15 +134,22 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
 
     grad_specs: a ``sharding.make_shardings`` tree matching params, or a
     prefix of one (a ``NamedSharding`` stands for every leaf below it),
-    as ``with_sharding_constraint`` takes.  Each rank's gradient is taken
-    as its share of the mesh's gradient: it is reduce-scattered to its
-    placements (a DTensor over the sharding's ``DeviceMesh``), gathered
-    back and divided by the mesh's size before AdamW, so every rank steps
-    with the mean of all ranks' gradients.  That mean is the gradient of
-    the batch the ranks hold together where each rank's weights sum to
-    the same.  On a 1 x 1 mesh the step equals the step without it bit
-    for bit.  A part of the tree whose spec is not a ``NamedSharding`` is
-    left as it is on a group of one rank, and raises on a larger one.
+    as ``with_sharding_constraint`` takes.  The step is then the
+    partitioned program: ``params`` and the AdamW moments come in as
+    ``DTensor`` shards laid out by it (``place_train_state``), the step
+    gathers the whole parameter tree at its top (each leaf's
+    ``full_tensor()``, the FSDP all-gather), takes the gradient of the
+    gathered tree, reduce-scatters each rank's gradient to its placements
+    and divides it by the mesh's size (so every rank steps with its shard
+    of the mean of all ranks' gradients: the gradient of the batch the
+    ranks hold together where each rank's weights sum to the same), and
+    runs AdamW on the shards, writing the new parameters, moments and
+    count into the tensors given (the reference's ``donate_argnums``):
+    a rank never holds its state twice, nor the whole moments.  The
+    gradient norm is the whole gradient's (``optim.global_norm``).  On a
+    1 x 1 mesh the step equals the step without it bit for bit.  A part
+    of the tree whose spec is not a ``NamedSharding`` is left as it is on
+    a group of one rank, and raises on a larger one.
     """
 
     def loss_fn(p, batch):
@@ -111,12 +170,15 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
 
     @full_f32_matmul
     def step(params, opt_state, batch):
-        grads, (loss, aux) = grad_fn(params, batch)
-        if grad_specs is not None:
+        laid = grad_specs is not None
+        grads, (loss, aux) = grad_fn(gather(params) if laid else params,
+                                     batch)
+        if laid:
             grads = _constrain(grads, grad_specs)
         lr = lr_fn(opt_state.count)
         params, opt_state, om = adamw_update(
-            grads, opt_state, params, lr=lr, weight_decay=weight_decay)
+            grads, opt_state, params, lr=lr, weight_decay=weight_decay,
+            inplace=laid)
         metrics = {"loss": loss.detach(), "lr": lr, **om,
                    **{k: v.detach() for k, v in aux.items()}}
         return params, opt_state, metrics

@@ -60,7 +60,8 @@ launch counts (one fused launch an async update, none under
 ``REPRO_FUSED=0``), and capture one graph a run (a chunk); the fused
 kernel with one-hot masks (an async update's gradient) matches its plain
 version, rows equal to single calls, and async on the card matches the
-CPU to rel 1e-5.
+CPU to rel 1e-5.  The dry run's live-bytes tracker over a train step on
+the card is within 15 % of the allocator's peak above the step's start.
 With two cards or more (the ``two_cards`` fixture skips below two): each
 kernel launched with its operands on the last card while card 0 is
 current equals the same call on card 0 bit for bit, operands on two
@@ -1446,6 +1447,45 @@ def test_trainer_captured_equals_eager_on_card(cuda, arch):
     for key in ("loss", "grad_norm"):
         assert [h[key] for h in hc] == [h[key] for h in he]
     graphs.clear()
+
+
+def test_live_bytes_tracker_beside_allocator_on_card(cuda):
+    """The dry run's live-bytes tracker (``launch.roofline.LiveBytes``,
+    what ``temp_bytes_per_device`` reads) over a ``build_train_step`` step
+    on the card (deepseek-7b's smoke variant, 8 x 256 tokens, after a
+    warm-up step): its peak within 15 % of
+    ``torch.cuda.max_memory_allocated()`` above what was allocated at the
+    step's start (the arguments)."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.roofline import LiveBytes
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init, cosine_schedule
+    from repro_torch.train.steps import build_train_step
+    cfg = ARCHS["deepseek-7b"].smoke_variant()
+    params = init_params(cfg, 0, device=cuda)
+    opt = adamw_init(params)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (8, 256), generator=g, device=cuda,
+                        dtype=torch.int32)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1),
+             "weights": torch.ones(8, device=cuda)}
+    step = build_train_step(cfg, cosine_schedule(3e-3, 2, 10))
+    step(params, opt, batch)                       # warm-up
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    live = LiveBytes(known=(params, opt, batch))
+    with live:
+        out = step(params, opt, batch)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - before
+    assert alloc > 0 and abs(live.peak / alloc - 1.0) <= 0.15, (
+        live.peak, alloc)
+    del out
 
 
 # ---------------------------------------------------------------------------

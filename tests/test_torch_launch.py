@@ -271,7 +271,12 @@ def test_dryrun_record_equals_reference_counts_and_bytes(meshes, arch):
     assert rec["kind"] == "decode" and rec["n_chips"] == 256
     assert rec["memory"]["argument_bytes_per_device"] == \
         _ref_argument_bytes(arch, "long_500k", False, None)
-    assert rec["memory"]["temp_bytes_per_device"] is None
+    mem = rec["memory"]
+    # decode writes into its caches: they are its aliased arguments
+    assert 0 < mem["alias_bytes_per_device"] < mem[
+        "argument_bytes_per_device"]
+    assert isinstance(mem["temp_bytes_per_device"], int)
+    assert mem["temp_bytes_per_device"] > 0
     assert rec["compile_s"] == 0.0
     assert rec["roofline"]["hlo_flops_per_device"] > 0
     assert rec["roofline"]["model_flops"] == 2.0 * rec[
@@ -293,6 +298,11 @@ def test_dryrun_argument_bytes_equal_reference(meshes, arch, shape, multi):
     assert rec["n_chips"] == (512 if multi else 256)
     assert rec["memory"]["argument_bytes_per_device"] == \
         _ref_argument_bytes(arch, shape, multi, ov)
+    alias = rec["memory"]["alias_bytes_per_device"]
+    if SHAPES[shape]["kind"] == "prefill":
+        assert alias == 0
+    else:   # train: parameters, moments and count; decode: the caches
+        assert 0 < alias < rec["memory"]["argument_bytes_per_device"]
     coll = rec["collectives"]
     if SHAPES[shape]["kind"] == "train":
         # full remat: 3 all-gathers of each FSDP-sharded parameter (forward,

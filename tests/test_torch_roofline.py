@@ -10,15 +10,21 @@ Tolerances:
     remat pass, the port counts PyTorch's ``mm`` / ``bmm`` and derives the
     recompute from the forward pass's dataflow (within 0.2 % when
     measured);
-  * rel 1e-2: the recompute under ``"full"`` at the smoke variants of
-    jamba (Mamba), xlstm-350m (mLSTM and the sLSTM loop) and whisper-small
-    (the encoder's layers), against the reference's ``full`` less its
-    ``none``; and the whole step for all three (at whisper-small the
-    reference also counts the gradient's global norm, vector dots that
-    ``FlopCounterMode`` does not count: 0.2 % of the step);
-  * exact: the sLSTM loop's flops by trip count against the whole loop
-    traced, and the three terms from their inputs.
+  * rel 1e-2: the recompute under ``"full"`` at the smoke variant of
+    every architecture the test above leaves out (jamba: Mamba;
+    xlstm-350m: mLSTM and the sLSTM loop; whisper-small: the encoder's
+    layers; dbrx: MoE; gemma2: local and global layers with soft-caps;
+    qwen2-vl: patch inputs; stablelm; starcoder2), against the
+    reference's ``full`` less its ``none``; and the whole step (at
+    whisper-small the reference also counts the gradient's global norm,
+    vector dots that ``FlopCounterMode`` does not count: 0.2 % of the
+    step);
+  * exact: the sLSTM loop counted as one block times its trip count
+    against the whole loop traced (5 full blocks and a shorter one), and
+    the three terms from their inputs.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import pytest
@@ -32,7 +38,8 @@ import repro.train.steps as JST
 from repro.launch.hlo_analysis import analyze_hlo
 from repro_torch.configs import ARCHS
 from repro_torch.launch.dryrun import trace_step
-from repro_torch.launch.roofline import H100, roofline, slstm_trips
+import repro_torch.models.xlstm as xl
+from repro_torch.launch.roofline import H100, roofline
 from repro_torch.launch.specs import _extras_struct, param_structs
 from repro_torch.optim import adamw_init
 
@@ -46,7 +53,10 @@ def _batch(b, s, cfg=None):
     return {**out, **(_extras_struct(cfg, b, s) if cfg else {})}
 
 
+@functools.lru_cache(maxsize=None)
 def _ref_flops(arch, policy):
+    """The reference's compiled train step's flops (``analyze_hlo``), once
+    an (arch, policy): the two tests below share whisper-small's."""
     cfg = JCONF.ARCHS[arch].smoke_variant().with_overrides(
         remat_policy=policy)
     params = jax.eval_shape(lambda: JT.init_params(cfg, jax.random.key(0)))
@@ -82,7 +92,9 @@ def test_train_flops_match_reference_hlo(arch, policy):
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
-                                  "whisper-small"])
+                                  "whisper-small", "dbrx-132b",
+                                  "gemma2-27b", "qwen2-vl-7b",
+                                  "stablelm-12b", "starcoder2-3b"])
 def test_full_remat_matches_reference_hlo(arch):
     full, none = _ref_flops(arch, "full"), _ref_flops(arch, "none")
     counts = _port_flops(ARCHS[arch].smoke_variant().with_overrides(
@@ -100,19 +112,24 @@ def test_remat_orders_full_dots_none():
 
 
 @pytest.mark.parametrize("policy", ["full", "none"])
-def test_slstm_trip_count_equals_whole_loop(policy):
-    """The loop traced at 1 and 2 tokens and extrapolated to 8 counts what
-    the whole 8-token loop counts, backward and recompute included."""
+def test_slstm_trip_count_equals_whole_loop(monkeypatch, policy):
+    """The loop counted as one token's step times its trip count
+    (``graphs.counting`` runs a ``per_position`` loop a token a block)
+    counts what the whole loop traced in blocks of ``_SLSTM_BLOCK``
+    tokens counts, backward and recompute included: 3 full blocks and a
+    shorter last one (blocks of 4 tokens here, where the card's 64 would
+    take a 200-token trace; the counts do not depend on the length)."""
+    monkeypatch.setattr(xl, "_SLSTM_BLOCK", 4)
     cfg = ARCHS["xlstm-350m"].smoke_variant().with_overrides(
         remat_policy=policy)
-    s = 8
+    s = 3 * xl._SLSTM_BLOCK + 3
     params = param_structs(cfg)
-    run = lambda trips: trace_step(  # noqa: E731
-        cfg, "train", params, _batch(2, s), trips, opt=adamw_init(params))[0]
-    counted, whole = run(s), run(1)      # trips 1: the whole loop, once
+    run = lambda loops: trace_step(  # noqa: E731
+        cfg, "train", params, _batch(2, s), s, opt=adamw_init(params),
+        loops=loops)[0]
+    counted, whole = run(True), run(False)
     assert counted == whole
-    with slstm_trips(1):
-        assert run(1)["total"] < whole["total"]
+    assert counted["total"] > 0
 
 
 def test_roofline_terms_from_their_inputs():

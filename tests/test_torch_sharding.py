@@ -6,11 +6,17 @@ Exact throughout: specs entry by entry against the reference's
 DTensor's local shape on a ``DeviceMesh`` of a fake 512-rank process group
 against the reference ``NamedSharding.shard_shape``, and a train step with
 ``grad_specs`` on a 1 x 1 mesh (a one-rank gloo group) against the step
-without it, bit for bit.  On a 2 x 1 mesh (two gloo processes, each with
-its own batch) both ranks step alike, bit for bit, and their gradient is
-the one-process step's over both batches: AdamW's moments and the
-gradient norm to rel 1e-5 (float32 sums in another order); there a
-``grad_specs`` that leaves a gradient out raises.
+without it, bit for bit.  On a 2 x 1 and a 1 x 2 mesh (two gloo
+processes, each with its own batch) the step is the partitioned program:
+each rank holds half of every leaf its layout shards (parameters and
+AdamW moments) and the same copy of every leaf replicated on the mesh's
+two ranks, and the ranks' shards put together are the one-process step's
+over both batches: parameters, moments and the gradient norm to rel 1e-5
+of each leaf's largest entry (float32 sums in another order).  On the
+1 x 2 mesh the norms and every leaf not split over ``model`` are
+replicated on both ranks, so a norm that summed them once a rank would
+be off (up to sqrt(2)); there a ``grad_specs`` that leaves a gradient
+out raises.
 
 The grad_specs tests come first: each makes and destroys its own group.
 The fake group is made once for the tests after them and destroyed at
@@ -36,7 +42,8 @@ from repro_torch.launch.specs import param_structs
 from repro_torch.optim import adamw_init, cosine_schedule
 from repro_torch.sharding import (logical_rules, make_shardings, make_specs,
                                   placements_for, spec_for_shape)
-from repro_torch.train.steps import build_train_step
+from repro_torch.train.steps import (build_train_step, gather,
+                                     place_train_state)
 from repro_torch.tree import tree_leaves
 
 ARCH_NAMES = sorted(ARCHS)
@@ -115,8 +122,11 @@ def test_grad_specs_on_one_by_one_mesh_bit_for_bit(local_mesh, arch):
     assert local_mesh.shape == (1, 1)
     lr = cosine_schedule(3e-3, 2, 10)
     plain = build_train_step(cfg, lr)(params, opt, batch)
-    laid = build_train_step(cfg, lr, grad_specs=sh)(params, opt, batch)
-    a, b = tree_leaves(plain[:2]), tree_leaves(laid[:2])
+    lp, lo = place_train_state(params, opt, sh)
+    laid = build_train_step(cfg, lr, grad_specs=sh)(lp, lo, batch)
+    # the partitioned step writes into the shards it was given
+    assert laid[0] is lp and laid[1] is lo
+    a, b = tree_leaves(plain[:2]), tree_leaves(gather(laid[:2]))
     assert len(a) == len(b)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert set(plain[2]) == set(laid[2])
@@ -139,7 +149,7 @@ def test_grad_specs_prefix_and_non_shardings(local_mesh):
                                         dtype=torch.float32)}}
     one = NamedSharding(local_mesh, (), placements_for(local_mesh, ()))
     for specs in (one, {"a": one, "b": None}, {"b": one}, object()):
-        out = _constrain(grads, specs)
+        out = gather(_constrain(grads, specs))
         assert torch.equal(out["a"], grads["a"])
         assert torch.equal(out["b"]["c"], grads["b"]["c"])
     assert _constrain(grads, object()) is grads
@@ -161,54 +171,102 @@ def _rank_batch(cfg, rank):
             "weights": torch.tensor(w, dtype=torch.float32)}
 
 
-def _two_rank_worker(rank, port, out):
+def _two_rank_worker(rank, port, out, data, model):
+    from torch.distributed.tensor import DTensor
+
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=2)
     try:
-        mesh = make_local_mesh(device="cpu")
-        assert mesh.shape == (2, 1)
+        mesh = make_local_mesh(data, model, device="cpu")
+        assert mesh.shape == (data, model)
         cfg = _dense_cfg()
         params = PT.init_params(cfg, 0, device="cpu")
         sh = make_shardings(mesh, params, PT.param_axes(cfg))
         step = build_train_step(cfg, cosine_schedule(3e-3, 2, 10),
                                 grad_specs=sh)
-        p, o, met = step(params, adamw_init(params), _rank_batch(cfg, rank))
-        torch.save({"params": p, "m": o.m, "v": o.v,
-                    "grad_norm": met["grad_norm"]}, f"{out}/rank{rank}.pt")
+        lp, lo = place_train_state(params, adamw_init(params), sh)
+        p, o, met = step(lp, lo, _rank_batch(cfg, rank))
+        assert p is lp and o is lo
+        assert all(isinstance(x, DTensor) for x in tree_leaves((p, o.m,
+                                                                o.v)))
+        local = lambda t: [(x.to_local().clone(), [  # noqa: E731
+            pl.dim if pl.is_shard() else None for pl in x.placements])
+            for x in tree_leaves(t)]
+        torch.save({"params": local(p), "m": local(o.m), "v": local(o.v),
+                    "count": o.count, "grad_norm": met["grad_norm"]},
+                   f"{out}/rank{rank}.pt")
         part = {k: v for k, v in sh.items() if k != "embed"}
+        lp, lo = place_train_state(params, adamw_init(params), sh)
         with pytest.raises(ValueError, match="on a group of 2 ranks"):
             build_train_step(cfg, cosine_schedule(3e-3, 2, 10),
-                             grad_specs=part)(
-                params, adamw_init(params), _rank_batch(cfg, rank))
+                             grad_specs=part)(lp, lo, _rank_batch(cfg, rank))
     finally:
         dist.destroy_process_group()
 
 
-def test_grad_specs_on_two_ranks_step_with_the_mean_gradient(tmp_path):
+@pytest.mark.parametrize("data,model", [(2, 1), (1, 2)])
+def test_grad_specs_on_two_ranks_step_with_the_mean_gradient(tmp_path, data,
+                                                              model):
+    """Each rank holds half of each sharded leaf of the parameters, ``m``
+    and ``v``; put together they are the one-rank step's over both
+    batches, and ``grad_norm`` is that step's on both ranks (module
+    docstring)."""
     import torch.multiprocessing as mp
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    mp.spawn(_two_rank_worker, args=(port, str(tmp_path)), nprocs=2)
+    mp.spawn(_two_rank_worker, args=(port, str(tmp_path), data, model),
+             nprocs=2)
     r0, r1 = (torch.load(tmp_path / f"rank{r}.pt") for r in (0, 1))
-    for k in ("params", "m", "v"):
-        a, b = tree_leaves(r0[k]), tree_leaves(r1[k])
-        assert all(torch.equal(x, y) for x, y in zip(a, b)), k
-    assert torch.equal(r0["grad_norm"], r1["grad_norm"])
+    axis = 0 if data == 2 else 1          # the mesh dim of two ranks
+
+    def whole(k):
+        out, halves = [], 0
+        for (x, pl), (y, _) in zip(r0[k], r1[k]):
+            if pl[axis] is None:          # replicated: the same on both
+                assert torch.equal(x, y), k
+                out.append(x)
+            else:
+                halves += 1
+                out.append(torch.cat([x, y], dim=pl[axis]))
+        assert halves > 0, k
+        # on 1 x 2 the norms (and whatever else no "model" axis splits)
+        # are on both ranks: the norm's trap
+        assert (halves < len(out)) == (model == 2), (k, halves)
+        return out
 
     cfg = _dense_cfg()
     params = PT.init_params(cfg, 0, device="cpu")
     b0, b1 = _rank_batch(cfg, 0), _rank_batch(cfg, 1)
     both = {k: torch.cat([b0[k], b1[k]]) for k in b0}
-    _, opt, met = build_train_step(cfg, cosine_schedule(3e-3, 2, 10))(
+    p1, opt, met = build_train_step(cfg, cosine_schedule(3e-3, 2, 10))(
         params, adamw_init(params), both)
-    torch.testing.assert_close(r0["grad_norm"], met["grad_norm"],
-                               rtol=1e-5, atol=0)
-    for k in ("m", "v"):
-        for x, y in zip(tree_leaves(r0[k]), tree_leaves(getattr(opt, k))):
+    for r in (r0, r1):
+        torch.testing.assert_close(r["grad_norm"], met["grad_norm"],
+                                   rtol=1e-5, atol=0)
+        assert int(r["count"]) == 1
+    for k, ref in (("m", opt.m), ("v", opt.v)):
+        got = whole(k)
+        assert len(got) == len(tree_leaves(ref))
+        for x, y in zip(got, tree_leaves(ref)):
+            assert x.shape == y.shape, k
             torch.testing.assert_close(x, y, rtol=1e-5,
                                        atol=1e-5 * y.abs().max().item())
+    # each rank's parameter shard is AdamW's update from its own moment
+    # shards, bit for bit (the one-rank step's parameters are not compared
+    # directly: where |g| is near AdamW's eps the first update
+    # g / (|g| + eps) magnifies the float32 rounding of g)
+    lr = cosine_schedule(3e-3, 2, 10)(0)
+    cf = torch.ones((), dtype=torch.float32)
+    c1, c2 = 1.0 - 0.9 ** cf, 1.0 - 0.95 ** cf
+    got = whole("params")
+    for x, p0, m, v in zip(got, tree_leaves(params), whole("m"), whole("v")):
+        step = lr * (m / c1) / (torch.sqrt(v / c2) + 1e-8)
+        step = step + lr * 0.1 * p0.float()
+        assert torch.equal(x, (p0.float() - step).to(p0.dtype))
+    for x, y in zip(got, tree_leaves(p1)):
+        assert x.shape == y.shape
 
 
 def test_local_mesh_checks_the_group_size(local_mesh):
