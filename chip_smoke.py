@@ -287,17 +287,27 @@ Phases, each of which ends the run with a non-zero exit on failure:
              allocated at the step's start; (5) with two cards or more,
              the partitioned step over every card (``ranks_check``: one
              process a card, NCCL, deepseek-7b's published width with 1
-             layer, 3 steps, each rank its own batch) against the
-             one-rank step on the ranks' batches together, in float32
-             and in bfloat16, and a witness, the one-rank step on the
-             same batches in the reverse order: ``grad_norm`` every step,
-             the moments every step and the parameters after step 3
-             within 10 times the witness's distance plus the dtype's eps
-             (to each leaf's largest entry), in float32 also
-             ``grad_norm`` and step 1's moments to rel 1e-5, the last
-             update AdamW's of the gathered moments bit for bit, each
-             rank's parameters and moments 1/n of the one-rank's bytes
-             within 1 %, the step times by CUDA events; on one card it
+             layer, 3 steps, the ranks of a model group on one batch) on
+             the (data, model) meshes (n, 1) in float32 and bfloat16,
+             (1, n) and (2, n / 2) in float32, (1, n) in bfloat16 and
+             phi3.5-moe (1 layer) at (1, n) in float32, against the
+             one-rank step on the data groups' batches together and a
+             witness, the one-rank step on the same rows in the reverse
+             order (on a model axis on the model mirrored too: heads, ff,
+             vocabulary and experts reversed): ``grad_norm`` every step, the moments every step and
+             the parameters after step 3 within 10 times the witness's
+             distance plus the dtype's eps (to each leaf's largest
+             entry), at (n, 1) in float32 also ``grad_norm`` and step
+             1's moments to rel 1e-5, the last update AdamW's of the
+             gathered moments bit for bit, each rank's parameters and
+             moments 1/n of the one-rank's bytes within 1 % (at (1, n)
+             within 0.001 of 1/n), held bytes, peak allocated and step
+             times (CUDA events) a rank printed per mesh; then
+             gemma2-27b (2 layers, batch 4, prompt 1024, 8 eager decode
+             steps) served over (1, n) against the one-card eager path,
+             in float32 every logit within 1e-3 of max|logit|, in
+             bfloat16 within 10 times the one-card path's own distance
+             from its float32 run; on one card it
              prints that it needs two; (4) ``python -m
              repro_torch.launch.dryrun`` in three processes started
              together (deepseek-7b train_4k on both
@@ -355,6 +365,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2598,27 +2609,59 @@ def launch_phase(smi: str, drive) -> None:
           f"  [{smi}]")
 
 
-def _rank_batch(cfg, rank: int, step: int, device):
-    """Rank ``rank``'s batch of 2 x 128 tokens at step ``step``: every
-    rank's weights sum to 2, so the mean of the ranks' gradients is the
-    gradient of their batches put together."""
+def _rank_batch(cfg, group: int, step: int, device):
+    """Data group ``group``'s batch of 2 x 128 tokens at step ``step`` (the
+    ranks of one model group take the same rows): every group's weights
+    sum to 2, so the mean of the data groups' gradients is the gradient of
+    their batches put together."""
     import numpy as np
     import torch
-    rng = np.random.default_rng(1000 * step + rank)
+    rng = np.random.default_rng(1000 * step + group)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 128)),
                           dtype=torch.int32, device=device)
     return {"tokens": tok, "labels": torch.roll(tok, -1, 1),
             "weights": torch.ones(2, device=device)}
 
 
-def _rank_worker(rank: int, n: int, port: int, out: str, f32: bool) -> None:
-    """One rank of ``ranks_check``: 3 partitioned steps on its card; rank
-    0 also runs the one-rank step on the ranks' batches put together and
-    the witness (the same step on the batches put together in the
-    reverse order) and writes the comparison to ``out``."""
-    sys.path.insert(0, str(ROOT / "src"))
-    from datetime import timedelta
+def _rank_cases(n: int) -> list:
+    """The train meshes of ``ranks_check`` over n cards, (arch, data,
+    model, float32): (n, 1) in float32 and bfloat16, then the model axis:
+    (1, n) and (2, n / 2) in float32, (1, n) in bfloat16, phi3.5-moe at
+    (1, n) in float32."""
+    cases = [("deepseek-7b", n, 1, True), ("deepseek-7b", n, 1, False),
+             ("deepseek-7b", 1, n, True)]
+    if n >= 4 and n % 2 == 0:
+        cases.append(("deepseek-7b", 2, n // 2, True))
+    return cases + [("deepseek-7b", 1, n, False),
+                    ("phi3.5-moe-42b-a6.6b", 1, n, True)]
 
+
+# the logical axes the model axis splits (``sharding.logical_rules``)
+_SPLIT = ("heads", "kv", "ff", "vocab", "expert")
+
+
+def _mirror(tree, axes, key=None):
+    """``tree`` (the parameters or a moment; ``axes`` its
+    ``param_axes``) with every dim the model axis splits reversed: the
+    heads, kv heads, ff columns, vocabulary rows and experts in the
+    reverse order, the router's expert columns with them.  The same model
+    (on tokens ``vocab - 1 - t``), every sum the model axis splits taken
+    in another order; its own inverse."""
+    if isinstance(tree, dict):
+        return {k: _mirror(t, axes[k], k) for k, t in tree.items()}
+    dims = [d for d, a in enumerate(axes) if a in _SPLIT]
+    if key == "router":
+        dims = [tree.dim() - 1]
+    return tree.flip(dims) if dims else tree
+
+
+def _rank_train(rank: int, dev, arch: str, data: int, model: int,
+                f32: bool) -> dict | None:
+    """One train mesh of ``_rank_worker``: 3 partitioned steps on this
+    rank's card; rank 0 also runs the one-rank step on the data groups'
+    batches put together and the witness (the same step on those rows in
+    the reverse order) and returns the comparison; every rank returns its
+    held bytes, peaks and step times for rank 0 to gather."""
     import torch
     import torch.distributed as dist
 
@@ -2629,7 +2672,216 @@ def _rank_worker(rank: int, n: int, port: int, out: str, f32: bool) -> None:
     from repro_torch.sharding import make_shardings
     from repro_torch.train.steps import (build_train_step, gather,
                                          place_train_state)
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch).with_overrides(n_layers=1)
+    if f32:
+        cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
+    mesh = make_local_mesh(data, model, device=dev)
+    group = rank // model          # the rank's data group (row-major mesh)
+    lr = cosine_schedule(3e-3, 2, 10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    params = init_params(cfg, 0, device=dev)
+    opt = adamw_init(params)
+    whole = sum(t.untyped_storage().nbytes() for t in tree_leaves(
+        (params, opt.m, opt.v)))
+    sh = make_shardings(mesh, params, param_axes(cfg))
+    lp, lo = place_train_state(params, opt, sh)
+    del params, opt
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - base
+    step = build_train_step(cfg, lr, grad_specs=sh)
+
+    def worst(a, b):
+        """(max |a - b| over each leaf's largest |b|, elements that
+        differ, elements off by more than both rel 1e-5 of their leaf's
+        largest |b| and one unit in the last place of b's dtype at
+        |b|)."""
+        rel, diff, bad = 0.0, 0, 0
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            d = (x.to(y.device).float() - y.float()).abs()
+            top = max(float(y.float().abs().max()), 1e-30)
+            rel = max(rel, float(d.max()) / top)
+            diff += int((d > 0).sum())
+            bits = 1 - int(math.log2(torch.finfo(y.dtype).eps))
+            _, e = torch.frexp(y.float())
+            ulp = torch.ldexp(torch.ones_like(d), e - bits)
+            bad += int((d > torch.clamp(ulp, min=1e-5 * top)).sum())
+        return rel, diff, bad
+
+    def timed(fn, times):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
+        ev[0].record()
+        got = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+        return got
+
+    # the whole parameters, copied: a replicated leaf's gather is its shard
+    # itself, which the step overwrites
+    whole_copy = lambda: tree_map(torch.clone, gather(lp))  # noqa: E731
+    # the whole leaves on the host, a leaf at a time (what rank 0 compares
+    # after its one-rank steps: on the card they would not fit beside them
+    # at phi3.5-moe's width in float32)
+    host = lambda tree: tree_map(  # noqa: E731
+        lambda t: gather(t).to("cpu", copy=True), tree)
+    seed = whole_copy()     # the seeded draw (a gather: every rank)
+    # the witness: another order of the sums the mesh splits, the rows
+    # reversed (the data axis) and, on a model axis, the model mirrored
+    axes = param_axes(cfg)
+    mirror = (lambda t: _mirror(t, axes)) if model > 1 else (  # noqa: E731
+        lambda t: t)
+    if rank == 0:       # the one-rank step and its witness, in step
+        params = seed
+        w_params = mirror(tree_map(torch.clone, seed))
+        opt, w_opt = adamw_init(params), adamw_init(w_params)
+        plain = build_train_step(cfg, lr)
+    del seed
+    norms, ms, peaks, ref_ms = [], [], [], []
+    ref_norms, w_norms, mv, w_mv = [], [], [], []
+    for t in range(3):
+        if t == 2:                 # the parameters before the last step
+            before = host(lp)
+        batch = _rank_batch(cfg, group, t, dev)
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, _, met = timed(lambda: step(lp, lo, batch), ms)
+        # the rank's state and the step's peak above what it found
+        peaks.append(torch.cuda.max_memory_allocated(dev) - start + held)
+        norms.append(float(met["grad_norm"]))
+        got_m, got_v = host((lo.m, lo.v))
+        if rank == 0:
+            bs = [_rank_batch(cfg, g, t, dev) for g in range(data)]
+            both = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+            rev = {k: torch.flip(v, [0]) for k, v in both.items()}
+            if model > 1:
+                rev["tokens"] = cfg.vocab - 1 - rev["tokens"]
+                rev["labels"] = cfg.vocab - 1 - rev["labels"]
+            params, opt, met = timed(lambda: plain(params, opt, both),
+                                     ref_ms)
+            w_params, w_opt, w_met = plain(w_params, w_opt, rev)
+            ref_norms.append(float(met["grad_norm"]))
+            w_norms.append(float(w_met["grad_norm"]))
+            mv.append((worst(got_m, opt.m)[0], worst(got_v, opt.v)[0]))
+            w_mv.append((worst(mirror(w_opt.m), opt.m)[0],
+                         worst(mirror(w_opt.v), opt.v)[0]))
+    got_p = gather(lp)
+    mine = {"held": held, "ms": ms, "peak": peaks}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    if rank != 0:
+        return None
+    # the last step's parameters are AdamW's update of those before it
+    # from the gathered moments, bit for bit
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
+    cf = torch.full((), 3.0, device=dev)
+    c1, c2 = 1.0 - b1 ** cf, 1.0 - b2 ** cf
+    lr2 = lr(torch.full((), 2, dtype=torch.int32, device=dev))
+    exact = True
+    for x, p0, m, v in zip(tree_leaves(got_p), tree_leaves(before),
+                           tree_leaves(got_m), tree_leaves(got_v)):
+        p0, m, v = (t.to(dev) for t in (p0, m, v))
+        upd = lr2 * (m.float() / c1) / (torch.sqrt(v.float() / c2) + eps)
+        upd = upd + lr2 * wd * p0.float()
+        exact &= bool(torch.equal(x, (p0.float() - upd).to(x.dtype)))
+    return {"arch": arch, "data": data, "model": model, "f32": f32,
+            "norms": norms, "ref_norms": ref_norms, "w_norms": w_norms,
+            "mv": mv, "w_mv": w_mv, "params": worst(got_p, params),
+            "w_params": worst(mirror(w_params), params),
+            "exact_last_update": exact,
+            "elements": sum(t.numel() for t in tree_leaves(got_p)),
+            "whole": whole, "ref_ms": ref_ms, "ranks": ranks,
+            "param_dtype": str(tree_leaves(got_p)[0].dtype)}
+
+
+# the serve check over the model axis: gemma2-27b at published width with
+# 2 layers, batch 4, a prompt of 1024 and 8 decode steps
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 8
+
+
+def _rank_serve(rank: int, n: int, dev, f32: bool, want32=None):
+    """Prefill and SERVE_NEW eager decode steps (``build_prefill_step`` /
+    ``build_decode_step`` given the parameters' shards on a (1, n) mesh,
+    every ``graphs.scan`` eager: no capture) on the same tokens as rank
+    0's one-card eager path on the whole parameters, in float32 or as
+    published (bfloat16); rank 0 returns the logits' distance, both
+    paths' times and the one-card logits (``want``), and given the
+    float32 run's one-card logits (``want32``) the one-card bfloat16
+    path's own distance from them."""
+    import numpy as np
+    import torch
+
+    from repro_torch import graphs
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_local_mesh
+    from repro_torch.models import init_params, param_axes
+    from repro_torch.sharding import make_shardings
+    from repro_torch.train.steps import (build_decode_step,
+                                         build_prefill_step, place_params)
+
+    cfg = get_config("gemma2-27b").with_overrides(n_layers=2)
+    if f32:
+        cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
+    mesh = make_local_mesh(1, n, device=dev)
+    params = init_params(cfg, 0, device=dev)
+    lp = place_params(params, make_shardings(mesh, params, param_axes(cfg)))
+    if rank != 0:
+        del params
+    rng = np.random.default_rng(5)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        SERVE_B, SERVE_PROMPT + SERVE_NEW)), dtype=torch.int32, device=dev)
+    pre = build_prefill_step(cfg, cache_len=SERVE_PROMPT + SERVE_NEW)
+    dec = build_decode_step(cfg)
+
+    def serve(p):
+        """(prefill's and every decode step's logits, prefill ms, decode
+        ms a step) by CUDA events."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        logits, caches = pre(p, {"tokens": toks[:, :SERVE_PROMPT]})
+        ev[1].record()
+        out = [logits]
+        for i in range(SERVE_NEW):
+            t = SERVE_PROMPT + i
+            logits, caches = dec(p, toks[:, t:t + 1], caches, t)
+            out.append(logits)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return (out, ev[0].elapsed_time(ev[1]),
+                ev[1].elapsed_time(ev[2]) / SERVE_NEW)
+
+    def dist_(a, b):
+        return [float((x.float() - y.float()).abs().max())
+                / float(y.float().abs().max()) for x, y in zip(a, b)]
+
+    with graphs.capturing(False):
+        got, pre_ms, dec_ms = serve(lp)
+        if rank != 0:
+            return None
+        want, ref_pre_ms, ref_dec_ms = serve(params)
+    return {"dtype": str(cfg.dtype), "errs": dist_(got, want),
+            "own": dist_(want, want32) if want32 is not None else None,
+            "shape": list(got[-1].shape), "ms": [pre_ms, dec_ms],
+            "ref_ms": [ref_pre_ms, ref_dec_ms], "want": want,
+            "finite": all(bool(torch.isfinite(x).all()) for x in got)}
+
+
+def _rank_worker(rank: int, n: int, port: int, out: str, cases) -> None:
+    """One rank of ``ranks_check``: every train mesh of ``cases`` in turn
+    (``_rank_train``), then the serve check, float32 and bfloat16; rank 0
+    writes the results to ``out``.  A failure prints its traceback and
+    ends the process at once (the spawn then fails the check): tearing
+    the group down would wait on the other ranks' pending collectives."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
 
     dev = torch.device("cuda", rank)
     torch.cuda.set_device(dev)
@@ -2637,140 +2889,89 @@ def _rank_worker(rank: int, n: int, port: int, out: str, f32: bool) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=n,
-                            timeout=timedelta(seconds=300), device_id=dev)
+                            timeout=timedelta(seconds=120), device_id=dev)
+
+    def log(what):
+        print(f"ranks: rank {rank} {what} at "
+              f"{time.perf_counter() - t_start:.1f} s, "
+              f"{torch.cuda.memory_allocated(dev)} bytes allocated",
+              flush=True)
+
+    t_start = time.perf_counter()
     try:
-        cfg = get_config("deepseek-7b").with_overrides(n_layers=1)
-        if f32:
-            cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
-        mesh = make_local_mesh(device=dev)
-        lr = cosine_schedule(3e-3, 2, 10)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated(dev)
-        params = init_params(cfg, 0, device=dev)
-        opt = adamw_init(params)
-        whole = sum(t.untyped_storage().nbytes() for t in tree_leaves(
-            (params, opt.m, opt.v)))
-        sh = make_shardings(mesh, params, param_axes(cfg))
-        lp, lo = place_train_state(params, opt, sh)
-        del params, opt
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated(dev) - base
-        step = build_train_step(cfg, lr, grad_specs=sh)
-
-        def worst(a, b):
-            """(max |a - b| over each leaf's largest |b|, elements that
-            differ, elements off by more than both rel 1e-5 of their leaf's
-            largest |b| and one unit in the last place of b's dtype at
-            |b|)."""
-            rel, diff, bad = 0.0, 0, 0
-            for x, y in zip(tree_leaves(a), tree_leaves(b)):
-                d = (x.float() - y.float()).abs()
-                top = max(float(y.float().abs().max()), 1e-30)
-                rel = max(rel, float(d.max()) / top)
-                diff += int((d > 0).sum())
-                bits = 1 - int(math.log2(torch.finfo(y.dtype).eps))
-                _, e = torch.frexp(y.float())
-                ulp = torch.ldexp(torch.ones_like(d), e - bits)
-                bad += int((d > torch.clamp(ulp, min=1e-5 * top)).sum())
-            return rel, diff, bad
-
-        def timed(fn, times):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in (0, 1)]
-            ev[0].record()
-            got = fn()
-            ev[1].record()
-            torch.cuda.synchronize()
-            times.append(ev[0].elapsed_time(ev[1]))
-            return got
-
-        if rank == 0:       # the one-rank step and its witness, in step
-            params = init_params(cfg, 0, device=dev)
-            opt = adamw_init(params)
-            w_params = init_params(cfg, 0, device=dev)
-            w_opt = adamw_init(w_params)
-            plain = build_train_step(cfg, lr)
-        norms, ms, ref_ms = [], [], []
-        ref_norms, w_norms, mv, w_mv = [], [], [], []
-        for t in range(3):
-            if t == 2:                 # the parameters before the last step
-                before = gather(lp)
-            batch = _rank_batch(cfg, rank, t, dev)
-            dist.barrier()
-            _, _, met = timed(lambda: step(lp, lo, batch), ms)
-            norms.append(float(met["grad_norm"]))
-            got_m, got_v = gather((lo.m, lo.v))
-            if rank == 0:
-                bs = [_rank_batch(cfg, r, t, dev) for r in range(n)]
-                both = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
-                rev = {k: torch.cat([b[k] for b in bs[::-1]])
-                       for k in bs[0]}
-                params, opt, met = timed(lambda: plain(params, opt, both),
-                                         ref_ms)
-                w_params, w_opt, w_met = plain(w_params, w_opt, rev)
-                ref_norms.append(float(met["grad_norm"]))
-                w_norms.append(float(w_met["grad_norm"]))
-                mv.append((worst(got_m, opt.m)[0], worst(got_v, opt.v)[0]))
-                w_mv.append((worst(w_opt.m, opt.m)[0],
-                             worst(w_opt.v, opt.v)[0]))
-        got_p = gather(lp)
-        res = None
+        res = {"train": []}
+        for case in cases:
+            t0 = time.perf_counter()
+            log(f"starts {case}")
+            got = _rank_train(rank, dev, *case)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if got is not None:
+                got["host_s"] = time.perf_counter() - t0
+                res["train"].append(got)
+        log("starts serving")
+        sv32 = _rank_serve(rank, n, dev, True)
+        want32 = sv32.pop("want") if sv32 else None
+        sv16 = _rank_serve(rank, n, dev, False, want32)
         if rank == 0:
-            # the last step's parameters are AdamW's update of those before
-            # it from the gathered moments, bit for bit
-            b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
-            cf = torch.full((), 3.0, device=dev)
-            c1, c2 = 1.0 - b1 ** cf, 1.0 - b2 ** cf
-            lr2 = lr(torch.full((), 2, dtype=torch.int32, device=dev))
-            exact = True
-            for x, p0, m, v in zip(tree_leaves(got_p), tree_leaves(before),
-                                   tree_leaves(got_m), tree_leaves(got_v)):
-                upd = lr2 * (m.float() / c1) / (
-                    torch.sqrt(v.float() / c2) + eps)
-                upd = upd + lr2 * wd * p0.float()
-                exact &= bool(torch.equal(x, (p0.float() - upd).to(x.dtype)))
-            res = {"norms": norms, "ref_norms": ref_norms,
-                   "w_norms": w_norms, "mv": mv, "w_mv": w_mv,
-                   "params": worst(got_p, params),
-                   "w_params": worst(w_params, params),
-                   "exact_last_update": exact,
-                   "elements": sum(t.numel() for t in tree_leaves(got_p)),
-                   "held": held, "whole": whole, "ms": ms, "ref_ms": ref_ms,
-                   "param_dtype": str(tree_leaves(got_p)[0].dtype)}
-        held_all = [None] * n
-        dist.all_gather_object(held_all, {"held": held, "ms": ms})
-        if rank == 0:
-            res["ranks"] = held_all
+            sv16.pop("want")
+            res["serve"] = [sv32, sv16]
             Path(out).write_text(json.dumps(res))
+        log("done")
         dist.barrier()
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 # how far the n-rank step may lie from the one-rank step: within WITNESS_X
-# times the witness's distance (the one-rank step on the same batches in
-# another order: the same arithmetic, another reduction order), plus the
+# times the witness's distance (the one-rank step on the same rows in the
+# reverse order and, on a model axis, on the mirrored model: the same
+# arithmetic, another order of the sums the mesh splits), plus the
 # parameters' dtype's eps (float32 2^-23, bfloat16 2^-7: one unit in the
 # last place is at most eps of the value)
 WITNESS_X = 10.0
+# the serve gate: prefill / decode logits within 1e-3 of max|logit|
+SERVE_GATE = 1e-3
 
 
 def ranks_check(smi: str) -> None:
     """The partitioned train step (``build_train_step(grad_specs=)``) over
     every card, one process a card (NCCL), at deepseek-7b's published
-    width with 1 layer: 3 steps from the seeded parameters, each rank its
-    own batch, against the one-rank step on the ranks' batches put
-    together (rank 0), and against a witness of what another reduction
-    order alone does: the one-rank step on the same batches put together
-    in the reverse order.  Run in float32 (parameters and activations)
-    and as published (bfloat16).  Held: ``grad_norm`` every step, the
-    moments after every step (each leaf's largest entry the scale) and
-    the parameters after step 3 within ``WITNESS_X`` times the witness's
-    distance from the one-rank step plus the dtype's eps; in
-    float32 also ``grad_norm`` and step 1's moments to rel 1e-5; the last
-    update AdamW's of the gathered moments bit for bit; each rank's
-    allocated bytes for its parameters and moments 1/n of the one-rank's
-    within 1 %.  Printed: the step times by CUDA events.  Below two cards
-    it says so and returns."""
+    width with 1 layer, 3 steps from the seeded parameters, on the meshes
+    of ``_rank_cases``: the data axis alone (n, 1) in float32 and as
+    published (bfloat16), then the model axis computed on shards
+    (``sharding.tp``): (1, n) and (2, n / 2) in float32, (1, n) in
+    bfloat16, and phi3.5-moe at published width with 1 layer at (1, n) in
+    float32.  The ranks of a model group take the same batch.  Against
+    the one-rank step on the data groups' batches put together (rank 0),
+    and against a witness of what another order of the sums the mesh
+    splits does: the one-rank step on the same rows in the reverse order
+    and, on a model axis, on the model mirrored (``_mirror``: the heads,
+    ff columns, vocabulary rows and experts reversed, the tokens with
+    them), its moments and parameters mirrored back.  Held on
+    every mesh: ``grad_norm`` every step, the moments after every step
+    (each leaf's largest entry the scale) and the parameters after step 3
+    within ``WITNESS_X`` times the witness's distance from the one-rank
+    step plus the dtype's eps; the last update AdamW's of the gathered
+    moments bit for bit; each rank's allocated bytes for its parameters
+    and moments 1/n of the one-rank's within 1 % (at (1, n) within 0.001
+    of 1/n); at (n, 1) in float32 also ``grad_norm`` and step 1's moments
+    to rel 1e-5.  Then serving over the model axis: gemma2-27b at
+    published width with 2 layers, batch 4, a prompt of 1024 and 8 eager
+    decode steps at (1, n) against the one-card eager path, in float32
+    every logit within ``SERVE_GATE`` of max|logit|, as published
+    (bfloat16) within ``WITNESS_X`` times the one-card path's own
+    distance from its float32 run (a bfloat16 sum split over the model
+    axis rounds its partial sums: what bfloat16 itself costs is the
+    yardstick).  Printed per mesh: a rank's held
+    bytes against the one-rank state, the peak allocated a rank (its
+    state and a step's peak above what the step found), step ms a rank
+    (CUDA events, the median of steps 2-3).  Below two cards it says so
+    and returns."""
     import socket
 
     import torch
@@ -2781,72 +2982,115 @@ def ranks_check(smi: str) -> None:
         print(f"grad_specs over n ranks: this check needs two cards or "
               f"more; {n} here, not run")
         return
-    for f32 in (True, False):
-        with socket.socket() as sk:
-            sk.bind(("localhost", 0))
-            port = sk.getsockname()[1]
-        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
-        out = tmp / "ranks.json"
-        t0 = time.perf_counter()
-        try:
-            mp.spawn(_rank_worker, args=(n, port, str(out), f32), nprocs=n,
-                     join=True)
-            res = json.loads(out.read_text())
-        finally:
-            shutil.rmtree(tmp)
-        host_s = time.perf_counter() - t0
-        dt = res["param_dtype"]
-        eps = 2.0 ** -23 if f32 else 2.0 ** -7
-        rel = lambda got: [abs(a - b) / abs(b) for a, b in zip(  # noqa: E731
-            got, res["ref_norms"])]
-        norm_rel, w_norm_rel = rel(res["norms"]), rel(res["w_norms"])
-        p_rel, p_diff, p_bad = res["params"]
-        w_p_rel = res["w_params"][0]
-        held = [r["held"] / res["whole"] for r in res["ranks"]]
-        # (what, the n ranks' distance, the witness's)
-        pairs = [(f"grad_norm step {t + 1}", a, b)
-                 for t, (a, b) in enumerate(zip(norm_rel, w_norm_rel))]
-        for t, ((m, v), (wm, wv)) in enumerate(zip(res["mv"], res["w_mv"])):
-            pairs += [(f"m step {t + 1}", m, wm), (f"v step {t + 1}", v, wv)]
-        pairs.append(("parameters after step 3", p_rel, w_p_rel))
-        print(f"grad_specs over {n} ranks (one process a card, NCCL; "
-              f"deepseek-7b 1 layer, {dt}, 3 steps, 2 x 128 tokens a rank) "
-              f"against the one-rank step on the ranks' batches together, "
-              f"rel to each leaf's largest entry, the n ranks' (the "
-              f"witness's: the one-rank step on the batches in reverse "
-              f"order): " + "; ".join(f"{w} {a:.2e} ({b:.2e})"
-                                       for w, a, b in pairs)
-              + f"; grad_norm {res['norms']}, the one-rank step's "
-              f"{res['ref_norms']}; parameters after step 3: {p_diff} of "
-              f"{res['elements']} elements differ, {p_bad} by more than rel "
-              f"1e-5 of their leaf's largest entry and one unit in their "
-              f"last place (held: each within {WITNESS_X:g} x the "
-              f"witness's + {eps:.2e}"
-              + ("; grad_norm and step 1's moments within rel 1e-5"
-                 if f32 else "") + "); last update AdamW's of the gathered "
-              f"moments bit for bit: {res['exact_last_update']}; parameters "
-              f"and moments a rank {[round(h, 5) for h in held]} of the "
-              f"one-rank's {res['whole']} bytes (tol 1/{n} within 1 %); "
-              f"{host_s:.1f} s host clock")
-        per = [spread(r["ms"][1:], "ms", 2) for r in res["ranks"]]
-        print(f"grad_specs over {n} ranks, {dt}: a step (CUDA events, "
-              f"steps 2-3) by rank {per}; the one-rank step on the {n} "
-              f"ranks' batches together, on card 0, "
-              f"{spread(res['ref_ms'][1:], 'ms', 2)}  [{smi}, {n} cards]")
-        require(res["exact_last_update"],
-                f"grad_specs over {n} ranks: the last update is not AdamW's"
-                f" of the gathered moments")
-        require(all(abs(h * n - 1.0) <= 0.01 for h in held),
-                f"grad_specs over {n} ranks: held {held} of the whole")
-        far = [(w, a, b) for w, a, b in pairs if a > WITNESS_X * b + eps]
-        require(not far, f"grad_specs over {n} ranks, {dt}: beyond "
-                         f"{WITNESS_X:g} x the witness: {far}")
-        if f32:
-            require(max(norm_rel) <= 1e-5, f"grad_specs over {n} ranks: "
-                                           f"grad_norm rel {norm_rel}")
-            require(max(res["mv"][0]) <= 1e-5,
-                    f"grad_specs over {n} ranks: step 1's moments rel "
-                    f"{res['mv'][0]}")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    out = tmp / "ranks.json"
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_rank_worker, args=(n, port, str(out), _rank_cases(n)),
+                 nprocs=n, join=True)
+        res = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(tmp)
+    print(f"ranks: {len(res['train'])} meshes and the serve check over {n} "
+          f"cards in {time.perf_counter() - t0:.1f} s host clock")
+    failed = [f for r in res["train"] for f in _ranks_report(r, n, smi)]
+    for sv in res["serve"]:
+        f32 = sv["own"] is None
+        label = f"serve over (1, {n}) (gemma2-27b, 2 layers, {sv['dtype']})"
+        print(f"{label}: batch {SERVE_B}, prompt {SERVE_PROMPT}, "
+              f"{SERVE_NEW} eager decode steps, NCCL, no capture, against "
+              f"the one-card eager path: logits {sv['shape']}, max|diff| "
+              f"/ max|logit| prefill {sv['errs'][0]:.3e}, decode steps "
+              f"{[float(f'{e:.3e}') for e in sv['errs'][1:]]}"
+              + (f" (gate {SERVE_GATE:g})" if f32 else
+                 f" (the one-card path's own distance from its float32 "
+                 f"run, prefill and decode: "
+                 f"{[float(f'{e:.3e}') for e in sv['own']]}; held within "
+                 f"{WITNESS_X:g} x it)")
+              + f"; prefill {sv['ms'][0]:.2f} ms (one card "
+              f"{sv['ref_ms'][0]:.2f}), decode {sv['ms'][1]:.3f} ms a step "
+              f"(one card {sv['ref_ms'][1]:.3f})  [{smi}, {n} cards]")
+        if not sv["finite"]:
+            failed.append(f"{label}: logits not finite")
+        if f32 and max(sv["errs"]) > SERVE_GATE:
+            failed.append(f"{label}: logits {sv['errs']} of max|logit|")
+        if not f32 and any(e > WITNESS_X * o for e, o in zip(sv["errs"],
+                                                             sv["own"])):
+            failed.append(f"{label}: logits {sv['errs']} of max|logit|, "
+                          f"beyond {WITNESS_X:g} x the one-card path's own "
+                          f"{sv['own']}")
+    require(not failed, "ranks: " + "; ".join(failed))
+
+
+def _ranks_report(res: dict, n: int, smi: str) -> list:
+    """Print one train mesh of ``ranks_check``; return the rules it
+    breaks (``ranks_check`` fails on them after printing every mesh)."""
+    failed = []
+
+    def check(cond, msg):
+        if not cond:
+            failed.append(msg)
+
+    f32, data, model = res["f32"], res["data"], res["model"]
+    mesh = f"({data}, {model})"
+    dt = res["param_dtype"]
+    eps = 2.0 ** -23 if f32 else 2.0 ** -7
+    rel = lambda got: [abs(a - b) / abs(b) for a, b in zip(  # noqa: E731
+        got, res["ref_norms"])]
+    norm_rel, w_norm_rel = rel(res["norms"]), rel(res["w_norms"])
+    p_rel, p_diff, p_bad = res["params"]
+    w_p_rel = res["w_params"][0]
+    held = [r["held"] / res["whole"] for r in res["ranks"]]
+    # (what, the n ranks' distance, the witness's)
+    pairs = [(f"grad_norm step {t + 1}", a, b)
+             for t, (a, b) in enumerate(zip(norm_rel, w_norm_rel))]
+    for t, ((m, v), (wm, wv)) in enumerate(zip(res["mv"], res["w_mv"])):
+        pairs += [(f"m step {t + 1}", m, wm), (f"v step {t + 1}", v, wv)]
+    pairs.append(("parameters after step 3", p_rel, w_p_rel))
+    label = f"grad_specs over {mesh} ({res['arch']} 1 layer, {dt})"
+    print(f"{label}: 3 steps, 2 x 128 tokens a data group, against the "
+          f"one-rank step on the data groups' batches together, rel to "
+          f"each leaf's largest entry, the ranks' (the witness's: the "
+          f"one-rank step on the rows in reverse order"
+          + (", the model mirrored (heads, ff, vocabulary, experts "
+             "reversed)" if model > 1 else "") + "): "
+          + "; ".join(f"{w} {a:.2e} ({b:.2e})" for w, a, b in pairs)
+          + f"; grad_norm {res['norms']}, the one-rank step's "
+          f"{res['ref_norms']}; parameters after step 3: {p_diff} of "
+          f"{res['elements']} elements differ, {p_bad} by more than rel "
+          f"1e-5 of their leaf's largest entry and one unit in their last "
+          f"place (held: each within {WITNESS_X:g} x the witness's + "
+          f"{eps:.2e}" + ("; grad_norm and step 1's moments within rel "
+                          "1e-5" if f32 and model == 1 else "")
+          + f"); last update AdamW's of the gathered moments bit for bit: "
+          f"{res['exact_last_update']}; {res['host_s']:.1f} s host clock")
+    per = [spread(r["ms"][1:], "ms", 2) for r in res["ranks"]]
+    print(f"{label}: held a rank {[round(h, 5) for h in held]} of the "
+          f"one-rank state's {res['whole']} bytes; peak allocated a rank "
+          f"{[max(r['peak']) for r in res['ranks']]} bytes; a step (CUDA "
+          f"events, steps 2-3) by rank {per}, median "
+          f"{statistics.median(x for r in res['ranks'] for x in r['ms'][1:]):.2f}"
+          f" ms; the one-rank step on card 0 "
+          f"{spread(res['ref_ms'][1:], 'ms', 2)}  [{smi}, {n} cards]")
+    check(res["exact_last_update"],
+            f"{label}: the last update is not AdamW's of the gathered "
+            f"moments")
+    check(all(abs(h * n - 1.0) <= 0.01 for h in held),
+            f"{label}: held {held} of the whole")
+    if data == 1:
+        check(all(abs(h - 1.0 / n) <= 0.001 for h in held),
+                f"{label}: held {held} of the whole, not 1/{n} within "
+                f"0.001")
+    far = [(w, a, b) for w, a, b in pairs if a > WITNESS_X * b + eps]
+    check(not far, f"{label}: beyond {WITNESS_X:g} x the witness: {far}")
+    if f32 and model == 1:
+        check(max(norm_rel) <= 1e-5, f"{label}: grad_norm rel {norm_rel}")
+        check(max(res["mv"][0]) <= 1e-5,
+                f"{label}: step 1's moments rel {res['mv'][0]}")
+    return failed
 
 
 def sharded_phase(cfg, step: float, smi: str, drive) -> None:

@@ -3,15 +3,17 @@ the production mesh's placements and extract H100 roofline terms (port of
 ``repro.launch.dryrun``).
 
 The reference lowers and compiles each step for 512 placeholder devices.
-Here the step runs once on meta tensors (shapes and dtypes, no storage)
-under ``FlopCounterMode`` and ``roofline.LiveBytes``, on a ``DeviceMesh``
-of a fake 512-rank process group: a train step's parameters and AdamW
-moments are ``DTensor`` shards laid out by ``sharding.make_shardings``
-(``train.steps.place_train_state``, the reference's ``in_shardings``) and
-the step is the partitioned program (``build_train_step(grad_specs=)``);
-the other placements (prefill's and decode's parameters, every input:
-``launch.specs.input_shardings``) give each leaf's local bytes.  Nothing
-is allocated, so every configuration runs on the CPU.
+Here rank 0's program runs once on meta tensors (shapes and dtypes, no
+storage) under ``FlopCounterMode`` and ``roofline.LiveBytes``, on a
+``DeviceMesh`` of a fake 512-rank process group: the parameters (and a
+train step's AdamW moments) are ``DTensor`` shards laid out by
+``sharding.make_shardings`` (``train.steps.place_params`` /
+``place_train_state``, the reference's ``in_shardings``), the inputs are
+rank 0's shards as ``launch.specs.input_shardings`` lays them, and the
+step is the partitioned program (``build_train_step(grad_specs=)`` and
+the serve steps given shards): the data axes gathered, the model axis
+computed on shards with its collectives recorded (``sharding.tp``).
+Nothing is allocated, so every configuration runs on the CPU.
 ``launch.roofline`` says what each term counts and what it cannot see.
 
 Runs as its own process: ``main`` creates the fake group (which serves the
@@ -37,18 +39,19 @@ from repro_torch.configs import ARCHS, SHAPES
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Dtype
 from repro_torch.optim import adamw_init, cosine_schedule
-from repro_torch.sharding import make_shardings
+from repro_torch.sharding import axis_size, make_shardings, tp
 from repro_torch.train.steps import (batch_extras, build_decode_step,
                                      build_prefill_step, build_train_step,
-                                     gather, place_train_state)
-from repro_torch.tree import tree_map
+                                     gather, mesh_of, place_params,
+                                     place_train_state)
+from repro_torch.tree import tree_leaves, tree_map
 
 from .mesh import make_production_mesh
 from .roofline import (COLLECTIVES, LiveBytes, alias_bytes,
                        collective_bytes, count_flops, held_bytes,
                        remat_flops, roofline)
-from .specs import (input_shardings, input_specs, output_shardings,
-                    param_structs, shape_config)
+from .specs import (cache_struct, input_shardings, input_specs,
+                    output_shardings, param_structs, shape_config)
 
 __all__ = ["dryrun_one", "trace_step", "fake_group", "main"]
 
@@ -67,17 +70,21 @@ def fake_group() -> None:
 
 def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
                grad_specs=None, loops: bool = True,
-               live: LiveBytes | None = None) -> tuple[dict, tuple]:
+               live: LiveBytes | None = None,
+               collectives: tp.Recorder | None = None) -> tuple[dict, tuple]:
     """Run one ``kind`` step ("train", "prefill" or "decode") on meta
     ``params`` and ``inputs`` (``specs.input_specs``' structure; ``opt``
     the AdamW state of a train step) under the flop counters -> (flops by
-    operator, with the global program's ``"total"`` and the ``"remat"``
+    operator, with the traced program's ``"total"`` and the ``"remat"``
     recompute it includes, zero but for a train step; the step's
-    outputs).  ``seq_len`` is prefill's cache length and decode's position
-    plus one.  ``loops``: each ``graphs.scan`` loop counted as one body
-    times its trip count (``roofline.count_flops``); ``False`` traces
-    every block.  ``live``: a ``roofline.LiveBytes`` that the step runs
-    under."""
+    outputs).  ``DTensor`` parameters make it the rank's program on their
+    mesh (``train.steps``).  ``seq_len`` is prefill's cache length and
+    decode's position plus one.  ``loops``: each ``graphs.scan`` loop
+    counted as one body times its trip count (``roofline.count_flops``);
+    ``False`` traces every block.  ``live``: a ``roofline.LiveBytes`` that
+    the step runs under.  ``collectives``: a ``tp.Recorder`` that takes
+    the model axis's collectives (under ``"full"`` remat the periods'
+    forward ones twice)."""
     outs: dict = {}
     forward = None
     if kind == "train":
@@ -87,9 +94,10 @@ def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
 
         def forward():
             pgrad = tree_map(lambda p: p.detach().requires_grad_(),
-                             gather(params))
-            return T.forward(pgrad, cfg, inputs["tokens"],
-                             **batch_extras(cfg, inputs))
+                             gather(params, T.model_shards(cfg)))
+            with tp.model_axis(mesh_of(params)):
+                return T.forward(pgrad, cfg, inputs["tokens"],
+                                 **batch_extras(cfg, inputs))
     elif kind == "prefill":
         step = build_prefill_step(cfg, cache_len=seq_len)
         run = lambda: step(params, inputs)  # noqa: E731
@@ -98,10 +106,34 @@ def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
         step = build_decode_step(cfg)
         run = lambda: step(params, token, caches, seq_len - 1)  # noqa: E731
 
-    flops, by_op = count_flops(lambda: outs.update(out=run()), loops=loops,
-                               live=live)
-    re = remat_flops(cfg, forward, loops=loops) if forward else 0.0
+    with tp.recording(collectives):
+        flops, by_op = count_flops(lambda: outs.update(out=run()),
+                                   loops=loops, live=live)
+    re = remat_flops(cfg, forward, loops=loops,
+                     collectives=collectives) if forward else 0.0
     return {"total": flops + re, "remat": re, **by_op}, outs["out"]
+
+
+def _rank_inputs(cfg, kind: str, inputs, shardings):
+    """Rank 0's shard of each meta input (``specs.input_specs``'
+    structure) under ``shardings`` (``specs.input_shardings``'): the batch
+    over the data axes where it divides, the attention caches' kv heads on
+    ``model`` where they divide, their sequence over the data axes for a
+    batch of one.  The caches of the Mamba and xLSTM layers stay whole on
+    ``model``, as those layers run whole on every model rank."""
+    def local(t, sh, model=True):
+        shape = list(t.shape)
+        for d, e in enumerate(sh.spec):
+            if e is not None and (model or e != "model"):
+                shape[d] //= axis_size(sh.mesh, e)
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    if kind != "decode":
+        return tree_map(local, inputs, shardings)
+    (token, caches, index), (tsh, csh, _) = inputs, shardings
+    return (local(token, tsh), tuple(
+        tree_map(lambda t, sh, m=spec.kind == "attn": local(t, sh, m), c, s)
+        for spec, c, s in zip(cfg.period, caches, csh)), index)
 
 
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
@@ -121,11 +153,14 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
     ``alias_bytes_per_device`` the arguments it writes in place and
     returns (``roofline.alias_bytes``: a train step's parameters, moments
     and count, decode's caches; prefill none) and ``temp_bytes_per_device``
-    the traced step's peak live bytes above its arguments
-    (``roofline.LiveBytes``) over ``n_chips``: an estimate of the eager,
-    un-rematerialised program, high where the reference rematerialises
-    and low in a train step's counted loops (``launch.roofline`` names
-    both biases).
+    rank 0's traced step's peak live bytes above its arguments
+    (``roofline.LiveBytes``): an estimate of the eager, un-rematerialised
+    program, high where the reference rematerialises and low in a train
+    step's counted loops (``launch.roofline`` names both biases).  The
+    argument and output bytes come from the placements of the whole
+    tensors; flops and temp bytes from rank 0's trace
+    (``hlo_flops_per_device``), collectives from the placements (FSDP) and
+    the trace (the model axis; ``launch.roofline``).
     """
     cfg = shape_config(ARCHS[arch], shape_name)
     if extra_overrides:
@@ -148,21 +183,28 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
         params, opt = place_train_state(params, opt, psh)
         args = held_bytes(params) + held_bytes(opt)
     else:
-        args = held_bytes(params, psh)
-    args += held_bytes(inputs, in_sh)
+        params = place_params(params, psh)
+        args = held_bytes(params)
+    # rank 0's inputs, each with the bytes its placement holds
+    local = _rank_inputs(cfg, kind, inputs, in_sh)
+    args += [(t, n) for t, (_, n) in zip(tree_leaves(local), held_bytes(
+        inputs, in_sh))]
     live = LiveBytes(known=[t for t, _ in args])
+    rec = tp.Recorder()
 
     t0 = time.perf_counter()
-    counts, out = trace_step(cfg, kind, params, inputs, S, opt=opt,
-                             grad_specs=psh, live=live)
+    counts, out = trace_step(cfg, kind, params, local, S, opt=opt,
+                             grad_specs=psh, live=live, collectives=rec)
     t_lower = time.perf_counter() - t0
     flops = counts.pop("total")
 
     if kind == "train":
         out_bytes = sum(n for _, n in held_bytes(out))
-    else:
+    else:   # the whole outputs' structure under their placements
+        whole = (torch.empty((B, 1, cfg.vocab), device="meta"),
+                 cache_struct(cfg, B, S))
         out_bytes = sum(n for _, n in held_bytes(
-            out, output_shardings(cfg, shape_name, mesh)))
+            whole, output_shardings(cfg, shape_name, mesh)))
 
     if hotspots:
         print("--- top operators by flops (FlopCounterMode) ---")
@@ -180,8 +222,11 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
         passes = 3 if cfg.remat_policy == "full" else 2
     coll = collective_bytes(params, psh, axes, passes=passes,
                             reduce_scatter=kind == "train")
+    for k, n in rec.bytes.items():
+        coll[k] += n
+    coll["count"] += rec.count
     arg_bytes = sum(n for _, n in args)
-    rl = roofline(flops, arg_bytes + out_bytes, coll, n_chips,
+    rl = roofline(flops * n_chips, arg_bytes + out_bytes, coll, n_chips,
                   model_flops=model_flops)
 
     rec = {
@@ -194,7 +239,7 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
         "memory": {
             "argument_bytes_per_device": arg_bytes,
             "output_bytes_per_device": out_bytes,
-            "temp_bytes_per_device": live.peak // n_chips,
+            "temp_bytes_per_device": live.peak,
             "alias_bytes_per_device": alias_bytes(args, out),
         },
         "roofline": rl,

@@ -9,10 +9,12 @@ has no counterpart here.  The three terms come from:
 
 * **flops**: ``torch.utils.flop_counter.FlopCounterMode`` over the step run
   on meta tensors (shapes and dtypes, no storage), which counts the matrix
-  products (``mm``, ``bmm``) of the whole, unpartitioned program.  Per
-  device is that total over ``n_chips``: a lower bound wherever a dim falls
-  back to replication, since the partitioned program repeats the
-  replicated work on every device.  Two corrections make the count the
+  products (``mm``, ``bmm``).  The dry run traces rank 0's program: its
+  shards of the parameters, moments and inputs on the production mesh,
+  the model axis computed on shards (``sharding.tp``), so the count is a
+  device's, replicated work included wherever a dim falls back to
+  replication (qwen2-vl's 28 heads on 16 ranks), as the reference's
+  partitioned HLO counts it.  Two corrections make the count the
   reference's:
 
   - the recompute that ``cfg.remat_policy`` implies for a train step (the
@@ -42,11 +44,11 @@ has no counterpart here.  The three terms come from:
 * **bytes**: the argument bytes a device holds (each leaf's local shard
   under its placements) plus the step's output bytes.
 
-* **temp bytes** (``LiveBytes``): the peak, over the traced step, of the
-  bytes of the storages its operators create, alive at once (the
-  arguments are not counted); in a loop's run of like blocks, what one
-  block leaves alive counts once for every block of the run.  The dry run
-  divides it by ``n_chips``.  It is an estimate of the eager,
+* **temp bytes** (``LiveBytes``): the peak, over the traced step (rank
+  0's), of the bytes of the storages its operators create, alive at once
+  (the arguments are not counted); in a loop's run of like blocks, what
+  one block leaves alive counts once for every block of the run.  It is
+  an estimate of the eager,
   un-rematerialised program, neither bound on what a compiled,
   partitioned step holds, with two biases of opposite sign: it counts
   high where the reference rematerialises, since the port's step keeps
@@ -57,12 +59,19 @@ has no counterpart here.  The three terms come from:
   blocks' backward temporaries are seen once a run (0.86-0.95 of the
   whole trace's peak; ``tests/test_torch_dryrun_terms.py``).
 
-* **collectives**: what the placements imply: one all-gather of each
-  FSDP-sharded parameter in the forward pass, one in the backward pass and,
-  under ``"full"`` remat, one in the recompute; one reduce-scatter of its
-  gradient.  Activation collectives on the ``model`` axis (the tensor
-  parallel all-reduces, MoE all-to-alls) are not counted: without a
-  partitioner nothing says where they fall.
+* **collectives**: the FSDP terms that the placements imply
+  (``collective_bytes``: one all-gather of each FSDP-sharded parameter in
+  the forward pass, one in the backward pass and, under ``"full"`` remat,
+  one in the recompute; one reduce-scatter of its gradient), plus what
+  rank 0's trace runs on the model axis (``sharding.tp.Recorder``): the
+  activation all-reduces of attention, the MLP, the experts, the
+  vocabulary-parallel embedding, logits and loss, the serve steps'
+  all-gather of the last logits, the gather over ``model`` of the leaves
+  computed whole (Mamba, xLSTM), and under ``"full"`` remat the
+  periods' forward all-reduces once more, as the recompute repeats them.
+  The decode steps' context-parallel caches (batch 1: the sequence over
+  the data axes) are traced as rank 0's slice of positions; the softmax
+  combine over the data axes that they would need is not counted.
 
 Constants are the H100 SXM5's (``H100``).
 """
@@ -80,6 +89,7 @@ from torch.utils.flop_counter import FlopCounterMode, bmm_flop, mm_flop
 
 from repro_torch import graphs
 from repro_torch.models import transformer as T
+from repro_torch.sharding import tp
 
 __all__ = ["H100", "COLLECTIVES", "count_flops", "remat_flops", "LiveBytes",
            "held_bytes", "alias_bytes", "collective_bytes", "roofline"]
@@ -117,7 +127,7 @@ def count_flops(fn: Callable, *, loops: bool = True,
 
     def hook(run, times, alone):
         with live.repeated(times) if live else contextlib.nullcontext() \
-                as once:
+                as once, tp.scaled(times if alone is None else 1):
             # no backward: the block in its place counts for all
             out = scaled(run, times - 1 if alone is None else 0)
             if once is not None:      # the carry: the next block takes it
@@ -125,7 +135,8 @@ def count_flops(fn: Callable, *, loops: bool = True,
         if times > 1 and alone is not None:
             # the block in its place counts once, forward and (later)
             # backward; a copy by itself makes up the rest
-            with live.paused() if live else contextlib.nullcontext():
+            with live.paused() if live else contextlib.nullcontext(), \
+                    tp.scaled(times - 1):
                 scaled(alone, times - 2)
         return out
 
@@ -246,7 +257,7 @@ clone contiguous _to_copy copy_ detach alias sum mean constant_pad_nd flip
 index gather embedding where masked_fill masked_fill_ zeros_like ones_like
 empty_like new_zeros new_ones fill_ tril triu cumsum lift_fresh
 scalar_tensor index_put index_put_ scatter scatter_add select_backward
-slice_backward
+slice_backward all_reduce wait_tensor
 """.split())
 # bilinear operators: an input is needed when another input needs a grad
 _BILINEAR = frozenset(("mul", "mm", "bmm", "dot", "matmul"))
@@ -276,11 +287,12 @@ class _Tape(TorchDispatchMode):
         return out
 
     def repeat(self, run, times, alone):
-        """``graphs.counting``'s hook: the block's products count
-        ``times`` times."""
+        """``graphs.counting``'s hook: the block's products (and
+        collectives) count ``times`` times."""
         was, self.times = self.times, times
         try:
-            return run()
+            with tp.scaled(times):
+                return run()
         finally:
             self.times = was
 
@@ -309,17 +321,18 @@ def _product(name: str, ins: list):
 
 
 @contextlib.contextmanager
-def _periods_taped(cfg, tape: _Tape):
+def _periods_taped(cfg, tape: _Tape, rec: "tp.Recorder | None" = None):
     """Record the blocks of every scanned period (the decoder's periods and
     the encoder's layers); the carry leaving each period is collected in
-    ``tape.carries``."""
+    ``tape.carries``, and the blocks' collectives go to ``rec``."""
     block, encode = T._block_full, T._encode
     state = {"enc": False, "calls": 0}
 
     def taped_block(*args, **kwargs):
         tape.on = True
         try:
-            out = block(*args, **kwargs)
+            with tp.recording(rec):
+                out = block(*args, **kwargs)
         finally:
             tape.on = False
         state["calls"] += 1
@@ -345,11 +358,13 @@ def _periods_taped(cfg, tape: _Tape):
 
 
 def remat_flops(cfg, forward: Callable[[], object], *,
-                loops: bool = True) -> float:
+                loops: bool = True,
+                collectives: "tp.Recorder | None" = None) -> float:
     """The products ``cfg.remat_policy`` recomputes in the backward pass of
     a train step whose forward pass is ``forward()`` (run here with the
     parameters requiring grad, under plain autograd).  ``loops`` as
-    ``count_flops``'."""
+    ``count_flops``'.  ``collectives``: under ``"full"``, the periods'
+    forward collectives, which the recompute repeats, are added to it."""
     policy = cfg.remat_policy
     if policy == "none":
         return 0.0
@@ -358,7 +373,8 @@ def remat_flops(cfg, forward: Callable[[], object], *,
     tape = _Tape()
     with contextlib.ExitStack() as stack:
         stack.enter_context(tape)
-        stack.enter_context(_periods_taped(cfg, tape))
+        stack.enter_context(_periods_taped(
+            cfg, tape, collectives if policy == "full" else None))
         if loops:
             stack.enter_context(graphs.counting(tape.repeat))
         forward()
@@ -464,9 +480,11 @@ def collective_bytes(params, shardings, axes, *, passes: int,
 def roofline(flops: float, nbytes: float, coll: dict, n_chips: int,
              model_flops: float | None = None) -> dict:
     """Three roofline terms (seconds) on the H100 and the bottleneck, with
-    the reference's record keys.  ``flops`` is the global program's (per
-    device: over ``n_chips``), ``nbytes`` a device's argument and output
-    bytes, ``coll`` ``collective_bytes``' dict."""
+    the reference's record keys.  ``flops`` is the devices' total (a
+    device's over ``n_chips``; the dry run passes rank 0's times
+    ``n_chips``, as the reference's ``useful_ratio`` reads its total),
+    ``nbytes`` a device's argument and output bytes, ``coll`` a device's
+    collective bytes by kind and their ``count``."""
     per_dev = flops / n_chips
     cbytes = float(sum(coll.get(k, 0.0) for k in COLLECTIVES))
     terms = {

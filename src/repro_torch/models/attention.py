@@ -20,6 +20,12 @@ depends on it (the rotary angles, the ring slot, the slots' positions) is
 computed on the device from it, and the new key and value are written at
 the slot by ``index_copy_``, so nothing is read back to the host and a
 captured step reads its position from a device buffer.
+
+On a ``model`` axis (``sharding.tp``) a layer whose ``wq`` holds fewer
+heads than ``cfg.n_heads`` runs on the rank's query heads (``local_kv``)
+and returns its partial output projection, which the caller sums over the
+model group; the mask, the KV chunk loop and ``decode_attend`` run
+unchanged on the local heads.
 """
 from __future__ import annotations
 
@@ -30,10 +36,12 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import resolve_device
+from repro_torch.sharding import tp
 
 from .common import pdef, softcap
 
-__all__ = ["attn_defs", "qkv_proj", "out_proj", "attention", "init_kv_cache",
+__all__ = ["attn_defs", "qkv_proj", "out_proj", "kv_heads", "local_kv",
+           "local_cache", "attention", "init_kv_cache",
            "ring_slot_positions", "decode_attend", "AttnCache"]
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
@@ -61,6 +69,44 @@ def qkv_proj(p, x, pre: str = ""):
 
 def out_proj(p, o, pre: str = ""):
     return torch.einsum("bshk,hkd->bsd", o, p[pre + "wo"])
+
+
+def kv_heads(p, cfg, pre: str = ""):
+    """The kv heads ``(k0, k1)`` that the rank's query heads read where
+    ``p``'s query heads are the rank's model shard and its kv heads whole
+    (a ``cfg.n_kv`` that the model axis does not divide, so the kv weights
+    fall back to replication); else ``None``."""
+    hl, K = p[pre + "wq"].shape[1], p[pre + "wk"].shape[1]
+    if hl == cfg.n_heads or K < cfg.n_kv:
+        return None
+    G = cfg.n_heads // cfg.n_kv
+    h0 = tp.rank() * hl
+    k0, k1 = h0 // G, (h0 + hl - 1) // G + 1
+    if k1 - k0 > 1 and hl % G:
+        raise ValueError(f"{hl} query heads a rank straddle groups of {G} "
+                         f"kv heads ({cfg.n_heads} heads, {cfg.n_kv} kv)")
+    return k0, k1
+
+
+def local_kv(p, cfg, pre: str = ""):
+    """(``p``, ``kv_heads(p, cfg, pre)``), ``p``'s kv projections cut to
+    those heads where there are some, after ``tp.copy_to``: each rank's
+    gradient of the whole kv weights covers its heads only."""
+    kv = kv_heads(p, cfg, pre)
+    if kv is None:
+        return p, None
+    cut = lambda w: tp.copy_to(w)[:, kv[0]:kv[1]]  # noqa: E731
+    return {**p, pre + "wk": cut(p[pre + "wk"]),
+            pre + "wv": cut(p[pre + "wv"])}, kv
+
+
+def local_cache(cache, kv, cfg):
+    """``cache`` cut to the kv heads ``kv`` (``kv_heads``) where it holds
+    every kv head (a cache placed replicated on ``model``); a view, so the
+    rank writes and reads its heads in place."""
+    if kv is None or cache.k.shape[2] != cfg.n_kv:
+        return cache
+    return AttnCache(cache.k[:, :, kv[0]:kv[1]], cache.v[:, :, kv[0]:kv[1]])
 
 
 def _mask(qpos, kpos, kvalid, causal: bool, window: Optional[int]):
@@ -241,17 +287,22 @@ def decode_attend(p, x, cache: AttnCache, index, *, cfg, window, cap,
     rope_fn(q_or_k, pos) applies rotary for this arch (identity for
     non-rope archs).  The new key and value are written INTO ``cache`` (no
     cache is copied per token); the returned ``AttnCache`` holds the same
-    tensors.
+    tensors.  On a model shard of the heads (``local_kv``) the output is
+    the rank's partial projection and the cache holds the rank's kv heads,
+    or every kv head where they fall back to replication (the rank writes
+    and reads its own).
     """
+    p, kv = local_kv(p, cfg, pre)
     q, k_new, v_new = qkv_proj(p, x, pre)
     pos = position(index, x.device)
     q = rope_fn(q, pos)
     k_new = rope_fn(k_new, pos)
-    C = cache.k.shape[1]
+    ck, cv = local_cache(cache, kv, cfg)
+    C = ck.shape[1]
     slot = torch.remainder(pos, C).long()
-    cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
+    ck.index_copy_(1, slot, k_new.to(ck.dtype))
+    cv.index_copy_(1, slot, v_new.to(cv.dtype))
     kpos, kvalid = ring_slot_positions(C, pos + 1)
-    o = attention(q, cache.k, cache.v, causal=True, window=window, cap=cap,
+    o = attention(q, ck, cv, causal=True, window=window, cap=cap,
                   qpos=pos, kpos=kpos, kvalid=kvalid, chunk=cfg.attn_chunk)
     return out_proj(p, o, pre), cache

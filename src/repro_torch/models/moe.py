@@ -12,10 +12,21 @@ vmaps it once more over the workers.  Counting uses a compare-and-sum (no
 
 Aux losses: Switch-style load-balance + router z-loss, returned for logging
 and added to the training objective with cfg.router_aux_weight.
+
+On a ``model`` axis (``sharding.tp``) whose rank holds a shard of the
+experts (``moe_wi`` holds fewer than ``cfg.n_experts``) the batch is the
+same on every rank of the model group, so routing, the capacity ranks,
+the dispatch buffer and the aux losses stay replicated; each rank runs
+its experts on its slice of the buffer, combines their contributions into
+a partial (B, S, d) and all-reduces it.  The tokens entering the dispatch
+and the combine weights pass ``tp.copy_to``: a rank's gradient of them
+covers its experts' slots only.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.sharding import tp
 
 from .common import act_fn, pdef
 
@@ -93,23 +104,35 @@ def moe_apply(p, x, cfg):
     t_sorted = flat_tok[order]                             # token of a slot
     w_sorted = torch.gather(top_w.to(x.dtype).reshape(B, -1), -1, order)
     rows = torch.arange(B, device=dev)[:, None].expand_as(order)
+    El = p["moe_wi"].shape[0]          # the rank's experts [e0, e0 + El)
+    sharded = El < E
+    if sharded:
+        x, w_sorted = tp.copy_to(x), tp.copy_to(w_sorted)
 
     # dispatch: the kept (expert, rank) pairs are unique; a dropped
     # assignment adds zero at its expert's rank 0, as the reference's does
     xs = torch.where(keep[..., None], x[rows, t_sorted], 0.0)
     buf = torch.zeros((B, E, C, d), dtype=x.dtype, device=dev).index_put(
         (rows, e_sorted, rank_c), xs, accumulate=True)     # (B, E, C, d)
+    e_local, mine = e_sorted, keep
+    if sharded:
+        e0 = tp.rank() * El
+        buf = buf[:, e0:e0 + El]
+        e_local = (e_sorted - e0).clamp(0, El - 1)
+        mine = keep & (e_sorted >= e0) & (e_sorted < e0 + El)
 
     act = act_fn(cfg.act)
     h = act(torch.einsum("becd,edf->becf", buf, p["moe_wg"])) * torch.einsum(
         "becd,edf->becf", buf, p["moe_wi"])
-    y = torch.einsum("becf,efd->becd", h, p["moe_wo"])    # (B, E, C, d)
+    y = torch.einsum("becf,efd->becd", h, p["moe_wo"])    # (B, El, C, d)
 
     # combine: k contributions a token, added in sorted-slot order
-    gathered = y[rows, e_sorted, rank_c]                   # (B, S*k, d)
-    gathered = torch.where(keep[..., None], gathered, 0.0) * w_sorted[..., None]
+    gathered = y[rows, e_local, rank_c]                    # (B, S*k, d)
+    gathered = torch.where(mine[..., None], gathered, 0.0) * w_sorted[..., None]
     out = torch.zeros((B, S, d), dtype=y.dtype, device=dev).index_put(
         (rows, t_sorted), gathered, accumulate=True)
+    if sharded:
+        out = tp.reduce_from(out)
     return out, {"load_balance": aux_lb, "router_z": z_loss}
 
 

@@ -18,8 +18,17 @@ reference's scan layout, so a cache tree also converts one array at a time.
 cache is copied per token); ``init_caches`` materializes every period's
 own zeros.  ``remat_policy`` only trades memory for recomputation in the
 reference, and the ``seq_parallel_*`` sharding constraints only place data
-on a mesh: neither changes a value, and the port, on one device, ignores
-both.
+on a mesh: neither changes a value, and the port ignores both.
+
+On a ``model`` axis (``sharding.tp``) the leaves ``model_shards`` names
+come in as the rank's model shard: attention runs on the rank's heads,
+the MLP on its ff columns, the MoE layer on its experts and the tied
+embedding on its vocabulary rows, each meeting the other ranks through
+``tp.copy_to`` / ``tp.reduce_from``.  ``forward`` then returns the rank's
+vocabulary shard of the logits and ``lm_loss(..., vocab=)`` is the
+vocabulary-parallel cross entropy; ``prefill`` and ``decode_step`` gather
+the last position's logits whole.  Given whole leaves, every function is
+the one-device program.
 """
 from __future__ import annotations
 
@@ -32,20 +41,22 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, BlockSpec
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding import tp
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 from . import attention as attn
 from . import mamba as mb
 from . import xlstm as xl
-from .common import (Dtype, layernorm, pdef, rmsnorm, softcap, stack_defs,
-                     tree_axes, tree_init)
+from .common import (Dtype, _is_def, layernorm, pdef, rmsnorm, softcap,
+                     stack_defs, tree_axes, tree_init)
 from .mlp import mlp_apply, mlp_defs
 from .moe import moe_apply, moe_defs
 from .rope import (apply_rope, mrope_angles, rope_angles,
                    sinusoidal_positions)
 
-__all__ = ["param_defs", "init_params", "param_axes", "forward", "prefill",
-           "decode_step", "init_caches", "lm_loss", "count_params", "Model"]
+__all__ = ["param_defs", "init_params", "param_axes", "model_shards",
+           "forward", "prefill", "decode_step", "init_caches", "lm_loss",
+           "count_params", "Model"]
 
 
 # ------------------------------------------------------------ param defs ---
@@ -122,6 +133,33 @@ def param_axes(cfg: ArchConfig):
     return tree_axes(param_defs(cfg))
 
 
+# the leaves a layer computes on the rank's model shard: the attention
+# blocks' projections (self and cross), the dense MLP's and the experts'
+# weights, and the tied embedding
+_ATTN_SHARDS = frozenset(pre + w for pre in ("", "c")
+                         for w in ("wq", "wk", "wv", "wo"))
+_MLP_SHARDS = frozenset(("ffn_wi", "ffn_wg", "ffn_wo", "moe_wi", "moe_wg",
+                         "moe_wo"))
+
+
+def model_shards(cfg: ArchConfig):
+    """A tree of bools like the parameters': True for a leaf that its layer
+    computes on the rank's model shard (``sharding.tp``), False for one it
+    computes whole on every rank of a model group (the norms, the router,
+    the projector, and for now the Mamba and xLSTM layers)."""
+    kinds = {("blocks", str(i)): s.kind for i, s in enumerate(cfg.period)}
+    kinds[("encoder", "blocks")] = "attn"
+
+    def walk(d, path):
+        if _is_def(d):
+            kind, k = kinds.get(path[:-1]), path[-1]
+            return path == ("embed",) or kind is not None and (
+                k in _MLP_SHARDS or kind == "attn" and k in _ATTN_SHARDS)
+        return {k: walk(v, path + (k,)) for k, v in d.items()}
+
+    return walk(param_defs(cfg), ())
+
+
 # ------------------------------------------------------------- rope ctx ----
 
 def _rope_ctx(cfg: ArchConfig, positions, mrope_positions):
@@ -146,10 +184,18 @@ def _make_rope_fn(ctx):
 
 def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
                cache_len=None):
-    """Full-sequence attention sublayer. Returns (delta, cache|None)."""
+    """Full-sequence attention sublayer. Returns (delta, cache|None).
+
+    On a model shard of the heads the queries, keys and values are the
+    rank's (column-parallel: every input of a projection through
+    ``tp.copy_to``), and the self and cross output projections' partial
+    sum is all-reduced once (row-parallel)."""
     S = x.shape[1]
     dev = x.device
-    q, k, v = attn.qkv_proj(bp, x)
+    sharded = bp["wq"].shape[1] < cfg.n_heads
+    into = tp.copy_to if sharded else (lambda t: t)
+    bp, _ = attn.local_kv(bp, cfg)
+    q, k, v = attn.qkv_proj(bp, into(x))
     rope_fn = _make_rope_fn(rope_ctx)
     q, k = rope_fn(q), rope_fn(k)
     pos = torch.arange(S, dtype=torch.int32, device=dev)
@@ -177,15 +223,15 @@ def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
         cache = attn.AttnCache(k, v)
     if spec.cross_attn:
         xc = _apply_norm(cfg, bp, "normc", x)
+        bp, _ = attn.local_kv(bp, cfg, "c")
         # only the query comes from the decoder stream (the reference's
         # compiled program drops the keys and values its qkv_proj makes
         # here; computing them would be work it does not do)
-        qc = torch.einsum("bsd,dhk->bshk", xc, bp["cwq"])
+        qc = torch.einsum("bsd,dhk->bshk", into(xc), bp["cwq"])
         Fr = enc_out.shape[1]
-        ck = torch.einsum("bfd,dhk->bfhk", enc_out, _promoted(bp["cwk"],
-                                                              enc_out))
-        cv = torch.einsum("bfd,dhk->bfhk", enc_out, _promoted(bp["cwv"],
-                                                              enc_out))
+        enc = into(enc_out)
+        ck = torch.einsum("bfd,dhk->bfhk", enc, _promoted(bp["cwk"], enc))
+        cv = torch.einsum("bfd,dhk->bfhk", enc, _promoted(bp["cwv"], enc))
         oc = attn.attention(
             qc, ck, cv, causal=False, window=None, cap=None, qpos=pos,
             kpos=torch.arange(Fr, dtype=torch.int32, device=dev),
@@ -194,6 +240,8 @@ def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
         delta = delta + attn.out_proj(bp, oc, pre="c")
         if want_cache:
             cache = (cache, attn.AttnCache(ck, cv))
+    if sharded:
+        delta = tp.reduce_from(delta)
     return delta, cache
 
 
@@ -247,9 +295,11 @@ def _block_decode(bp, spec: BlockSpec, x, cfg, cache, index, rope_decode):
         if spec.cross_attn:
             xc = _apply_norm(cfg, bp, "normc", x)
             qc = torch.einsum("bsd,dhk->bshk", xc, bp["cwq"])
-            Fr = cross_cache.k.shape[1]
+            ck, cv = attn.local_cache(cross_cache,
+                                      attn.kv_heads(bp, cfg, "c"), cfg)
+            Fr = ck.shape[1]
             oc = attn.attention(
-                qc, cross_cache.k, cross_cache.v, causal=False, window=None,
+                qc, ck, cv, causal=False, window=None,
                 cap=None, qpos=torch.zeros((1,), dtype=torch.int32,
                                            device=x.device),
                 kpos=torch.arange(Fr, dtype=torch.int32, device=x.device),
@@ -259,6 +309,8 @@ def _block_decode(bp, spec: BlockSpec, x, cfg, cache, index, rope_decode):
             new_cache = (new_self, cross_cache)
         else:
             new_cache = new_self
+        if bp["wq"].shape[1] < cfg.n_heads:
+            delta = tp.reduce_from(delta)
     else:
         step = {"mamba": mb.mamba_decode, "mlstm": xl.mlstm_decode,
                 "slstm": xl.slstm_decode}[spec.kind]
@@ -328,7 +380,17 @@ def _embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds,
     dt = Dtype.of(cfg.dtype)
     # F.embedding's backward sums each row's gradient in a fixed order on
     # the card (sorted indices), where indexing's accumulates with atomics
-    x = F.embedding(tokens.long(), params["embed"]).to(dt)
+    table = params["embed"]
+    if table.shape[0] < cfg.vocab:
+        # the rank's vocabulary rows: tokens outside them look up zeros,
+        # and the sum over the model group has one nonzero term a token
+        t = tokens.long() - tp.rank() * table.shape[0]
+        own = ((t >= 0) & (t < table.shape[0]))[..., None]
+        x = torch.where(own, F.embedding(torch.where(own[..., 0], t, 0),
+                                         table), 0).to(dt)
+        x = tp.reduce_from(x)
+    else:
+        x = F.embedding(tokens.long(), table).to(dt)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.n_patches and patch_embeds is not None:
@@ -343,10 +405,22 @@ def _embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds,
 
 
 def _logits(params, cfg: ArchConfig, x):
+    """Logits float32, the rank's vocabulary shard on a model shard of the
+    tied embedding."""
     x = _apply_norm(cfg, params, "final_norm", x)
+    w = params["embed"]
+    if w.shape[0] < cfg.vocab:
+        x = tp.copy_to(x)
     # float32 products and sums, as the reference's preferred_element_type
-    logits = torch.matmul(x.float(), params["embed"].float().t())
+    logits = torch.matmul(x.float(), w.float().t())
     return softcap(logits, cfg.final_softcap)
+
+
+def _whole(cfg: ArchConfig, logits):
+    """``logits`` over the whole vocabulary: a shard's all-gathered."""
+    if logits.shape[-1] < cfg.vocab:
+        return tp.all_gather(logits, -1)
+    return logits
 
 
 def _prelude(params, cfg, tokens, patch_embeds, mrope_positions,
@@ -364,7 +438,8 @@ def _prelude(params, cfg, tokens, patch_embeds, mrope_positions,
 
 def forward(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
             mrope_positions=None, enc_embeds=None):
-    """Full-sequence forward -> (logits (B, S, V) float32, aux dict).
+    """Full-sequence forward -> (logits (B, S, V) float32, aux dict); on a
+    model shard of the embedding the rank's vocabulary shard (B, S, V/n).
 
     ``aux`` carries the router terms (zero without MoE), summed over the
     MoE layers, so a train step adds them as the reference does."""
@@ -396,7 +471,7 @@ def prefill(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
                                       cache_len=cache_len)
             caches.append(cache)
         per_period.append(tuple(caches))
-    logits = _logits(params, cfg, x[:, -1:])
+    logits = _whole(cfg, _logits(params, cfg, x[:, -1:]))
     return logits, _stack(per_period)
 
 
@@ -443,7 +518,7 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, *,
             x, new = _block_decode(bp, spec, x, cfg, cache, pos,
                                    rope_decode)
             _write_back(cache, new)
-    return _logits(params, cfg, x), caches
+    return _whole(cfg, _logits(params, cfg, x)), caches
 
 
 def init_caches(cfg: ArchConfig, B: int, cache_len: int, *, device=None):
@@ -500,13 +575,34 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> float:
 
 # ------------------------------------------------------------------ loss ---
 
-def lm_loss(logits, labels, weights=None):
-    """Weighted next-token cross entropy. logits: (B,S,V) f32; labels (B,S)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+def lm_loss(logits, labels, weights=None, *, vocab=None):
+    """Weighted next-token cross entropy. logits: (B,S,V) f32; labels (B,S).
+
+    ``vocab``: the whole vocabulary; logits narrower than it are the rank's
+    vocabulary shard (``forward`` on a model axis), and the loss is the
+    vocabulary-parallel cross entropy: the max, the sum of exponentials and
+    the target's logit each reduced over the model group, in float32."""
+    if vocab is not None and logits.shape[-1] < vocab:
+        ll = _vocab_parallel_ll(logits, labels)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if weights is None:
         weights = torch.ones_like(ll)
     return -(ll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def _vocab_parallel_ll(logits, labels):
+    """log p(label) from the rank's vocabulary shard of the logits."""
+    V = logits.shape[-1]
+    m = tp.all_reduce_max(logits.amax(dim=-1))            # no gradient
+    z = logits - m[..., None]
+    denom = tp.reduce_from(torch.exp(z).sum(dim=-1))
+    t = labels.long() - tp.rank() * V
+    own = (t >= 0) & (t < V)
+    tgt = torch.gather(z, -1, torch.where(own, t, 0)[..., None])[..., 0]
+    tgt = tp.reduce_from(torch.where(own, tgt, 0.0))
+    return tgt - torch.log(denom)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -52,24 +52,27 @@ def _local(x):
 
 @torch.no_grad()
 def global_norm(tree) -> torch.Tensor:
-    """The 2-norm of every leaf together.  Over ``DTensor`` leaves it is
-    the whole tensor's over the mesh: each local sum of squares is divided
-    by the number of ranks that hold the same shard (a leaf replicated on
-    a mesh axis of n ranks is summed once, not n times) and one all-reduce
-    adds the ranks' sums."""
+    """The 2-norm of every leaf together, float32.  The squares are summed
+    in float64 (each leaf's in one reduction, which reads the leaf as it
+    is), so the same gradient summed in another order (over a mesh's
+    shards, a model axis's partial products) comes out within one float32
+    rounding.  Over ``DTensor`` leaves it is the whole tensor's over the
+    mesh: each local sum of squares is divided by the number of ranks that
+    hold the same shard (a leaf replicated on a mesh axis of n ranks is
+    summed once, not n times) and one all-reduce adds the ranks' sums."""
     total, mesh = 0, None
     for x in tree_leaves(tree):
         x, rep, m = _local(x)
         mesh = mesh or m
-        x = x.float().reshape(-1)
-        sq = torch.dot(x, x)
+        sq = torch.linalg.vector_norm(x.reshape(-1),
+                                      dtype=torch.float64) ** 2
         total = total + (sq / rep if rep > 1 else sq)
     if mesh is not None:
         from torch.distributed.tensor import DTensor, Partial
 
         total = DTensor.from_local(total, mesh, [Partial("sum")] * mesh.ndim,
                                    run_check=False).full_tensor()
-    return torch.sqrt(total)
+    return torch.sqrt(total).float()
 
 
 def _like(x, local):

@@ -1,0 +1,207 @@
+"""The ``model`` axis computed on shards, Megatron style: the port's
+counterpart of the reference's GSPMD program, where ``logical_rules`` puts
+``heads``, ``kv``, ``ff``, ``vocab`` and ``expert`` on ``model`` and the
+partitioner inserts the activation collectives between the shards.
+
+A layer whose weights come in as the rank's model shard (it sees fewer
+heads, ff columns, vocabulary rows or experts than its config names)
+computes on that shard and meets the other ranks of its model group
+through two autograd functions:
+
+* ``copy_to``: identity forward, all-reduce of the gradient backward (the
+  input of a column-parallel product, each rank's gradient a partial
+  sum);
+* ``reduce_from``: all-reduce forward, identity backward (the output of a
+  row-parallel product, each rank's a partial sum).
+
+Both are ``torch.autograd.Function``s with a ``setup_context``, which
+``torch.func.grad`` (the train step's) takes.  The collectives inside are
+``torch.distributed._functional_collectives``' (``all_reduce``, then
+``wait_tensor``), which run on NCCL and gloo groups and, on meta tensors,
+on the dry run's fake group.
+
+``model_axis(mesh)`` makes the ``model`` sub-group of ``mesh`` the current
+one for its duration (the train, prefill and decode steps enter it when
+given shards); no mesh, or a ``model`` dim of one rank, means no model
+axis, and a layer given whole weights calls none of this.  A layer given
+a shard with no model axis set raises.
+
+Every collective passes ``Recorder``s that the dry run enters
+(``recording``): kind, output bytes and calls, each scaled by the blocks a
+counted loop's block stands for (``scaled``, entered by the counters'
+``graphs.counting`` hooks).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+__all__ = ["model_axis", "size", "rank", "copy_to", "reduce_from",
+           "all_reduce_max", "all_gather", "Recorder", "recording",
+           "record", "scaled"]
+
+# (group, size, rank) of the current model axis, or None
+_AXIS = None
+
+
+@contextlib.contextmanager
+def model_axis(mesh):
+    """Within, the ``model`` dim of ``mesh`` (a ``DeviceMesh``) is the
+    current model axis; ``None``, a mesh without a ``model`` dim or one
+    where it spans one rank: no model axis."""
+    global _AXIS
+    axis = None
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if "model" in names and mesh.size(names.index("model")) > 1:
+        axis = (mesh.get_group("model"), mesh.size(names.index("model")),
+                mesh.get_local_rank("model"))
+    was, _AXIS = _AXIS, axis
+    try:
+        yield
+    finally:
+        _AXIS = was
+
+
+def size() -> int:
+    """The ranks of the current model axis (1 without one)."""
+    return _AXIS[1] if _AXIS else 1
+
+
+def rank() -> int:
+    """This rank's index on the current model axis (0 without one)."""
+    return _AXIS[2] if _AXIS else 0
+
+
+def _group():
+    if _AXIS is None:
+        raise RuntimeError("a layer was given a model shard of its weights "
+                           "but no model axis is set (tp.model_axis)")
+    return _AXIS[0]
+
+
+@torch.no_grad()
+def _all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    """The collective outside autograd (its own autograd kernel is an
+    old-style Function, which ``torch.func.grad`` refuses in a backward)."""
+    import torch.distributed._functional_collectives as funcol
+
+    out = funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op, _group()))
+    record("all-reduce", out)
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(x):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum")
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(x):
+        return _all_reduce(x, "sum")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def copy_to(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (the same on every rank of the model group) entering a
+    computation on the rank's shard: identity forward, the gradient
+    all-reduced over the group backward."""
+    _group()
+    return _CopyTo.apply(x)
+
+
+def reduce_from(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of each rank's partial ``x``:
+    all-reduce forward, identity backward."""
+    return _ReduceFrom.apply(x)
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model group, outside
+    autograd (the vocabulary-parallel loss's shift)."""
+    return _all_reduce(x, "max")
+
+
+@torch.no_grad()
+def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (the
+    vocabulary shards' logits made whole), outside autograd."""
+    import torch.distributed._functional_collectives as funcol
+
+    # ``all_gather_single`` where this torch has it (``all_gather_tensor``,
+    # its older name, warns there)
+    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+    dim = dim % x.dim()
+    parts = funcol.wait_tensor(gather(x.contiguous(), 0, _group()))
+    out = torch.cat(parts.chunk(size(), dim=0), dim=dim)
+    record("all-gather", out)
+    return out
+
+
+# -- the dry run's count ------------------------------------------------------
+
+class Recorder:
+    """Collective output bytes (by kind: ``launch.roofline.COLLECTIVES``'
+    names) and calls of the collectives run while it is entered."""
+
+    def __init__(self):
+        self.bytes: dict = {}
+        self.count = 0
+
+    def add(self, kind: str, nbytes: float, times: int) -> None:
+        self.bytes[kind] = self.bytes.get(kind, 0.0) + nbytes * times
+        self.count += times
+
+
+_RECORDERS: list = []
+_TIMES = [1]
+
+
+@contextlib.contextmanager
+def recording(rec: Recorder | None):
+    """Within, every collective adds itself to ``rec`` (``None``: no
+    recorder)."""
+    if rec is None:
+        yield
+        return
+    _RECORDERS.append(rec)
+    try:
+        yield
+    finally:
+        _RECORDERS.remove(rec)
+
+
+@contextlib.contextmanager
+def scaled(times: int):
+    """Within, a collective counts ``times`` times (a counted loop's block
+    standing for ``times`` blocks)."""
+    _TIMES.append(_TIMES[-1] * times)
+    try:
+        yield
+    finally:
+        _TIMES.pop()
+
+
+def record(kind: str, out: torch.Tensor) -> None:
+    """A collective of ``kind`` whose output on this rank is ``out``."""
+    if _RECORDERS and _TIMES[-1]:
+        n = out.numel() * out.element_size()
+        for rec in _RECORDERS:
+            rec.add(kind, n, _TIMES[-1])

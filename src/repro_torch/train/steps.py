@@ -10,9 +10,16 @@ the train step built with ``grad_specs`` (the partitioned program) writes
 the new parameters and AdamW state into the shards it is given, as the
 reference's ``donate_argnums=(0, 1)`` reuses the input buffers, and the
 decode step writes into the caches it is given (``models.decode_step``).
+
+Given ``DTensor`` shards, each step runs the rank's program on its mesh:
+it gathers the data (FSDP) axes, keeps each leaf that its layer computes
+on a model shard (``transformer.model_shards``) as the rank's shard, and
+runs the model with the mesh's ``model`` dim as the model axis
+(``sharding.tp``).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -22,10 +29,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import full_f32_matmul
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_update
-from repro_torch.tree import tree_map
+from repro_torch.sharding import tp
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
-           "batch_extras", "place_train_state", "gather"]
+           "batch_extras", "place_params", "place_train_state", "gather",
+           "mesh_of"]
 
 
 def batch_extras(cfg: ArchConfig, batch: dict) -> dict:
@@ -50,18 +59,40 @@ def _shard(t: torch.Tensor, sharding):
                               shape=d.shape, stride=d.stride())
 
 
-def _by_spec(tree, specs, fn, rest=lambda t: t):
+def _by_spec(tree, specs, fn, rest=lambda t: t, flags=None):
     """``fn(leaf, sharding)`` over the leaves of ``tree`` that ``specs``
     (a tree of ``NamedSharding``s or a prefix of one, as ``grad_specs``)
-    covers; ``rest(part)`` for each part it does not."""
+    covers; ``rest(part)`` for each part it does not.  ``flags``: a tree
+    like ``tree``'s, whose leaf goes to ``fn`` as a third argument."""
     from repro_torch.sharding import NamedSharding
 
     if isinstance(specs, NamedSharding):
-        return tree_map(lambda t: fn(t, specs), tree)
+        if flags is None:
+            return tree_map(lambda t: fn(t, specs), tree)
+        return tree_map(lambda t, f: fn(t, specs, f), tree, flags)
     if isinstance(specs, dict) and isinstance(tree, dict):
-        return {k: _by_spec(t, specs.get(k), fn, rest)
+        return {k: _by_spec(t, specs.get(k), fn, rest,
+                            None if flags is None else flags[k])
                 for k, t in tree.items()}
     return rest(tree)
+
+
+def mesh_of(tree):
+    """The ``DeviceMesh`` of ``tree``'s ``DTensor`` leaves, or ``None``."""
+    from torch.distributed.tensor import DTensor
+
+    for t in tree_leaves(tree):
+        if isinstance(t, DTensor):
+            return t.device_mesh
+    return None
+
+
+@torch.no_grad()
+def place_params(params, shardings):
+    """``params`` as ``DTensor``s of ``shardings``' layouts, each holding
+    this rank's shard (``place_train_state``'s parameters; the serve
+    steps take them)."""
+    return _by_spec(params, shardings, _shard)
 
 
 @torch.no_grad()
@@ -74,40 +105,71 @@ def place_train_state(params, opt_state, shardings):
     step count stays a replicated plain tensor.  Each rank passes the
     same whole trees (a seeded draw) and keeps 1/n of each sharded leaf;
     the caller drops the whole trees."""
-    return (_by_spec(params, shardings, _shard),
+    return (place_params(params, shardings),
             type(opt_state)(_by_spec(opt_state.m, shardings, _shard),
                             _by_spec(opt_state.v, shardings, _shard),
                             opt_state.count))
 
 
-def gather(tree):
-    """Every ``DTensor`` leaf of ``tree`` as the whole tensor (its
-    all-gather: the FSDP gather); plain leaves as they are."""
-    from torch.distributed.tensor import DTensor
+def gather(tree, shards=None):
+    """The tensors a rank computes on: every ``DTensor`` leaf of ``tree``
+    gathered over its mesh's data axes (the FSDP all-gather), and over
+    ``model`` too unless ``shards`` (a tree of bools like ``tree``'s,
+    ``transformer.model_shards``) says its layer computes it on the rank's
+    model shard; unset, every leaf whole.  Plain leaves as they are.  A
+    gather over ``model`` is recorded for the dry run (``tp.record``); the
+    data axes' gathers it counts from the placements."""
+    from torch.distributed.tensor import DTensor, Replicate
 
-    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
-                    else t, tree)
+    def one(t, shard=False):
+        if not isinstance(t, DTensor):
+            return t
+        mesh, names = t.device_mesh, t.device_mesh.mesh_dim_names
+        if not shard:
+            out = t.full_tensor()
+            if any(n == "model" and p.is_shard() and mesh.size(i) > 1
+                   for i, (n, p) in enumerate(zip(names, t.placements))):
+                tp.record("all-gather", out)
+            return out
+        keep = [p if n == "model" else Replicate()
+                for n, p in zip(names, t.placements)]
+        return t.redistribute(mesh, keep).to_local()
+
+    if shards is None:
+        return tree_map(one, tree)
+    return tree_map(one, tree, shards)
+
+
+def _data_size(mesh) -> int:
+    """The ranks of ``mesh``'s data axes (every dim but ``model``)."""
+    return math.prod(mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)
+                     if n != "model")
 
 
 @torch.no_grad()
-def _lay_out(g: torch.Tensor, sharding):
-    """The mean of every rank's ``g``, reduce-scattered to ``sharding``'s
-    placements (each rank's ``g`` a partial sum over the whole mesh): a
-    ``DTensor`` holding this rank's shard of it."""
-    from torch.distributed.tensor import DTensor, Partial
+def _lay_out(g: torch.Tensor, sharding, shard: bool = False):
+    """The mean over the data axes of every rank's ``g``, reduce-scattered
+    to ``sharding``'s placements: a ``DTensor`` holding this rank's shard
+    of it.  Each rank's ``g`` is a partial sum over the data axes and, on
+    ``model``, the gradient of the rank's model shard (``shard``: its layer
+    computed it there) or of the whole leaf, the same on every rank of the
+    model group."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
     mesh = sharding.mesh
-    d = DTensor.from_local(g, mesh, [Partial("sum")] * mesh.ndim,
-                           run_check=False)
+    src = [(p if shard else Replicate()) if n == "model" else Partial("sum")
+           for n, p in zip(mesh.mesh_dim_names, sharding.placements)]
+    d = DTensor.from_local(g, mesh, src, run_check=False)
     d = d.redistribute(mesh, sharding.placements)
-    return DTensor.from_local(d.to_local() / mesh.size(), mesh,
+    return DTensor.from_local(d.to_local() / _data_size(mesh), mesh,
                               sharding.placements, run_check=False,
                               shape=d.shape, stride=d.stride())
 
 
-def _constrain(grads, specs):
+def _constrain(grads, specs, shards=None):
     """``grads`` laid out to the ``NamedSharding``s of ``specs``, a tree or
-    a prefix of one (``build_train_step``'s ``grad_specs``)."""
+    a prefix of one (``build_train_step``'s ``grad_specs``); ``shards`` as
+    ``gather``'s (unset: every gradient of a whole leaf)."""
     import torch.distributed as dist
 
     def rest(part):
@@ -118,7 +180,7 @@ def _constrain(grads, specs):
                 f" rank's own, and the ranks' parameters would drift apart")
         return part
 
-    return _by_spec(grads, specs, _lay_out, rest)
+    return _by_spec(grads, specs, _lay_out, rest, shards)
 
 
 def build_train_step(cfg: ArchConfig, lr_fn: Callable,
@@ -136,20 +198,27 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
     prefix of one (a ``NamedSharding`` stands for every leaf below it),
     as ``with_sharding_constraint`` takes.  The step is then the
     partitioned program: ``params`` and the AdamW moments come in as
-    ``DTensor`` shards laid out by it (``place_train_state``), the step
-    gathers the whole parameter tree at its top (each leaf's
-    ``full_tensor()``, the FSDP all-gather), takes the gradient of the
-    gathered tree, reduce-scatters each rank's gradient to its placements
-    and divides it by the mesh's size (so every rank steps with its shard
-    of the mean of all ranks' gradients: the gradient of the batch the
-    ranks hold together where each rank's weights sum to the same), and
-    runs AdamW on the shards, writing the new parameters, moments and
-    count into the tensors given (the reference's ``donate_argnums``):
-    a rank never holds its state twice, nor the whole moments.  The
-    gradient norm is the whole gradient's (``optim.global_norm``).  On a
-    1 x 1 mesh the step equals the step without it bit for bit.  A part
-    of the tree whose spec is not a ``NamedSharding`` is left as it is on
-    a group of one rank, and raises on a larger one.
+    ``DTensor`` shards laid out by it (``place_train_state``).  The step
+    gathers the parameters over the mesh's data axes at its top (the FSDP
+    all-gather; ``gather``), so each leaf that its layer computes on a
+    model shard (``transformer.model_shards``: attention heads, MLP ff
+    columns, experts, vocabulary rows) comes out as the rank's shard on
+    ``model`` and the rest whole, and runs the forward and backward pass
+    with the mesh's ``model`` dim as the model axis (``sharding.tp``: the
+    activation all-reduces between the shards).  The batch is the rank's
+    data shard: the ranks of one model group pass the same rows.  Each
+    rank's gradient, a partial sum over the data axes, is
+    reduce-scattered to its placements and divided by the data axes' size
+    (so every rank steps with its shard of the mean of the data ranks'
+    gradients: the gradient of the batch they hold together where each
+    one's weights sum to the same), and AdamW runs on the shards, writing
+    the new parameters, moments and count into the tensors given (the
+    reference's ``donate_argnums``): a rank never holds its state twice,
+    nor the whole moments.  The gradient norm is the whole gradient's
+    (``optim.global_norm``).  On a 1 x 1 mesh the step equals the step
+    without it bit for bit.  A part of the tree whose spec is not a
+    ``NamedSharding`` is left as it is on a group of one rank, and raises
+    on a larger one.
     """
 
     def loss_fn(p, batch):
@@ -160,21 +229,24 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
         if cfg.n_patches:  # patch positions carry no next-token target
             w = torch.cat([torch.zeros_like(w[:, :cfg.n_patches]),
                            w[:, cfg.n_patches:]], dim=1)
-        loss = T.lm_loss(logits, batch["labels"], w)
+        loss = T.lm_loss(logits, batch["labels"], w, vocab=cfg.vocab)
         total = (loss
                  + cfg.router_aux_weight * aux.get("load_balance", 0.0)
                  + z_loss_weight * aux.get("router_z", 0.0))
         return total, (loss, aux)
 
     grad_fn = grad(loss_fn, has_aux=True)
+    shards = T.model_shards(cfg)
 
     @full_f32_matmul
     def step(params, opt_state, batch):
         laid = grad_specs is not None
-        grads, (loss, aux) = grad_fn(gather(params) if laid else params,
-                                     batch)
         if laid:
-            grads = _constrain(grads, grad_specs)
+            with tp.model_axis(mesh_of(params)):
+                grads, (loss, aux) = grad_fn(gather(params, shards), batch)
+            grads = _constrain(grads, grad_specs, shards)
+        else:
+            grads, (loss, aux) = grad_fn(params, batch)
         lr = lr_fn(opt_state.count)
         params, opt_state, om = adamw_update(
             grads, opt_state, params, lr=lr, weight_decay=weight_decay,
@@ -188,22 +260,30 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
 
 def build_prefill_step(cfg: ArchConfig,
                        cache_len: Optional[int] = None) -> Callable:
-    """(params, batch) -> (last-position logits, caches)."""
+    """(params, batch) -> (last-position logits, caches).  ``params`` may
+    be ``DTensor`` shards (``place_params``): the rank's program on their
+    mesh (module docstring), the logits whole, the caches the rank's."""
+    shards = T.model_shards(cfg)
 
     @torch.no_grad()
     def step(params, batch):
-        return T.prefill(params, cfg, batch["tokens"], cache_len=cache_len,
-                         **batch_extras(cfg, batch))
+        with tp.model_axis(mesh_of(params)):
+            return T.prefill(gather(params, shards), cfg, batch["tokens"],
+                             cache_len=cache_len, **batch_extras(cfg, batch))
 
     return step
 
 
 def build_decode_step(cfg: ArchConfig) -> Callable:
     """(params, token (B,1), caches, index) -> (logits, caches), ``index``
-    a Python int; the caches are written in place and returned."""
+    a Python int; the caches are written in place and returned.
+    ``params`` as ``build_prefill_step``'s, the caches then the rank's."""
+    shards = T.model_shards(cfg)
 
     @torch.no_grad()
     def step(params, token, caches, index):
-        return T.decode_step(params, cfg, token, caches, index)
+        with tp.model_axis(mesh_of(params)):
+            return T.decode_step(gather(params, shards), cfg, token, caches,
+                                 index)
 
     return step

@@ -7,16 +7,19 @@ DTensor's local shape on a ``DeviceMesh`` of a fake 512-rank process group
 against the reference ``NamedSharding.shard_shape``, and a train step with
 ``grad_specs`` on a 1 x 1 mesh (a one-rank gloo group) against the step
 without it, bit for bit.  On a 2 x 1 and a 1 x 2 mesh (two gloo
-processes, each with its own batch) the step is the partitioned program:
-each rank holds half of every leaf its layout shards (parameters and
-AdamW moments) and the same copy of every leaf replicated on the mesh's
-two ranks, and the ranks' shards put together are the one-process step's
-over both batches: parameters, moments and the gradient norm to rel 1e-5
-of each leaf's largest entry (float32 sums in another order).  On the
-1 x 2 mesh the norms and every leaf not split over ``model`` are
-replicated on both ranks, so a norm that summed them once a rank would
-be off (up to sqrt(2)); there a ``grad_specs`` that leaves a gradient
-out raises.
+processes) the step is the partitioned program: each rank holds half of
+every leaf its layout shards (parameters and AdamW moments) and the same
+copy of every leaf replicated on the mesh's two ranks, and the ranks'
+shards put together are the one-process step's: parameters, moments and
+the gradient norm to rel 1e-5 of each leaf's largest entry (float32 sums
+in another order).  On 2 x 1 each rank takes its own batch and the
+one-process step runs on both; on 1 x 2 the ranks form one model group,
+take the same batch (the batch is sharded over the data axes only) and
+compute on their model shards, and the one-process step runs on that
+batch.  On the 1 x 2 mesh the norms and every leaf not split over
+``model`` are replicated on both ranks, so a norm that summed them once a
+rank would be off (up to sqrt(2)); there a ``grad_specs`` that leaves a
+gradient out raises.
 
 The grad_specs tests come first: each makes and destroys its own group.
 The fake group is made once for the tests after them and destroyed at
@@ -185,7 +188,8 @@ def _two_rank_worker(rank, port, out, data, model):
         step = build_train_step(cfg, cosine_schedule(3e-3, 2, 10),
                                 grad_specs=sh)
         lp, lo = place_train_state(params, adamw_init(params), sh)
-        p, o, met = step(lp, lo, _rank_batch(cfg, rank))
+        # the ranks of one model group take the same rows
+        p, o, met = step(lp, lo, _rank_batch(cfg, rank // model))
         assert p is lp and o is lo
         assert all(isinstance(x, DTensor) for x in tree_leaves((p, o.m,
                                                                 o.v)))
@@ -199,7 +203,8 @@ def _two_rank_worker(rank, port, out, data, model):
         lp, lo = place_train_state(params, adamw_init(params), sh)
         with pytest.raises(ValueError, match="on a group of 2 ranks"):
             build_train_step(cfg, cosine_schedule(3e-3, 2, 10),
-                             grad_specs=part)(lp, lo, _rank_batch(cfg, rank))
+                             grad_specs=part)(lp, lo,
+                                              _rank_batch(cfg, rank // model))
     finally:
         dist.destroy_process_group()
 
@@ -208,8 +213,9 @@ def _two_rank_worker(rank, port, out, data, model):
 def test_grad_specs_on_two_ranks_step_with_the_mean_gradient(tmp_path, data,
                                                               model):
     """Each rank holds half of each sharded leaf of the parameters, ``m``
-    and ``v``; put together they are the one-rank step's over both
-    batches, and ``grad_norm`` is that step's on both ranks (module
+    and ``v``; put together they are the one-rank step's over the data
+    ranks' batches (both at 2 x 1, the one batch of the model group at
+    1 x 2), and ``grad_norm`` is that step's on both ranks (module
     docstring)."""
     import torch.multiprocessing as mp
 
@@ -238,8 +244,8 @@ def test_grad_specs_on_two_ranks_step_with_the_mean_gradient(tmp_path, data,
 
     cfg = _dense_cfg()
     params = PT.init_params(cfg, 0, device="cpu")
-    b0, b1 = _rank_batch(cfg, 0), _rank_batch(cfg, 1)
-    both = {k: torch.cat([b0[k], b1[k]]) for k in b0}
+    bs = [_rank_batch(cfg, r) for r in range(data)]
+    both = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
     p1, opt, met = build_train_step(cfg, cosine_schedule(3e-3, 2, 10))(
         params, adamw_init(params), both)
     for r in (r0, r1):
