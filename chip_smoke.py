@@ -290,11 +290,14 @@ Phases, each of which ends the run with a non-zero exit on failure:
              layer, 3 steps, the ranks of a model group on one batch) on
              the (data, model) meshes (n, 1) in float32 and bfloat16,
              (1, n) and (2, n / 2) in float32, (1, n) in bfloat16 and
-             phi3.5-moe (1 layer) at (1, n) in float32, against the
+             at (1, n) in float32 phi3.5-moe (1 layer), jamba-1.5-large
+             (its dense Mamba block) and xlstm-350m (one period: mLSTM,
+             sLSTM), against the
              one-rank step on the data groups' batches together and a
              witness, the one-rank step on the same rows in the reverse
              order (on a model axis on the model mirrored too: heads, ff,
-             vocabulary and experts reversed): ``grad_norm`` every step, the moments every step and
+             vocabulary, experts and Mamba channels reversed):
+             ``grad_norm`` every step, the moments every step and
              the parameters after step 3 within 10 times the witness's
              distance plus the dtype's eps (to each leaf's largest
              entry), at (n, 1) in float32 also ``grad_norm`` and step
@@ -302,9 +305,12 @@ Phases, each of which ends the run with a non-zero exit on failure:
              gathered moments bit for bit, each rank's parameters and
              moments 1/n of the one-rank's bytes within 1 % (at (1, n)
              within 0.001 of 1/n), held bytes, peak allocated and step
-             times (CUDA events) a rank printed per mesh; then
-             gemma2-27b (2 layers, batch 4, prompt 1024, 8 eager decode
-             steps) served over (1, n) against the one-card eager path,
+             times (CUDA events) a rank printed per mesh, each rank's
+             progress logged before every collective; then
+             gemma2-27b (2 layers, batch 4), jamba-1.5-large (attention
+             and the dense Mamba block, batch 1) and xlstm-350m (whole,
+             batch 2), prompt 1024, 8 eager decode steps, each
+             served over (1, n) against the one-card eager path,
              in float32 every logit within 1e-3 of max|logit|, in
              bfloat16 within 10 times the one-card path's own distance
              from its float32 run; on one card it
@@ -2626,46 +2632,119 @@ def _rank_batch(cfg, group: int, step: int, device):
 def _rank_cases(n: int) -> list:
     """The train meshes of ``ranks_check`` over n cards, (arch, data,
     model, float32): (n, 1) in float32 and bfloat16, then the model axis:
-    (1, n) and (2, n / 2) in float32, (1, n) in bfloat16, phi3.5-moe at
-    (1, n) in float32."""
+    (1, n) and (2, n / 2) in float32, (1, n) in bfloat16, phi3.5-moe,
+    jamba-1.5-large and xlstm-350m at (1, n) in float32 (``_rank_cfg``'s
+    cuts)."""
     cases = [("deepseek-7b", n, 1, True), ("deepseek-7b", n, 1, False),
              ("deepseek-7b", 1, n, True)]
     if n >= 4 and n % 2 == 0:
         cases.append(("deepseek-7b", 2, n // 2, True))
     return cases + [("deepseek-7b", 1, n, False),
-                    ("phi3.5-moe-42b-a6.6b", 1, n, True)]
+                    ("phi3.5-moe-42b-a6.6b", 1, n, True),
+                    ("jamba-1.5-large-398b", 1, n, True),
+                    ("xlstm-350m", 1, n, True)]
+
+
+def _rank_cfg(arch: str):
+    """(the config a train mesh of ``ranks_check`` runs for ``arch`` at
+    published width, its ``reduced:`` cut)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch.startswith("jamba"):
+        # the period's dense Mamba block: Mamba (d_inner 16384, d_state 16)
+        # and the dense MLP (d_ff 24576)
+        return (cfg.with_overrides(n_layers=1, period=cfg.period[2:3]),
+                f"{cfg.n_layers} -> 1 layer, the period's dense Mamba block "
+                f"(period[2:3]: Mamba, dense MLP)")
+    if arch == "xlstm-350m":
+        return (cfg.with_overrides(n_layers=2),
+                f"{cfg.n_layers} -> 2 layers, one period (mLSTM, sLSTM)")
+    return (cfg.with_overrides(n_layers=1),
+            f"{cfg.n_layers} -> 1 layer")
 
 
 # the logical axes the model axis splits (``sharding.logical_rules``)
-_SPLIT = ("heads", "kv", "ff", "vocab", "expert")
+_SPLIT = ("heads", "kv", "ff", "vocab", "expert", "d_inner")
 
 
-def _mirror(tree, axes, key=None):
-    """``tree`` (the parameters or a moment; ``axes`` its
-    ``param_axes``) with every dim the model axis splits reversed: the
-    heads, kv heads, ff columns, vocabulary rows and experts in the
-    reverse order, the router's expert columns with them.  The same model
-    (on tokens ``vocab - 1 - t``), every sum the model axis splits taken
-    in another order; its own inverse."""
-    if isinstance(tree, dict):
-        return {k: _mirror(t, axes[k], k) for k, t in tree.items()}
+def _heads_flip(t, dim: int, H: int):
+    """``t`` with its ``dim`` read as H blocks in a row: the blocks in the
+    reverse order, each block's own order kept."""
+    return t.unflatten(dim, (H, -1)).flip(dim).flatten(dim, dim + 1)
+
+
+def _mirror_leaf(t, axes, key: str, kind, H: int):
+    """One leaf of ``_mirror``: ``axes`` its logical axes, ``key`` its name,
+    ``kind`` its block's kind (None outside the blocks)."""
+    import torch
+
+    last = t.dim() - 1
+    if key == "router":                    # the experts' columns
+        return t.flip(last)
+    if kind == "mamba" and key == "in_proj":
+        # each half's channels reversed: x and z stay apart
+        j = axes.index("d_inner")
+        return t.unflatten(j, (2, -1)).flip(j + 1).flatten(j, j + 1)
+    if kind == "mlstm":
+        # the x half's channels (wq/wk/wv/wi/wf's rows) reversed, the heads'
+        # space (z, the hidden state, gn, down's rows) by whole heads
+        if key == "up":
+            xm, z = t.chunk(2, last)
+            return torch.cat([xm.flip(last), _heads_flip(z, last, H)], last)
+        if key in ("gn", "down"):
+            return _heads_flip(t, axes.index("d_inner"), H)
+        if key in ("wi", "wf"):            # (dp, heads)
+            return t.flip([last - 1, last])
+        if key in ("bi", "bf"):
+            return t.flip(last)
+    if kind == "slstm" and key in ("gn", "up", "gate"):
+        # labelled embed, but indexing the hidden state: by whole heads
+        j = axes.index("embed")
+        t = _heads_flip(t, j, H)
+        return t.flip(last) if key != "gn" else t
     dims = [d for d, a in enumerate(axes) if a in _SPLIT]
-    if key == "router":
-        dims = [tree.dim() - 1]
-    return tree.flip(dims) if dims else tree
+    return t.flip(dims) if dims else t
 
 
-def _rank_train(rank: int, dev, arch: str, data: int, model: int,
+def _mirror(tree, axes, cfg):
+    """``tree`` (the parameters or a moment of ``cfg``'s model; ``axes``
+    its ``param_axes``) with every dim the model axis splits reversed: the
+    heads, kv heads, ff columns, vocabulary rows and experts in the
+    reverse order, the router's expert columns with them; the Mamba
+    layer's d_inner channels reversed (within each half of ``in_proj``);
+    the mLSTM's input channels reversed and its heads reversed as whole
+    blocks wherever their space appears (the z half of ``up``, ``gn``,
+    ``down``'s rows, the gates' head columns and biases), the sLSTM's
+    heads likewise (its gates' weights and biases, and ``gn`` and the
+    ``up`` / ``gate`` rows, labelled ``embed`` but indexing the hidden
+    state).  The same model (on tokens ``vocab - 1 - t``), every sum the
+    model axis splits taken in another order; its own inverse."""
+    kinds = {str(i): s.kind for i, s in enumerate(cfg.period)}
+
+    def walk(t, ax, path):
+        if isinstance(t, dict):
+            return {k: walk(v, ax[k], path + (k,)) for k, v in t.items()}
+        kind = kinds.get(path[1]) if path[0] == "blocks" else None
+        return _mirror_leaf(t, ax, path[-1], kind, cfg.n_heads)
+
+    return walk(tree, axes, ())
+
+
+def _rank_train(rank: int, dev, log, arch: str, data: int, model: int,
                 f32: bool) -> dict | None:
     """One train mesh of ``_rank_worker``: 3 partitioned steps on this
     rank's card; rank 0 also runs the one-rank step on the data groups'
-    batches put together and the witness (the same step on those rows in
-    the reverse order) and returns the comparison; every rank returns its
-    held bytes, peaks and step times for rank 0 to gather."""
+    batches put together, after each partitioned step, and after the
+    mesh's last collective the witness (the same steps on those rows in
+    the reverse order, on a model axis on the mirrored model), and
+    returns the comparison; every rank returns its held bytes, peaks and
+    step times for rank 0 to gather.  ``log(what)``
+    prints a line of this rank's progress: one before each collective
+    and around rank 0's own work."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import make_local_mesh
     from repro_torch.models import init_params, param_axes
     from repro_torch.optim import adamw_init, cosine_schedule
@@ -2674,9 +2753,10 @@ def _rank_train(rank: int, dev, arch: str, data: int, model: int,
                                          place_train_state)
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = get_config(arch).with_overrides(n_layers=1)
+    cfg, _ = _rank_cfg(arch)
     if f32:
         cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
+    log("makes the mesh (new groups)")
     mesh = make_local_mesh(data, model, device=dev)
     group = rank // model          # the rank's data group (row-major mesh)
     lr = cosine_schedule(3e-3, 2, 10)
@@ -2700,7 +2780,8 @@ def _rank_train(rank: int, dev, arch: str, data: int, model: int,
         |b|)."""
         rel, diff, bad = 0.0, 0, 0
         for x, y in zip(tree_leaves(a), tree_leaves(b)):
-            d = (x.to(y.device).float() - y.float()).abs()
+            x, y = x.to(dev), y.to(dev)      # a leaf at a time on the card
+            d = (x.float() - y.float()).abs()
             top = max(float(y.float().abs().max()), 1e-30)
             rel = max(rel, float(d.max()) / top)
             diff += int((d > 0).sum())
@@ -2727,54 +2808,74 @@ def _rank_train(rank: int, dev, arch: str, data: int, model: int,
     # at phi3.5-moe's width in float32)
     host = lambda tree: tree_map(  # noqa: E731
         lambda t: gather(t).to("cpu", copy=True), tree)
+    log("gathers the seeded parameters")
     seed = whole_copy()     # the seeded draw (a gather: every rank)
     # the witness: another order of the sums the mesh splits, the rows
     # reversed (the data axis) and, on a model axis, the model mirrored
     axes = param_axes(cfg)
-    mirror = (lambda t: _mirror(t, axes)) if model > 1 else (  # noqa: E731
+    mirror = (lambda t: _mirror(t, axes, cfg)) if model > 1 else (  # noqa
         lambda t: t)
-    if rank == 0:       # the one-rank step and its witness, in step
+
+    def batches(t):
+        """Step t's rows of every data group together, and the witness's:
+        those rows in the reverse order (and mirrored tokens)."""
+        bs = [_rank_batch(cfg, g, t, dev) for g in range(data)]
+        both = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+        rev = {k: torch.flip(v, [0]) for k, v in both.items()}
+        if model > 1:
+            rev["tokens"] = cfg.vocab - 1 - rev["tokens"]
+            rev["labels"] = cfg.vocab - 1 - rev["labels"]
+        return both, rev
+
+    if rank == 0:
+        # the one-rank step runs in step with the mesh's; the witness after
+        # the mesh's last collective, from its start kept on the host
+        # (both steps' states and a step would not fit on the card at
+        # jamba's width in float32), against the one-rank step's moments
+        # kept on the host a step
         params = seed
-        w_params = mirror(tree_map(torch.clone, seed))
-        opt, w_opt = adamw_init(params), adamw_init(w_params)
+        w_start = tree_map(lambda t: t.to("cpu", copy=True), mirror(seed))
+        opt = adamw_init(params)
         plain = build_train_step(cfg, lr)
+        ref_mv = []
     del seed
     norms, ms, peaks, ref_ms = [], [], [], []
     ref_norms, w_norms, mv, w_mv = [], [], [], []
     for t in range(3):
         if t == 2:                 # the parameters before the last step
+            log(f"step {t + 1}: gathers the parameters before it")
             before = host(lp)
         batch = _rank_batch(cfg, group, t, dev)
+        log(f"step {t + 1}: barrier")
         dist.barrier()
         torch.cuda.synchronize()
         start = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        log(f"step {t + 1}: the partitioned step")
         _, _, met = timed(lambda: step(lp, lo, batch), ms)
         # the rank's state and the step's peak above what it found
         peaks.append(torch.cuda.max_memory_allocated(dev) - start + held)
         norms.append(float(met["grad_norm"]))
+        log(f"step {t + 1}: gathers the moments")
         got_m, got_v = host((lo.m, lo.v))
         if rank == 0:
-            bs = [_rank_batch(cfg, g, t, dev) for g in range(data)]
-            both = {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
-            rev = {k: torch.flip(v, [0]) for k, v in both.items()}
-            if model > 1:
-                rev["tokens"] = cfg.vocab - 1 - rev["tokens"]
-                rev["labels"] = cfg.vocab - 1 - rev["labels"]
-            params, opt, met = timed(lambda: plain(params, opt, both),
-                                     ref_ms)
-            w_params, w_opt, w_met = plain(w_params, w_opt, rev)
+            log(f"step {t + 1}: the one-rank step")
+            params, opt, met = timed(
+                lambda: plain(params, opt, batches(t)[0]), ref_ms)
             ref_norms.append(float(met["grad_norm"]))
-            w_norms.append(float(w_met["grad_norm"]))
             mv.append((worst(got_m, opt.m)[0], worst(got_v, opt.v)[0]))
-            w_mv.append((worst(mirror(w_opt.m), opt.m)[0],
-                         worst(mirror(w_opt.v), opt.v)[0]))
+            ref_mv.append(tree_map(lambda t: t.to("cpu", copy=True),
+                                   (opt.m, opt.v)))
+    log("gathers the parameters after step 3")
     got_p = gather(lp)
     mine = {"held": held, "ms": ms, "peak": peaks}
     ranks = [None] * dist.get_world_size()
+    log("all_gather_object")
     dist.all_gather_object(ranks, mine)
+    log("ends the mesh")
     if rank != 0:
         return None
+    del lp, lo
     # the last step's parameters are AdamW's update of those before it
     # from the gathered moments, bit for bit
     b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
@@ -2788,22 +2889,55 @@ def _rank_train(rank: int, dev, arch: str, data: int, model: int,
         upd = lr2 * (m.float() / c1) / (torch.sqrt(v.float() / c2) + eps)
         upd = upd + lr2 * wd * p0.float()
         exact &= bool(torch.equal(x, (p0.float() - upd).to(x.dtype)))
-    return {"arch": arch, "data": data, "model": model, "f32": f32,
-            "norms": norms, "ref_norms": ref_norms, "w_norms": w_norms,
-            "mv": mv, "w_mv": w_mv, "params": worst(got_p, params),
-            "w_params": worst(mirror(w_params), params),
-            "exact_last_update": exact,
-            "elements": sum(t.numel() for t in tree_leaves(got_p)),
-            "whole": whole, "ref_ms": ref_ms, "ranks": ranks,
-            "param_dtype": str(tree_leaves(got_p)[0].dtype)}
+    out = {"arch": arch, "data": data, "model": model, "f32": f32,
+           "norms": norms, "ref_norms": ref_norms, "w_norms": w_norms,
+           "mv": mv, "w_mv": w_mv, "params": worst(got_p, params),
+           "exact_last_update": exact,
+           "elements": sum(t.numel() for t in tree_leaves(got_p)),
+           "whole": whole, "ref_ms": ref_ms, "ranks": ranks,
+           "param_dtype": str(tree_leaves(got_p)[0].dtype)}
+    # the witness's steps on a card holding of the rest only the one-rank
+    # step's last parameters
+    del got_p, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("the witness's steps")
+    w_params = tree_map(lambda t: t.to(dev), w_start)
+    w_opt = adamw_init(w_params)
+    del w_start
+    for t, (m, v) in enumerate(ref_mv):
+        w_params, w_opt, w_met = plain(w_params, w_opt, batches(t)[1])
+        w_norms.append(float(w_met["grad_norm"]))
+        w_mv.append((worst(mirror(w_opt.m), m)[0],
+                     worst(mirror(w_opt.v), v)[0]))
+    out["w_params"] = worst(mirror(w_params), params)
+    return out
 
 
-# the serve check over the model axis: gemma2-27b at published width with
-# 2 layers, batch 4, a prompt of 1024 and 8 decode steps
-SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 8
+# the serve checks over the model axis, a prompt of 1024 and 8 decode
+# steps: (arch, batch) at published width, cut by ``_serve_cfg``
+SERVES = (("gemma2-27b", 4), ("jamba-1.5-large-398b", 1), ("xlstm-350m", 2))
+SERVE_PROMPT, SERVE_NEW = 1024, 8
 
 
-def _rank_serve(rank: int, n: int, dev, f32: bool, want32=None):
+def _serve_cfg(arch: str):
+    """(the config a serve check of ``ranks_check`` runs for ``arch`` at
+    published width, its ``reduced:`` cut)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch.startswith("jamba"):
+        return (cfg.with_overrides(n_layers=2,
+                                   period=(cfg.period[0], cfg.period[2])),
+                f"{cfg.n_layers} -> 2 layers, attention and the dense Mamba "
+                f"block (period[0], period[2]; dense MLPs)")
+    if arch == "gemma2-27b":
+        return cfg.with_overrides(n_layers=2), f"{cfg.n_layers} -> 2 layers"
+    return cfg, f"whole ({cfg.n_layers} layers)"
+
+
+def _rank_serve(rank: int, n: int, dev, arch: str, B: int, f32: bool,
+                want32=None):
     """Prefill and SERVE_NEW eager decode steps (``build_prefill_step`` /
     ``build_decode_step`` given the parameters' shards on a (1, n) mesh,
     every ``graphs.scan`` eager: no capture) on the same tokens as rank
@@ -2816,14 +2950,13 @@ def _rank_serve(rank: int, n: int, dev, f32: bool, want32=None):
     import torch
 
     from repro_torch import graphs
-    from repro_torch.configs import get_config
     from repro_torch.launch import make_local_mesh
     from repro_torch.models import init_params, param_axes
     from repro_torch.sharding import make_shardings
     from repro_torch.train.steps import (build_decode_step,
                                          build_prefill_step, place_params)
 
-    cfg = get_config("gemma2-27b").with_overrides(n_layers=2)
+    cfg, _ = _serve_cfg(arch)
     if f32:
         cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
     mesh = make_local_mesh(1, n, device=dev)
@@ -2833,7 +2966,7 @@ def _rank_serve(rank: int, n: int, dev, f32: bool, want32=None):
         del params
     rng = np.random.default_rng(5)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (
-        SERVE_B, SERVE_PROMPT + SERVE_NEW)), dtype=torch.int32, device=dev)
+        B, SERVE_PROMPT + SERVE_NEW)), dtype=torch.int32, device=dev)
     pre = build_prefill_step(cfg, cache_len=SERVE_PROMPT + SERVE_NEW)
     dec = build_decode_step(cfg)
 
@@ -2863,7 +2996,8 @@ def _rank_serve(rank: int, n: int, dev, f32: bool, want32=None):
         if rank != 0:
             return None
         want, ref_pre_ms, ref_dec_ms = serve(params)
-    return {"dtype": str(cfg.dtype), "errs": dist_(got, want),
+    return {"arch": arch, "batch": B, "dtype": str(cfg.dtype),
+            "errs": dist_(got, want),
             "own": dist_(want, want32) if want32 is not None else None,
             "shape": list(got[-1].shape), "ms": [pre_ms, dec_ms],
             "ref_ms": [ref_pre_ms, ref_dec_ms], "want": want,
@@ -2872,11 +3006,15 @@ def _rank_serve(rank: int, n: int, dev, f32: bool, want32=None):
 
 def _rank_worker(rank: int, n: int, port: int, out: str, cases) -> None:
     """One rank of ``ranks_check``: every train mesh of ``cases`` in turn
-    (``_rank_train``), then the serve check, float32 and bfloat16; rank 0
-    writes the results to ``out``.  A failure prints its traceback and
-    ends the process at once (the spawn then fails the check): tearing
-    the group down would wait on the other ranks' pending collectives."""
+    (``_rank_train``), then the serve checks (``SERVES``), float32 and
+    bfloat16; rank 0 writes the results to ``out``.  A failure prints its
+    traceback and ends the process at once (the spawn then fails the
+    check): tearing the group down would wait on the other ranks' pending
+    collectives.  A rank sent SIGTERM (the spawn ending the others after
+    a failure, or a time limit) prints every thread's stack first."""
     sys.path.insert(0, str(ROOT / "src"))
+    import faulthandler
+    import signal
     import traceback
     from datetime import timedelta
 
@@ -2897,25 +3035,31 @@ def _rank_worker(rank: int, n: int, port: int, out: str, cases) -> None:
               f"{torch.cuda.memory_allocated(dev)} bytes allocated",
               flush=True)
 
+    faulthandler.register(signal.SIGTERM, all_threads=True, chain=True)
     t_start = time.perf_counter()
     try:
-        res = {"train": []}
+        res = {"train": [], "serve": []}
         for case in cases:
             t0 = time.perf_counter()
             log(f"starts {case}")
-            got = _rank_train(rank, dev, *case)
+            got = _rank_train(rank, dev, lambda w, c=case: log(f"{c}: {w}"),
+                              *case)
             gc.collect()
             torch.cuda.empty_cache()
             if got is not None:
                 got["host_s"] = time.perf_counter() - t0
                 res["train"].append(got)
-        log("starts serving")
-        sv32 = _rank_serve(rank, n, dev, True)
-        want32 = sv32.pop("want") if sv32 else None
-        sv16 = _rank_serve(rank, n, dev, False, want32)
+        for arch, B in SERVES:
+            log(f"starts serving {arch}")
+            sv32 = _rank_serve(rank, n, dev, arch, B, True)
+            want32 = sv32.pop("want") if sv32 else None
+            sv16 = _rank_serve(rank, n, dev, arch, B, False, want32)
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rank == 0:
+                sv16.pop("want")
+                res["serve"] += [sv32, sv16]
         if rank == 0:
-            sv16.pop("want")
-            res["serve"] = [sv32, sv16]
             Path(out).write_text(json.dumps(res))
         log("done")
         dist.barrier()
@@ -2945,14 +3089,17 @@ def ranks_check(smi: str) -> None:
     of ``_rank_cases``: the data axis alone (n, 1) in float32 and as
     published (bfloat16), then the model axis computed on shards
     (``sharding.tp``): (1, n) and (2, n / 2) in float32, (1, n) in
-    bfloat16, and phi3.5-moe at published width with 1 layer at (1, n) in
-    float32.  The ranks of a model group take the same batch.  Against
+    bfloat16, and at (1, n) in float32 phi3.5-moe with 1 layer,
+    jamba-1.5-large with the period's dense Mamba block and xlstm-350m
+    with one period (mLSTM, sLSTM), each at published width
+    (``_rank_cfg``).  The ranks of a model group take the same batch.  Against
     the one-rank step on the data groups' batches put together (rank 0),
     and against a witness of what another order of the sums the mesh
     splits does: the one-rank step on the same rows in the reverse order
     and, on a model axis, on the model mirrored (``_mirror``: the heads,
     ff columns, vocabulary rows and experts reversed, the tokens with
-    them), its moments and parameters mirrored back.  Held on
+    them; the Mamba channels, the mLSTM's and sLSTM's heads likewise),
+    its moments and parameters mirrored back.  Held on
     every mesh: ``grad_norm`` every step, the moments after every step
     (each leaf's largest entry the scale) and the parameters after step 3
     within ``WITNESS_X`` times the witness's distance from the one-rank
@@ -2960,9 +3107,11 @@ def ranks_check(smi: str) -> None:
     moments bit for bit; each rank's allocated bytes for its parameters
     and moments 1/n of the one-rank's within 1 % (at (1, n) within 0.001
     of 1/n); at (n, 1) in float32 also ``grad_norm`` and step 1's moments
-    to rel 1e-5.  Then serving over the model axis: gemma2-27b at
-    published width with 2 layers, batch 4, a prompt of 1024 and 8 eager
-    decode steps at (1, n) against the one-card eager path, in float32
+    to rel 1e-5.  Then serving over the model axis (``SERVES``):
+    gemma2-27b at published width with 2 layers (batch 4), jamba-1.5-large
+    with attention and the dense Mamba block (batch 1) and xlstm-350m
+    whole (batch 2), each a prompt of 1024 and 8 eager decode steps at
+    (1, n) against the one-card eager path, in float32
     every logit within ``SERVE_GATE`` of max|logit|, as published
     (bfloat16) within ``WITNESS_X`` times the one-card path's own
     distance from its float32 run (a bfloat16 sum split over the model
@@ -2994,13 +3143,19 @@ def ranks_check(smi: str) -> None:
         res = json.loads(out.read_text())
     finally:
         shutil.rmtree(tmp)
-    print(f"ranks: {len(res['train'])} meshes and the serve check over {n} "
-          f"cards in {time.perf_counter() - t0:.1f} s host clock")
+    print(f"ranks: {len(res['train'])} meshes and {len(res['serve'])} "
+          f"serve checks over {n} cards in {time.perf_counter() - t0:.1f} s"
+          f" host clock")
+    for arch in dict.fromkeys(c[0] for c in _rank_cases(n)):
+        print(f"reduced: {arch} train meshes: {_rank_cfg(arch)[1]}")
+    for arch, _ in SERVES:
+        print(f"reduced: {arch} serve over (1, {n}): {_serve_cfg(arch)[1]}")
     failed = [f for r in res["train"] for f in _ranks_report(r, n, smi)]
     for sv in res["serve"]:
         f32 = sv["own"] is None
-        label = f"serve over (1, {n}) (gemma2-27b, 2 layers, {sv['dtype']})"
-        print(f"{label}: batch {SERVE_B}, prompt {SERVE_PROMPT}, "
+        label = (f"serve over (1, {n}) ({sv['arch']}, "
+                 f"{_serve_cfg(sv['arch'])[1]}, {sv['dtype']})")
+        print(f"{label}: batch {sv['batch']}, prompt {SERVE_PROMPT}, "
               f"{SERVE_NEW} eager decode steps, NCCL, no capture, against "
               f"the one-card eager path: logits {sv['shape']}, max|diff| "
               f"/ max|logit| prefill {sv['errs'][0]:.3e}, decode steps "
@@ -3050,13 +3205,14 @@ def _ranks_report(res: dict, n: int, smi: str) -> list:
     for t, ((m, v), (wm, wv)) in enumerate(zip(res["mv"], res["w_mv"])):
         pairs += [(f"m step {t + 1}", m, wm), (f"v step {t + 1}", v, wv)]
     pairs.append(("parameters after step 3", p_rel, w_p_rel))
-    label = f"grad_specs over {mesh} ({res['arch']} 1 layer, {dt})"
+    label = (f"grad_specs over {mesh} ({res['arch']} "
+             f"{_rank_cfg(res['arch'])[1]}, {dt})")
     print(f"{label}: 3 steps, 2 x 128 tokens a data group, against the "
           f"one-rank step on the data groups' batches together, rel to "
           f"each leaf's largest entry, the ranks' (the witness's: the "
           f"one-rank step on the rows in reverse order"
-          + (", the model mirrored (heads, ff, vocabulary, experts "
-             "reversed)" if model > 1 else "") + "): "
+          + (", the model mirrored (heads, ff, vocabulary, experts, "
+             "Mamba channels reversed)" if model > 1 else "") + "): "
           + "; ".join(f"{w} {a:.2e} ({b:.2e})" for w, a, b in pairs)
           + f"; grad_norm {res['norms']}, the one-rank step's "
           f"{res['ref_norms']}; parameters after step 3: {p_diff} of "

@@ -114,26 +114,22 @@ def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
     return {"total": flops + re, "remat": re, **by_op}, outs["out"]
 
 
-def _rank_inputs(cfg, kind: str, inputs, shardings):
+def _rank_inputs(inputs, shardings):
     """Rank 0's shard of each meta input (``specs.input_specs``'
     structure) under ``shardings`` (``specs.input_shardings``'): the batch
-    over the data axes where it divides, the attention caches' kv heads on
-    ``model`` where they divide, their sequence over the data axes for a
-    batch of one.  The caches of the Mamba and xLSTM layers stay whole on
-    ``model``, as those layers run whole on every model rank."""
-    def local(t, sh, model=True):
+    over the data axes where it divides, the attention caches' kv heads,
+    the Mamba caches' d_inner channels and the xLSTM caches' heads on
+    ``model`` where they divide (as the layers compute on those shards),
+    the attention caches' sequence over the data axes for a batch of
+    one."""
+    def local(t, sh):
         shape = list(t.shape)
         for d, e in enumerate(sh.spec):
-            if e is not None and (model or e != "model"):
+            if e is not None:
                 shape[d] //= axis_size(sh.mesh, e)
         return torch.empty(shape, dtype=t.dtype, device="meta")
 
-    if kind != "decode":
-        return tree_map(local, inputs, shardings)
-    (token, caches, index), (tsh, csh, _) = inputs, shardings
-    return (local(token, tsh), tuple(
-        tree_map(lambda t, sh, m=spec.kind == "attn": local(t, sh, m), c, s)
-        for spec, c, s in zip(cfg.period, caches, csh)), index)
+    return tree_map(local, inputs, shardings)
 
 
 def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
@@ -186,7 +182,7 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
         params = place_params(params, psh)
         args = held_bytes(params)
     # rank 0's inputs, each with the bytes its placement holds
-    local = _rank_inputs(cfg, kind, inputs, in_sh)
+    local = _rank_inputs(inputs, in_sh)
     args += [(t, n) for t, (_, n) in zip(tree_leaves(local), held_bytes(
         inputs, in_sh))]
     live = LiveBytes(known=[t for t, _ in args])

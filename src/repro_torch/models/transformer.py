@@ -22,9 +22,10 @@ on a mesh: neither changes a value, and the port ignores both.
 
 On a ``model`` axis (``sharding.tp``) the leaves ``model_shards`` names
 come in as the rank's model shard: attention runs on the rank's heads,
-the MLP on its ff columns, the MoE layer on its experts and the tied
-embedding on its vocabulary rows, each meeting the other ranks through
-``tp.copy_to`` / ``tp.reduce_from``.  ``forward`` then returns the rank's
+the MLP on its ff columns, the MoE layer on its experts, the Mamba layer
+on its d_inner channels, the mLSTM and the sLSTM on its heads and the
+tied embedding on its vocabulary rows, each meeting the other ranks
+through ``sharding.tp``'s collectives.  ``forward`` then returns the rank's
 vocabulary shard of the logits and ``lm_loss(..., vocab=)`` is the
 vocabulary-parallel cross entropy; ``prefill`` and ``decode_step`` gather
 the last position's logits whole.  Given whole leaves, every function is
@@ -133,20 +134,41 @@ def param_axes(cfg: ArchConfig):
     return tree_axes(param_defs(cfg))
 
 
-# the leaves a layer computes on the rank's model shard: the attention
-# blocks' projections (self and cross), the dense MLP's and the experts'
-# weights, and the tied embedding
+# the leaves a layer computes on the rank's model shard, by block kind: the
+# attention blocks' projections (self and cross), the Mamba layer's d_inner
+# leaves, the mLSTM's (not its replicated gate biases bi / bf), the sLSTM's
+# gates by heads and its post-projection by ff (not its norm ``gn``, which
+# the placement keeps whole); with any kind, the dense MLP's and the
+# experts' weights; and the tied embedding
 _ATTN_SHARDS = frozenset(pre + w for pre in ("", "c")
                          for w in ("wq", "wk", "wv", "wo"))
 _MLP_SHARDS = frozenset(("ffn_wi", "ffn_wg", "ffn_wo", "moe_wi", "moe_wg",
                          "moe_wo"))
+_KIND_SHARDS = {
+    "attn": _ATTN_SHARDS,
+    "mamba": frozenset(("in_proj", "conv_w", "conv_b", "x_proj", "dt_w",
+                        "dt_b", "A_log", "D", "out_proj")),
+    "mlstm": frozenset(("up", "wq", "wk", "wv", "wi", "wf", "gn", "down")),
+    "slstm": frozenset([w + g for w in "wrb" for g in "zifo"]
+                       + ["up", "gate", "down"]),
+}
 
 
 def model_shards(cfg: ArchConfig):
     """A tree of bools like the parameters': True for a leaf that its layer
     computes on the rank's model shard (``sharding.tp``), False for one it
     computes whole on every rank of a model group (the norms, the router,
-    the projector, and for now the Mamba and xLSTM layers)."""
+    the projector, the mLSTM's gate biases, the sLSTM's norm).
+
+    The rule where the axis does not divide a dim: the placement
+    (``sharding.make_shardings``) then leaves that leaf whole on
+    ``model``, a True leaf comes in whole, and its layer computes that
+    part whole: attention whose heads do not divide (each rank cutting
+    the kv heads of its query heads where only the kv heads do not), the
+    Mamba layer where d_inner does not divide, the mLSTM's recurrence where its heads do not
+    divide (its q, k, v and gates all-reduced whole, its norm and
+    ``down`` still on the rank's channels), the sLSTM's recurrence where
+    its heads do not (its post-projection still on ``ff``)."""
     kinds = {("blocks", str(i)): s.kind for i, s in enumerate(cfg.period)}
     kinds[("encoder", "blocks")] = "attn"
 
@@ -154,7 +176,7 @@ def model_shards(cfg: ArchConfig):
         if _is_def(d):
             kind, k = kinds.get(path[:-1]), path[-1]
             return path == ("embed",) or kind is not None and (
-                k in _MLP_SHARDS or kind == "attn" and k in _ATTN_SHARDS)
+                k in _MLP_SHARDS or k in _KIND_SHARDS[kind])
         return {k: walk(v, path + (k,)) for k, v in d.items()}
 
     return walk(param_defs(cfg), ())

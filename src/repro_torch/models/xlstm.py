@@ -16,6 +16,31 @@ reference's ``lax.scan``.
 
 Stabilization follows the xLSTM appendix: every exponential is taken relative
 to a running max m; the hidden read is h = num / max(|den|, exp(-m*)).
+
+On a ``model`` axis (``sharding.tp``) the layers follow the reference's
+placement, ``d_inner`` and ``heads`` on ``model``:
+
+* the mLSTM, where its ``dp`` channels are split (``gn`` narrower than
+  ``dp``): ``up`` is split like Mamba's ``in_proj`` and exchanged into the
+  rank's (x, z) channel pair (``tp.exchange_halves``); ``wq/wk/wv`` and
+  ``wi/wf`` are split on ``dp`` (``d_inner`` takes ``model`` before
+  ``heads``), so the rank's q, k, v and gates are partial sums over its
+  channels, reduce-scattered to its H/n heads (``tp.reduce_scatter``)
+  where n divides H, else all-reduced whole (the recurrence then runs
+  whole on every rank and its output enters the rank's channels through
+  ``tp.copy_to``); the rank's heads, flattened, are its ``dp`` channels,
+  so its ``gn`` and ``down`` rows; the norm's sum of squares is the
+  group's, and ``down`` is row-parallel;
+* the sLSTM, where its heads are split (``wz`` holding fewer than H): the
+  gates' input projections column-parallel over heads, the recurrent
+  weights and biases the rank's, so the token loop runs on H/n heads with
+  no collective inside it; the hidden states are all-gathered whole
+  (``tp.gather_from``) for the replicated ``gn`` and the post-projection,
+  whose ``up`` / ``gate`` are column-parallel and ``down`` row-parallel
+  over ``ff`` where ``ff`` is split.
+
+The caches hold the rank's heads.  Given whole leaves every function is
+the one-device program.
 """
 from __future__ import annotations
 
@@ -27,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch import graphs
 from repro_torch.device import resolve_device
+from repro_torch.sharding import tp
 
 from .common import pdef, rmsnorm
 
@@ -70,14 +96,27 @@ class MLSTMCache(NamedTuple):
 def init_mlstm_cache(cfg, B: int, dtype, *, device=None) -> MLSTMCache:
     """Zero mLSTM cache on ``device`` (unset: the CUDA card)."""
     _, H, dk = _mdims(cfg)
-    f32 = dict(dtype=torch.float32, device=resolve_device(device))
+    return _mlstm_zeros(B, H, dk, resolve_device(device))
+
+
+def _mlstm_zeros(B: int, H: int, dk: int, device) -> MLSTMCache:
+    f32 = dict(dtype=torch.float32, device=device)
     return MLSTMCache(torch.zeros((B, H, dk, dk), **f32),
                       torch.zeros((B, H, dk), **f32),
                       torch.full((B, H), -1e30, **f32))
 
 
-def _mlstm_qkvg(p, x):
-    """x: (B, S, d) -> q,k,v (B,S,H,dk) f32, li/lf (B,S,H) f32, z (B,S,dp)."""
+def _mlstm_sharded(p, cfg) -> bool:
+    """The layer's ``dp`` channels are the rank's model shard."""
+    return p["gn"].shape[0] < _mdims(cfg)[0]
+
+
+def _mlstm_qkvg(p, x, cfg):
+    """x: (B, S, d) -> q,k,v (B,S,H,dk) f32, li/lf (B,S,H) f32, z (B,S,dp);
+    on a model shard of the channels z the rank's (B,S,dp/n) and the
+    heads the rank's where n divides H (``_mlstm_qkvg_tp``)."""
+    if _mlstm_sharded(p, cfg):
+        return _mlstm_qkvg_tp(p, x, cfg)
     xz = torch.matmul(x, p["up"])
     xm, z = torch.chunk(xz, 2, dim=-1)
     q = torch.einsum("bse,ehk->bshk", xm, p["wq"]).float()
@@ -86,7 +125,61 @@ def _mlstm_qkvg(p, x):
     v = torch.einsum("bse,ehk->bshk", xm, p["wv"]).float()
     li = (torch.matmul(xm, p["wi"]) + p["bi"]).float()     # log input gate
     lf = F.logsigmoid((torch.matmul(xm, p["wf"]) + p["bf"]).float())
-    return q, k, v, li, lf, z, xm
+    return q, k, v, li, lf, z
+
+
+def _mlstm_qkvg_tp(p, x, cfg):
+    """``_mlstm_qkvg`` on the rank's channels: each projection's partial
+    sum over them (float32) reduce-scattered to the rank's heads, or
+    all-reduced whole where the axis does not divide the heads."""
+    _, H, _ = _mdims(cfg)
+    xm, z = torch.chunk(tp.exchange_halves(
+        torch.matmul(tp.copy_to(x), p["up"])), 2, dim=-1)
+    if H % tp.size() == 0:
+        whole = lambda t: tp.reduce_scatter(t, 2)  # noqa: E731
+        heads = slice(tp.rank() * H // tp.size(),
+                      (tp.rank() + 1) * H // tp.size())
+        # the biases used on the rank's heads: their gradient summed
+        bias = lambda b: tp.copy_to(b)[heads]  # noqa: E731
+    else:
+        whole, bias = tp.reduce_from, (lambda b: b)
+    proj = lambda w: whole(  # noqa: E731
+        torch.einsum("bse,ehk->bshk", xm, w).float())
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    k = k / math.sqrt(k.shape[-1])
+    li = whole(torch.matmul(xm, p["wi"]).float()) + bias(p["bi"]).float()
+    lf = F.logsigmoid(whole(torch.matmul(xm, p["wf"]).float())
+                      + bias(p["bf"]).float())
+    return q, k, v, li, lf, z
+
+
+def _mlstm_out(p, h, z, x, cfg):
+    """The gated output of the recurrence's hidden states h (B, S, H', dk)
+    float32: norm, gate, ``down``.  On a model shard of the channels, h
+    the rank's heads (its channels) or every head (cut to the rank's
+    channels here, through ``tp.copy_to``), the norm over the group's
+    channels and ``down`` row-parallel."""
+    B, S = h.shape[:2]
+    h = h.reshape(B, S, -1)
+    if not _mlstm_sharded(p, cfg):
+        h = rmsnorm(h, p["gn"]) * F.silu(z)                  # per-channel
+        return torch.matmul(h.to(x.dtype), p["down"])
+    dp, c = _mdims(cfg)[0], p["gn"].shape[0]
+    if h.shape[-1] > c:          # every head: the rank's channels of them
+        h = tp.copy_to(h)[..., tp.rank() * c:(tp.rank() + 1) * c]
+    h = _rmsnorm_tp(h, p["gn"], dp) * F.silu(z)
+    return tp.reduce_from(torch.matmul(h.to(x.dtype), p["down"]))
+
+
+def _rmsnorm_tp(x, scale, width: int, eps: float = 1e-6):
+    """``common.rmsnorm`` over a ``width``-channel dim of which ``x`` holds
+    the rank's channels: the group's sum of squares, used alike on every
+    rank (its gradient summed)."""
+    dt = x.dtype
+    x = x.float()
+    ss = tp.copy_to(tp.reduce_from((x * x).sum(dim=-1, keepdim=True)))
+    x = x * torch.rsqrt(ss / width + eps)
+    return (x * (1.0 + scale.float())).to(dt)
 
 
 def _mlstm_chunk(consts, xs, carry):
@@ -128,8 +221,7 @@ def _mlstm_chunk(consts, xs, carry):
 def mlstm_apply(p, x, cfg, return_cache: bool = False):
     """Full-sequence chunkwise mLSTM. x: (B, S, d) -> (B, S, d)."""
     B, S, d = x.shape
-    dp, H, dk = _mdims(cfg)
-    q, k, v, li, lf, z, _ = _mlstm_qkvg(p, x)
+    q, k, v, li, lf, z = _mlstm_qkvg(p, x, cfg)
 
     Q = min(cfg.mamba_chunk, S)
     Sp = ((S + Q - 1) // Q) * Q          # pad tail (causal: outputs unaffected)
@@ -145,22 +237,19 @@ def mlstm_apply(p, x, cfg, return_cache: bool = False):
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     hs, (C, n, m) = graphs.scan(
         "mlstm", _mlstm_chunk, (tri,), (q, k, v, li, lf),
-        tuple(init_mlstm_cache(cfg, B, x.dtype, device=x.device)),
+        tuple(_mlstm_zeros(B, *q.shape[2:], x.device)),
         length=Sp, c=Q, static=())
-    h = torch.cat([h for (h,) in hs], dim=1).reshape(B, Sp, dp)[:, :S]
-    h = rmsnorm(h, p["gn"])                              # per-channel norm
-    h = h * F.silu(z[:, :S])
-    out = torch.matmul(h.to(x.dtype), p["down"])
+    h = torch.cat([h for (h,) in hs], dim=1)[:, :S]
+    out = _mlstm_out(p, h, z[:, :S], x, cfg)
     if return_cache:
         return out, MLSTMCache(C, n, m)
     return out
 
 
 def mlstm_decode(p, x, cache: MLSTMCache, cfg):
-    """Single-step mLSTM. x: (B, 1, d)."""
-    B = x.shape[0]
-    dp, H, dk = _mdims(cfg)
-    q, k, v, li, lf, z, _ = _mlstm_qkvg(p, x)
+    """Single-step mLSTM. x: (B, 1, d); on a model shard the cache holds
+    the rank's heads (every head where the axis does not divide them)."""
+    q, k, v, li, lf, z = _mlstm_qkvg(p, x, cfg)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                  # (B,H,dk)
     li, lf = li[:, 0], lf[:, 0]                          # (B,H)
     m_new = torch.maximum(lf + cache.m, li)
@@ -172,10 +261,7 @@ def mlstm_decode(p, x, cache: MLSTMCache, cfg):
     num = torch.einsum("bhk,bhkv->bhv", q, C)
     den = torch.einsum("bhk,bhk->bh", q, n)
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
-    h = h.reshape(B, 1, dp)
-    h = rmsnorm(h, p["gn"]) * F.silu(z)
-    out = torch.matmul(h.to(x.dtype), p["down"])
-    return out, MLSTMCache(C, n, m_new)
+    return _mlstm_out(p, h[:, None], z, x, cfg), MLSTMCache(C, n, m_new)
 
 
 # ---------------------------------------------------------------- sLSTM ----
@@ -217,7 +303,11 @@ class SLSTMCache(NamedTuple):
 def init_slstm_cache(cfg, B: int, dtype, *, device=None) -> SLSTMCache:
     """Zero sLSTM cache on ``device`` (unset: the CUDA card)."""
     H, dh, _ = _sdims(cfg)
-    f32 = dict(dtype=torch.float32, device=resolve_device(device))
+    return _slstm_zeros(B, H, dh, resolve_device(device))
+
+
+def _slstm_zeros(B: int, H: int, dh: int, device) -> SLSTMCache:
+    f32 = dict(dtype=torch.float32, device=device)
     return SLSTMCache(torch.zeros((B, H, dh), **f32),
                       torch.zeros((B, H, dh), **f32),
                       torch.full((B, H, dh), -1e30, **f32),
@@ -250,17 +340,39 @@ def _slstm_cell(p, R, xz, xi, xf, xo, state: SLSTMCache) -> SLSTMCache:
     return SLSTMCache(c, n, m_new, h_new)
 
 
-def _slstm_inputs(p, x):
-    """x: (B, S, d) -> per-gate projections, each (B, S, H, dh) f32."""
+def _slstm_sharded(p, cfg) -> bool:
+    """The layer's heads are the rank's model shard."""
+    return p["wz"].shape[1] < cfg.n_heads
+
+
+def _slstm_inputs(p, x, cfg):
+    """x: (B, S, d) -> per-gate projections, each (B, S, H, dh) f32 (the
+    rank's heads on a model shard of them: column-parallel)."""
+    if _slstm_sharded(p, cfg):
+        x = tp.copy_to(x)
     proj = lambda g: torch.einsum("bsd,dhe->bshe", x, p[f"w{g}"]).float()
     return proj("z"), proj("i"), proj("f"), proj("o")
 
 
+def _slstm_hidden(p, h, cfg):
+    """The hidden states (B, S, H', dh) -> (B, S, d): the rank's heads
+    all-gathered whole on a model shard of them."""
+    if _slstm_sharded(p, cfg):
+        h = tp.gather_from(h, 2)
+    return h.reshape(*h.shape[:2], -1)
+
+
 def _slstm_post(p, h, x, cfg):
-    """GroupNorm + gated post-up-projection; h: (B, S, d)-shaped hidden."""
+    """GroupNorm + gated post-up-projection; h: (B, S, d)-shaped hidden
+    (whole; ``up`` / ``gate`` column-parallel and ``down`` row-parallel on
+    a model shard of ``ff``)."""
     h = rmsnorm(h.float(), p["gn"]).to(x.dtype)
+    sharded = p["up"].shape[1] < _sdims(cfg)[2]
+    if sharded:
+        h = tp.copy_to(h)
     u = F.silu(torch.matmul(h, p["gate"])) * torch.matmul(h, p["up"])
-    return torch.matmul(u, p["down"])
+    out = torch.matmul(u, p["down"])
+    return tp.reduce_from(out) if sharded else out
 
 
 # tokens a block of the sLSTM loop holds (one CUDA graph replay on a card):
@@ -303,23 +415,22 @@ def _slstm_loop(p, R, xz, xi, xf, xo, state: SLSTMCache):
 
 def slstm_apply(p, x, cfg, return_cache: bool = False):
     """Full-sequence sLSTM: the token loop as blocks of ``_SLSTM_BLOCK``
-    steps (``_slstm_loop``). x: (B, S, d)."""
-    B, S, d = x.shape
-    xz, xi, xf, xo = _slstm_inputs(p, x)
-    R = _recurrent(p)
-    state = init_slstm_cache(cfg, B, x.dtype, device=x.device)
-    hs, state = _slstm_loop(p, R, xz, xi, xf, xo, state)
-    h = hs.reshape(B, S, d)
-    out = _slstm_post(p, h, x, cfg)
+    steps (``_slstm_loop``; on the rank's heads on a model shard of them,
+    with no collective inside). x: (B, S, d)."""
+    xz, xi, xf, xo = _slstm_inputs(p, x, cfg)
+    state = _slstm_zeros(*xz.shape[:1], *xz.shape[2:], x.device)
+    hs, state = _slstm_loop(p, _recurrent(p), xz, xi, xf, xo, state)
+    out = _slstm_post(p, _slstm_hidden(p, hs, cfg), x, cfg)
     if return_cache:
         return out, state
     return out
 
 
 def slstm_decode(p, x, cache: SLSTMCache, cfg):
-    B = x.shape[0]
-    xz, xi, xf, xo = _slstm_inputs(p, x)
+    """Single-step sLSTM. x: (B, 1, d); on a model shard of the heads the
+    cache holds the rank's."""
+    xz, xi, xf, xo = _slstm_inputs(p, x, cfg)
     state = _slstm_cell(p, _recurrent(p), xz[:, 0], xi[:, 0], xf[:, 0],
                         xo[:, 0], cache)
-    h = state.h.reshape(B, 1, -1)
+    h = _slstm_hidden(p, state.h[:, None], cfg)
     return _slstm_post(p, h, x, cfg), state

@@ -6,19 +6,30 @@ partitioner inserts the activation collectives between the shards.
 A layer whose weights come in as the rank's model shard (it sees fewer
 heads, ff columns, vocabulary rows or experts than its config names)
 computes on that shard and meets the other ranks of its model group
-through two autograd functions:
+through these autograd functions:
 
 * ``copy_to``: identity forward, all-reduce of the gradient backward (the
   input of a column-parallel product, each rank's gradient a partial
   sum);
 * ``reduce_from``: all-reduce forward, identity backward (the output of a
-  row-parallel product, each rank's a partial sum).
+  row-parallel product, each rank's a partial sum);
+* ``exchange_halves``: an all-to-all forward, the inverse all-to-all
+  backward (a column-parallel product with a ``[first | second]`` weight
+  split by contiguous columns, as the Mamba and mLSTM in-projections are,
+  turned into the rank's own pair of channel blocks);
+* ``reduce_scatter``: the sum over the group, each rank keeping its slice
+  of one dim, forward; an all-gather of the gradient backward (the
+  mLSTM's partial q, k, v and gates summed and cut to the rank's heads);
+* ``gather_from``: an all-gather along one dim forward, the rank's slice
+  of the gradient backward (the sLSTM's hidden states of the rank's heads
+  made whole, then used alike on every rank).
 
-Both are ``torch.autograd.Function``s with a ``setup_context``, which
+All are ``torch.autograd.Function``s with a ``setup_context``, which
 ``torch.func.grad`` (the train step's) takes.  The collectives inside are
-``torch.distributed._functional_collectives``' (``all_reduce``, then
-``wait_tensor``), which run on NCCL and gloo groups and, on meta tensors,
-on the dry run's fake group.
+``torch.distributed._functional_collectives``' (``all_reduce``,
+``all_to_all_single``, ``reduce_scatter_single``, ``all_gather_single``,
+then ``wait_tensor``), called under ``no_grad``, which run on NCCL and
+gloo groups and, on meta tensors, on the dry run's fake group.
 
 ``model_axis(mesh)`` makes the ``model`` sub-group of ``mesh`` the current
 one for its duration (the train, prefill and decode steps enter it when
@@ -38,6 +49,7 @@ import contextlib
 import torch
 
 __all__ = ["model_axis", "size", "rank", "copy_to", "reduce_from",
+           "exchange_halves", "reduce_scatter", "gather_from",
            "all_reduce_max", "all_gather", "Recorder", "recording",
            "record", "scaled"]
 
@@ -153,6 +165,124 @@ def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     out = torch.cat(parts.chunk(size(), dim=0), dim=dim)
     record("all-gather", out)
     return out
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(x, dim):
+        return all_gather(x, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dim = inputs
+        ctx.dim, ctx.n = dim % x.dim(), x.shape[dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, rank() * ctx.n, ctx.n), None
+
+
+def gather_from(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` (an all-gather), whose
+    gradient is the rank's slice of the whole one: for a result every rank
+    of the group then uses alike, so its gradient is the same on each."""
+    return _GatherFrom.apply(x, dim)
+
+
+@torch.no_grad()
+def _reduce_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+
+    # ``reduce_scatter_single`` where this torch has it, as ``all_gather``
+    scatter = getattr(funcol, "reduce_scatter_single",
+                      funcol.reduce_scatter_tensor)
+    out = funcol.wait_tensor(scatter(x.contiguous(), "sum", dim % x.dim(),
+                                     _group()))
+    record("reduce-scatter", out)
+    return out
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(x, dim):
+        return _reduce_scatter(x, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim), None
+
+
+def reduce_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over the model group of each rank's partial ``x``, of which
+    the rank keeps its slice of ``dim`` (``dim`` divided into ``size()``
+    equal parts in rank order): a reduce-scatter forward, the all-gather
+    of the gradient backward."""
+    return _ReduceScatter.apply(x, dim)
+
+
+def _pair_splits(c: int) -> tuple[list, list, bool]:
+    """``exchange_halves``' all-to-all on this rank, each block ``c``
+    channels: (the elements it sends to each rank, those it receives from
+    each, whether its second block goes to a lower rank than its first).
+    Of the 2n blocks of the product (the first half's n, then the
+    second's), rank r holds blocks 2r and 2r + 1 and wants blocks r and
+    n + r; block b goes to rank b mod n."""
+    n, r = size(), rank()
+    to = [(2 * r) % n, (2 * r + 1) % n]
+    send = [c * to.count(d) for d in range(n)]
+    recv = [c * [r // 2, (n + r) // 2].count(q) for q in range(n)]
+    return send, recv, to[1] < to[0]
+
+
+@torch.no_grad()
+def _pairs(y: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """``exchange_halves`` (``inverse``: its inverse) outside autograd."""
+    import torch.distributed._functional_collectives as funcol
+
+    c = y.shape[-1] // 2
+    send, recv, wrap = _pair_splits(c)
+    if inverse:
+        send, recv = recv, send
+    x = y.movedim(-1, 0)            # the all-to-all splits dim 0
+    if wrap and not inverse:        # blocks in the order of their ranks
+        x = torch.cat([x[c:], x[:c]])
+    out = funcol.wait_tensor(funcol.all_to_all_single(
+        x.contiguous(), recv, send, _group()))
+    record("all-to-all", out)
+    if wrap and inverse:
+        out = torch.cat([out[c:], out[:c]])
+    return out.movedim(0, -1)
+
+
+class _ExchangeHalves(torch.autograd.Function):
+    @staticmethod
+    def forward(y):
+        return _pairs(y, False)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pairs(g, True)
+
+
+def exchange_halves(y: torch.Tensor) -> torch.Tensor:
+    """The rank's pair of channel blocks from its column shard of a
+    product whose last dim is two halves side by side, ``[a | b]`` (an
+    in-projection ``x @ w`` with ``w`` split by contiguous columns over n
+    ranks: ranks 0..n/2-1 hold ``a``'s channels, the rest ``b``'s).  ``y``
+    (..., 2c) is the rank's shard of the product; the result (..., 2c) is
+    ``[a_r | b_r]``, rank r's c channels [r c, (r + 1) c) of each half.
+    An all-to-all (each rank sends its two blocks where they belong and
+    receives its two) forward, the inverse all-to-all backward; a rank
+    moves 2c columns of ``y``'s rows, less those it keeps."""
+    return _ExchangeHalves.apply(y)
 
 
 # -- the dry run's count ------------------------------------------------------

@@ -202,7 +202,8 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
     gathers the parameters over the mesh's data axes at its top (the FSDP
     all-gather; ``gather``), so each leaf that its layer computes on a
     model shard (``transformer.model_shards``: attention heads, MLP ff
-    columns, experts, vocabulary rows) comes out as the rank's shard on
+    columns, experts, vocabulary rows, Mamba d_inner channels, mLSTM and
+    sLSTM heads) comes out as the rank's shard on
     ``model`` and the rest whole, and runs the forward and backward pass
     with the mesh's ``model`` dim as the model axis (``sharding.tp``: the
     activation all-reduces between the shards).  The batch is the rank's

@@ -33,8 +33,10 @@ Order: the 1 x 1 tests make and destroy their own group, the spawned
 ranks run in processes of their own, and the fake group, made once for
 the dry-run tests, is destroyed at the module's end.
 """
+import importlib.util
 import math
 import socket
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -48,24 +50,45 @@ import repro.models.transformer as JT
 import repro_torch.configs as PC
 import repro_torch.models.transformer as PT
 from repro_torch.configs import SHAPES
-from repro_torch.launch import make_local_mesh
-from repro_torch.launch.dryrun import dryrun_one, fake_group, trace_step
-from repro_torch.launch.specs import input_specs, param_structs, shape_config
+from repro_torch.launch import make_local_mesh, make_production_mesh
+from repro_torch.launch.dryrun import (_rank_inputs, dryrun_one, fake_group,
+                                       trace_step)
+from repro_torch.launch.specs import (input_shardings, input_specs,
+                                      param_structs, shape_config)
 from repro_torch.models import params_from_numpy
+from repro_torch.models import xlstm as PX
 from repro_torch.models.common import Dtype
 from repro_torch.optim import adamw_init, cosine_schedule
-from repro_torch.sharding import make_shardings
+from repro_torch.sharding import make_shardings, tp
 from repro_torch.train.steps import (build_decode_step, build_prefill_step,
                                      build_train_step, gather, place_params,
                                      place_train_state)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_paths
 
 RTOL, LOGIT_RTOL, B1 = 1e-5, 1e-4, 0.9
 B, S, NEW = 2, 16, 3
 LR = cosine_schedule(3e-3, 2, 10)
 CASES = {"deepseek-7b": ("deepseek-7b", {}),
          "phi3.5-moe": ("phi3.5-moe-42b-a6.6b", {}),
-         "gqa-one-kv": ("deepseek-7b", {"n_kv": 1})}
+         "gqa-one-kv": ("deepseek-7b", {"n_kv": 1}),
+         "jamba": ("jamba-1.5-large-398b", {}),
+         "xlstm": ("xlstm-350m", {}),
+         "xlstm-one-head": ("xlstm-350m", {"n_heads": 1, "n_kv": 1})}
+
+
+# A leaf float32 cannot resolve to RTOL in any order of its sums: at one
+# head the mLSTM's input-gate bias bi barely moves the loss (a shift of the
+# head's log input gates cancels in its normalised read-out but where the
+# normaliser's floor binds), so its gradient is about 1e-4 of the gate
+# weights' and a sum of terms that nearly cancel.  Such a leaf is held, as
+# the n-rank check on the card holds every leaf, within WITNESS_X times the
+# witness's distance: the one-rank step's own gradient against the same
+# step on the mirrored model (``chip_smoke._mirror``: every sum the model
+# axis splits in another order), mirrored back.  ``_witness`` requires that
+# distance to exceed RTOL; every other leaf stays at RTOL.
+CANCELLING = {"xlstm-one-head": [("blocks", "0", "bi")]}
+WITNESS_X = 10.0
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _cfgs(case):
@@ -115,7 +138,8 @@ def local_mesh():
 
 
 @pytest.mark.parametrize("kind", ["train", "serve"])
-@pytest.mark.parametrize("arch", ["deepseek-7b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "phi3.5-moe-42b-a6.6b",
+                                  "jamba-1.5-large-398b", "xlstm-350m"])
 def test_one_by_one_mesh_steps_bit_for_bit(local_mesh, arch, kind):
     cfg = PC.get_config(arch).smoke_variant()
     params = PT.init_params(cfg, 0, device="cpu")
@@ -172,9 +196,36 @@ def _rank_worker(rank, port, out):
             res[case] = {"loss": met["loss"], "grad_norm": met["grad_norm"],
                          "m": gather(o.m), "v": gather(o.v), "rows": rows,
                          "logits": logits}
+        res["slstm_calls"] = _slstm_calls(mesh)
         torch.save(res, f"{out}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _slstm_calls(mesh):
+    """The collectives of xlstm-350m's smoke sLSTM layer on the rank's
+    heads (the period's first, placed and gathered as the train step
+    does) over a forward and a backward pass, under a ``tp.Recorder``,
+    at S = 16 and 32: {S: (calls, bytes by kind)} of each pass."""
+    _, cfg = _cfgs("xlstm")
+    params = PT.init_params(cfg, 0, device="cpu")
+    laid = gather(place_params(params, make_shardings(
+        mesh, params, PT.param_axes(cfg))), PT.model_shards(cfg))
+    bp = {k: v[0] for k, v in laid["blocks"]["1"].items()}
+    assert bp["wz"].shape[1] * 2 == cfg.n_heads
+    gen = torch.Generator().manual_seed(5)
+    calls = {}
+    for s in (16, 32):
+        x = torch.randn(B, s, cfg.d_model, generator=gen,
+                        requires_grad=True)
+        fwd, bwd = tp.Recorder(), tp.Recorder()
+        with tp.model_axis(mesh):
+            with tp.recording(fwd):
+                out = PX.slstm_apply(bp, x, cfg)
+            with tp.recording(bwd):
+                out.sum().backward()
+        calls[s] = [(r.count, dict(r.bytes)) for r in (fwd, bwd)]
+    return calls
 
 
 @pytest.fixture(scope="module")
@@ -199,8 +250,52 @@ def two_ranks(tmp_path_factory):
     return ref, ranks
 
 
+@pytest.fixture(scope="module")
+def witness(two_ranks):
+    """{(case, path): the one-rank gradient's and its square's distance
+    from the mirrored model's, mirrored back, to the leaf's largest entry}
+    for the ``CANCELLING`` leaves, each required to exceed RTOL."""
+    from torch.func import grad
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ref, _ = two_ranks
+    out = {}
+    for case, paths in CANCELLING.items():
+        _, cfg = _cfgs(case)
+        batch = _torch_batch(cfg)
+        w = batch["weights"][:, None] * torch.ones(batch["labels"].shape)
+
+        def loss(p, tok, lab):
+            return PT.lm_loss(PT.forward(p, cfg, tok)[0], lab, w)
+
+        params = params_from_numpy(ref[case], "cpu")
+        axes = PT.param_axes(cfg)
+        flip = cfg.vocab - 1
+        g = dict(tree_paths(grad(loss)(params, batch["tokens"],
+                                       batch["labels"])))
+        gm = dict(tree_paths(smoke._mirror(grad(loss)(
+            smoke._mirror(params, axes, cfg), flip - batch["tokens"],
+            flip - batch["labels"]), axes, cfg)))
+        for path in paths:
+            out[case, path] = {"m": _rel(gm[path], g[path]),
+                               "v": _rel(gm[path] ** 2, g[path] ** 2)}
+            assert min(out[case, path].values()) > RTOL
+    return out
+
+
+def _gate(witness, case, path, k) -> float:
+    """RTOL, or for a ``CANCELLING`` leaf WITNESS_X times its witness."""
+    if path in CANCELLING.get(case, ()):
+        return WITNESS_X * witness[case, path][k]
+    return RTOL
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_two_ranks_train_step_is_the_one_rank_step(two_ranks, case):
+def test_two_ranks_train_step_is_the_one_rank_step(two_ranks, witness,
+                                                   case):
     ref, ranks = two_ranks
     _, cfg = _cfgs(case)
     params = params_from_numpy(ref[case], "cpu")
@@ -211,19 +306,22 @@ def test_two_ranks_train_step_is_the_one_rank_step(two_ranks, case):
         assert _rel(got["loss"], met["loss"]) <= RTOL
         assert _rel(got["grad_norm"], met["grad_norm"]) <= RTOL
         for k in ("m", "v"):
-            a, b = tree_leaves(got[k]), tree_leaves(getattr(opt, k))
+            a, b = tree_leaves(got[k]), list(tree_paths(getattr(opt, k)))
             assert len(a) == len(b)
-            for x, y in zip(a, b):
+            for x, (path, y) in zip(a, b):
                 assert x.shape == y.shape
-                assert _rel(x, y) <= RTOL, k
+                assert _rel(x, y) <= _gate(witness, case, path, k), (k, path)
         # the model-sharded leaves: half the rows of their model dim
         halves = [(loc, glob, d) for loc, glob, d in got["rows"] if d]
         assert halves
         for loc, glob, (d,) in halves:
             assert 2 * loc[d] == glob[d]
     # the embedding and each (stacked) weight of attention and the MLP or
-    # the experts; with one kv head, wk and wv stay whole
-    n = {"deepseek-7b": 8, "phi3.5-moe": 8, "gqa-one-kv": 6}[case]
+    # the experts; with one kv head, wk and wv stay whole; jamba's Mamba
+    # layer's 9 d_inner leaves; the mLSTM's 8 on d_inner and the sLSTM's
+    # 12 gate leaves on heads (whole with one head) and 3 on ff
+    n = {"deepseek-7b": 8, "phi3.5-moe": 8, "gqa-one-kv": 6, "jamba": 20,
+         "xlstm": 24, "xlstm-one-head": 12}[case]
     assert len([1 for *_, d in ranks[0][case]["rows"] if d]) == n
 
 
@@ -240,7 +338,8 @@ def _ref_loss(jcfg, batch):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_two_ranks_first_moment_is_the_reference_gradient(two_ranks, case):
+def test_two_ranks_first_moment_is_the_reference_gradient(two_ranks, witness,
+                                                          case):
     ref, ranks = two_ranks
     jcfg, _ = _cfgs(case)
     batch = {k: jnp.asarray(v) for k, v in _batch(jcfg).items()}
@@ -249,13 +348,14 @@ def test_two_ranks_first_moment_is_the_reference_gradient(two_ranks, case):
     for r in ranks:
         got = r[case]
         scale = min(1.0, 1.0 / float(got["grad_norm"]))
-        m = tree_leaves(got["m"])
+        m = list(tree_paths(got["m"]))
         assert len(m) == len(g)
-        for x, y in zip(m, g):
+        for (path, x), y in zip(m, g):
             y = np.asarray(y, np.float64)
             x = x.double().numpy() / ((1 - B1) * scale)
             assert x.shape == y.shape
-            assert np.abs(x - y).max() <= RTOL * max(np.abs(y).max(), 1e-30)
+            assert np.abs(x - y).max() <= _gate(witness, case, path, "m") \
+                * max(np.abs(y).max(), 1e-30), path
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -274,6 +374,20 @@ def test_two_ranks_decode_is_the_one_rank_decode(two_ranks, case):
             assert _rel(x, y) <= LOGIT_RTOL
 
 
+def test_two_ranks_slstm_loop_has_no_collective_a_token(two_ranks):
+    """The sLSTM on the rank's heads meets the other rank only outside its
+    token loop: its forward and its backward record the same collective
+    calls at S = 16 and S = 32 (the all-gather of the hidden states and
+    the post-projection's all-reduce; their backward counterparts)."""
+    _, ranks = two_ranks
+    for r in ranks:
+        calls = r["slstm_calls"]
+        for (n16, by16), (n32, by32) in zip(calls[16], calls[32]):
+            assert n16 == n32 > 0
+            assert sorted(by16) == sorted(by32)
+            assert all(by32[k] == 2 * by16[k] for k in by16)
+
+
 # ---------------------------------------------------------------------------
 # the dry run: rank 0's program on the fake 512-rank group
 # ---------------------------------------------------------------------------
@@ -286,9 +400,14 @@ def fake():
     dist.destroy_process_group()
 
 
+def _layers(arch) -> int:
+    """One period of ``arch``'s layers (one layer where the period is)."""
+    return len(PC.ARCHS[arch].period)
+
+
 def _record(arch, shape):
     return dryrun_one(arch, shape, False, verbose=False,
-                      extra_overrides={"n_layers": 1})
+                      extra_overrides={"n_layers": _layers(arch)})
 
 
 def _all_reduce_bytes(cfg, shape) -> float:
@@ -337,7 +456,8 @@ def test_dryrun_all_reduce_bytes_from_the_shapes(fake, arch, shape):
 
 def _global_flops(arch, shape):
     """The whole program's flops (every leaf and input whole, no mesh)."""
-    cfg = shape_config(PC.ARCHS[arch], shape).with_overrides(n_layers=1)
+    cfg = shape_config(PC.ARCHS[arch], shape).with_overrides(
+        n_layers=_layers(arch))
     params = param_structs(cfg)
     _, inputs = input_specs(cfg, shape)
     counts, _ = trace_step(cfg, "train", params, inputs,
@@ -346,17 +466,55 @@ def _global_flops(arch, shape):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "phi3.5-moe-42b-a6.6b",
-                                  "qwen2-vl-7b"])
+                                  "qwen2-vl-7b", "jamba-1.5-large-398b"])
 def test_dryrun_flops_are_rank_zeros(fake, arch):
     """deepseek-7b: every sharded dim divides 16, so rank 0 does 1/256 of
     the work; phi3.5-moe repeats its kv projections (8 kv heads on 16
-    ranks), qwen2-vl its attention (28 heads): more than 1/256."""
+    ranks), qwen2-vl its attention (28 heads): more than 1/256.
+    jamba-1.5-large (one period: attention and 7 Mamba layers, 4 with
+    experts) computes its Mamba layers on the rank's d_inner channels:
+    within 1.10x of 1/256 (only its 8 kv heads' projections repeat)."""
     rec = _record(arch, "train_4k")
     per = rec["roofline"]["hlo_flops_per_device"]
     share = _global_flops(arch, "train_4k") / rec["n_chips"]
     if arch == "deepseek-7b":
         assert abs(per - share) <= 1e-2 * share
+    elif arch.startswith("jamba"):
+        assert share <= per <= 1.10 * share
     else:
         assert per > (1 + 1e-2) * share
     assert math.isclose(rec["roofline"]["useful_ratio"],
                         rec["roofline"]["model_flops"] / (per * 256))
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("jamba-1.5-large-398b", {}),
+    ("xlstm-350m", {"n_heads": 16, "n_kv": 16})])
+def test_dryrun_decode_holds_the_recurrent_caches_on_shards(fake, arch,
+                                                             over):
+    """Rank 0's decode inputs hold its model shard of the Mamba caches'
+    d_inner channels and of the mLSTM's and sLSTM's heads (xlstm-350m with
+    16 heads, so the heads divide the 16-way model axis), and the traced
+    decode step returns caches of those shapes, written in place."""
+    cfg = PC.ARCHS[arch].with_overrides(n_layers=_layers(arch), **over)
+    mesh = make_production_mesh(multi_pod=False)
+    _, inputs = input_specs(cfg, "decode_32k")
+    token, caches, index = _rank_inputs(
+        inputs, input_shardings(cfg, "decode_32k", mesh))
+    di, H = cfg.mamba_expand * cfg.d_model, cfg.n_heads
+    kinds = [spec.kind for spec in cfg.period]
+    for kind, c in zip(kinds, caches):
+        if kind == "mamba":
+            assert c.conv.shape[-1] == c.ssm.shape[-2] == di // 16
+        elif kind in ("mlstm", "slstm"):
+            assert all(t.shape[2] == H // 16 for t in c)
+    assert {"mamba", "mlstm", "slstm"} & set(kinds)
+    params = param_structs(cfg)
+    params = place_params(params, make_shardings(mesh, params,
+                                                 PT.param_axes(cfg)))
+    _, (logits, out) = trace_step(cfg, "decode", params,
+                                  (token, caches, index),
+                                  SHAPES["decode_32k"]["seq_len"])
+    assert logits.shape[-1] == cfg.vocab
+    for a, b in zip(tree_leaves(out), tree_leaves(caches)):
+        assert a.shape == b.shape

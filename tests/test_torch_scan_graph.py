@@ -65,7 +65,7 @@ def short_slstm_blocks(monkeypatch):
 
 def _old_slstm_apply(p, x, cfg):
     B, S, d = x.shape
-    xz, xi, xf, xo = PX._slstm_inputs(p, x)
+    xz, xi, xf, xo = PX._slstm_inputs(p, x, cfg)
     R = PX._recurrent(p)
     state = PX.init_slstm_cache(cfg, B, x.dtype, device=x.device)
     hs = []
@@ -80,7 +80,7 @@ def _old_slstm_apply(p, x, cfg):
 def _old_mlstm_apply(p, x, cfg, return_cache=False):
     B, S, d = x.shape
     dp, H, dk = PX._mdims(cfg)
-    q, k, v, li, lf, z, _ = PX._mlstm_qkvg(p, x)
+    q, k, v, li, lf, z = PX._mlstm_qkvg(p, x, cfg)
     Q = min(cfg.mamba_chunk, S)
     Sp = ((S + Q - 1) // Q) * Q
     if Sp != S:
