@@ -17,7 +17,10 @@ Phases, each of which ends the run with a non-zero exit on failure:
 1. device  - probe CUDA (exit 2 without a card), print the card's name and
              power limit;
 2. build   - compile the CUDA kernels from src/repro_torch/kernels/csrc
-             (the build's host time as ``obs.CompileWatch`` splits it);
+             in a thread, while the serve phase (which launches no kernel
+             of the port) runs on the card in a whole run: the build's
+             host seconds (``kernels._build.build_seconds``) off the
+             run's clock;
 3. kernels - hold every kernel against its plain PyTorch version on the
              card at the main path's shapes (FWHT (6001, 8192); SRHT full
              frame and one worker window of the (4096, 6001) data; the
@@ -195,7 +198,8 @@ Phases, each of which ends the run with a non-zero exit on failure:
              captured (block 1 of 10 steps captured and replayed, the
              cluster launches inside the graph) equal to the same steps
              uncaptured bit for bit, with equal launches;
-   serve   - the model zoo's serve path (``repro_torch.models``' prefill,
+   serve   - (run beside the build, before the kernels phase) the model
+             zoo's serve path (``repro_torch.models``' prefill,
              decode_step and ``Decoder``, ``repro_torch.serve``), which
              runs no kernel of the port: the launch counters are cleared
              before the phase and must read 0 after it.  (1) every
@@ -2917,7 +2921,27 @@ def _rank_train(rank: int, dev, log, arch: str, data: int, model: int,
 # the serve checks over the model axis, a prompt of 1024 and 8 decode
 # steps: (arch, batch) at published width, cut by ``_serve_cfg``
 SERVES = (("gemma2-27b", 4), ("jamba-1.5-large-398b", 1), ("xlstm-350m", 2))
+# context-parallel decode: these at batch 1 over (n, 1) and (2, n / 2),
+# the attention caches' 1032 slots on the data ranks
+CP_SERVES = ("gemma2-27b", "jamba-1.5-large-398b")
 SERVE_PROMPT, SERVE_NEW = 1024, 8
+
+
+def _serve_cases(n: int) -> list:
+    """The serve checks of ``ranks_check`` over n cards, (arch, batch,
+    data): ``SERVES`` over (1, n), then ``CP_SERVES`` at batch 1 over
+    (n, 1) and, from four cards, (2, n / 2)."""
+    datas = [n] + ([2] if n >= 4 and n % 2 == 0 else [])
+    return ([(arch, B, 1) for arch, B in SERVES]
+            + [(arch, 1, d) for d in datas for arch in CP_SERVES])
+
+
+def _attn_cache_bytes(cfg, caches) -> int:
+    """The bytes of a cache tree's attention caches (keys and values)."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for spec, c in zip(cfg.period, caches) if spec.kind == "attn"
+               for t in tree_leaves(c))
 
 
 def _serve_cfg(arch: str):
@@ -2936,18 +2960,23 @@ def _serve_cfg(arch: str):
     return cfg, f"whole ({cfg.n_layers} layers)"
 
 
-def _rank_serve(rank: int, n: int, dev, arch: str, B: int, f32: bool,
-                want32=None):
+def _rank_serve(rank: int, n: int, dev, log, arch: str, B: int, data: int,
+                f32: bool, want32=None):
     """Prefill and SERVE_NEW eager decode steps (``build_prefill_step`` /
-    ``build_decode_step`` given the parameters' shards on a (1, n) mesh,
-    every ``graphs.scan`` eager: no capture) on the same tokens as rank
-    0's one-card eager path on the whole parameters, in float32 or as
-    published (bfloat16); rank 0 returns the logits' distance, both
-    paths' times and the one-card logits (``want``), and given the
-    float32 run's one-card logits (``want32``) the one-card bfloat16
-    path's own distance from them."""
+    ``build_decode_step`` given the parameters' shards on a (data, n /
+    data) mesh, every ``graphs.scan`` eager: no capture) on the same
+    tokens as rank 0's one-card eager path on the whole parameters, in
+    float32 or as published (bfloat16).  At batch 1 on data ranks the
+    attention caches' sequence is split over them (context-parallel
+    decode).  Rank 0 returns the logits' distance, both paths' times,
+    every rank's attention cache bytes after prefill beside one card's,
+    and the one-card logits (``want``), and given the float32 run's
+    one-card logits (``want32``) the one-card bfloat16 path's own
+    distance from them.  ``log(what)`` prints a line of this rank's
+    progress before each step's collectives."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from repro_torch import graphs
     from repro_torch.launch import make_local_mesh
@@ -2959,55 +2988,69 @@ def _rank_serve(rank: int, n: int, dev, arch: str, B: int, f32: bool,
     cfg, _ = _serve_cfg(arch)
     if f32:
         cfg = cfg.with_overrides(dtype="float32", param_dtype="float32")
-    mesh = make_local_mesh(1, n, device=dev)
+    log("makes the mesh (new groups)")
+    mesh = make_local_mesh(data, n // data, device=dev)
     params = init_params(cfg, 0, device=dev)
+    log("places the parameters")
     lp = place_params(params, make_shardings(mesh, params, param_axes(cfg)))
     if rank != 0:
         del params
     rng = np.random.default_rng(5)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (
         B, SERVE_PROMPT + SERVE_NEW)), dtype=torch.int32, device=dev)
-    pre = build_prefill_step(cfg, cache_len=SERVE_PROMPT + SERVE_NEW)
-    dec = build_decode_step(cfg)
+    L = SERVE_PROMPT + SERVE_NEW
+    pre = build_prefill_step(cfg, cache_len=L, global_batch=B)
+    dec = build_decode_step(cfg, cache_len=L, global_batch=B)
 
-    def serve(p):
+    def serve(p, say=lambda what: None):
         """(prefill's and every decode step's logits, prefill ms, decode
-        ms a step) by CUDA events."""
+        ms a step by CUDA events, the attention caches' bytes after
+        prefill)."""
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        say("prefill")
         ev[0].record()
         logits, caches = pre(p, {"tokens": toks[:, :SERVE_PROMPT]})
         ev[1].record()
+        held = _attn_cache_bytes(cfg, caches)
         out = [logits]
         for i in range(SERVE_NEW):
             t = SERVE_PROMPT + i
+            say(f"decode step {i + 1}")
             logits, caches = dec(p, toks[:, t:t + 1], caches, t)
             out.append(logits)
         ev[2].record()
         torch.cuda.synchronize()
         return (out, ev[0].elapsed_time(ev[1]),
-                ev[1].elapsed_time(ev[2]) / SERVE_NEW)
+                ev[1].elapsed_time(ev[2]) / SERVE_NEW, held)
 
     def dist_(a, b):
         return [float((x.float() - y.float()).abs().max())
                 / float(y.float().abs().max()) for x, y in zip(a, b)]
 
     with graphs.capturing(False):
-        got, pre_ms, dec_ms = serve(lp)
+        got, pre_ms, dec_ms, held = serve(lp, log)
+        helds = [None] * dist.get_world_size()
+        log("all_gather_object")
+        dist.all_gather_object(helds, held)
         if rank != 0:
             return None
-        want, ref_pre_ms, ref_dec_ms = serve(params)
-    return {"arch": arch, "batch": B, "dtype": str(cfg.dtype),
-            "errs": dist_(got, want),
+        want, ref_pre_ms, ref_dec_ms, whole = serve(params)
+    return {"arch": arch, "batch": B, "data": data, "model": n // data,
+            "dtype": str(cfg.dtype), "errs": dist_(got, want),
             "own": dist_(want, want32) if want32 is not None else None,
             "shape": list(got[-1].shape), "ms": [pre_ms, dec_ms],
             "ref_ms": [ref_pre_ms, ref_dec_ms], "want": want,
+            "held": helds, "whole_cache": whole,
+            # the ranks a cache's kv heads split over (``model`` where it
+            # divides n_kv), beside the data ranks its sequence splits over
+            "kv_ranks": n // data if cfg.n_kv % (n // data) == 0 else 1,
             "finite": all(bool(torch.isfinite(x).all()) for x in got)}
 
 
 def _rank_worker(rank: int, n: int, port: int, out: str, cases) -> None:
     """One rank of ``ranks_check``: every train mesh of ``cases`` in turn
-    (``_rank_train``), then the serve checks (``SERVES``), float32 and
-    bfloat16; rank 0 writes the results to ``out``.  A failure prints its
+    (``_rank_train``), then the serve checks (``_serve_cases``), float32
+    and bfloat16; rank 0 writes the results to ``out``.  A failure prints its
     traceback and ends the process at once (the spawn then fails the
     check): tearing the group down would wait on the other ranks' pending
     collectives.  A rank sent SIGTERM (the spawn ending the others after
@@ -3049,11 +3092,14 @@ def _rank_worker(rank: int, n: int, port: int, out: str, cases) -> None:
             if got is not None:
                 got["host_s"] = time.perf_counter() - t0
                 res["train"].append(got)
-        for arch, B in SERVES:
-            log(f"starts serving {arch}")
-            sv32 = _rank_serve(rank, n, dev, arch, B, True)
+        for arch, B, data in _serve_cases(n):
+            case = f"serve {arch} batch {B} over ({data}, {n // data})"
+            say = lambda w, c=case: log(f"{c}: {w}")  # noqa: E731
+            log(f"starts {case}")
+            sv32 = _rank_serve(rank, n, dev, say, arch, B, data, True)
             want32 = sv32.pop("want") if sv32 else None
-            sv16 = _rank_serve(rank, n, dev, arch, B, False, want32)
+            sv16 = _rank_serve(rank, n, dev, say, arch, B, data, False,
+                               want32)
             gc.collect()
             torch.cuda.empty_cache()
             if rank == 0:
@@ -3107,11 +3153,14 @@ def ranks_check(smi: str) -> None:
     moments bit for bit; each rank's allocated bytes for its parameters
     and moments 1/n of the one-rank's within 1 % (at (1, n) within 0.001
     of 1/n); at (n, 1) in float32 also ``grad_norm`` and step 1's moments
-    to rel 1e-5.  Then serving over the model axis (``SERVES``):
+    to rel 1e-5.  Then serving (``_serve_cases``) over the model axis:
     gemma2-27b at published width with 2 layers (batch 4), jamba-1.5-large
     with attention and the dense Mamba block (batch 1) and xlstm-350m
-    whole (batch 2), each a prompt of 1024 and 8 eager decode steps at
-    (1, n) against the one-card eager path, in float32
+    whole (batch 2) at (1, n); and context-parallel decode: gemma2-27b
+    (its windowed layer and soft-caps) and jamba at batch 1 over (n, 1)
+    and (2, n / 2), each rank holding 1/data of one card's attention
+    caches, over the kv heads' model ranks too (within 1 %); each serve a prompt of 1024 and 8 eager decode
+    steps against the one-card eager path, in float32
     every logit within ``SERVE_GATE`` of max|logit|, as published
     (bfloat16) within ``WITNESS_X`` times the one-card path's own
     distance from its float32 run (a bfloat16 sum split over the model
@@ -3148,13 +3197,18 @@ def ranks_check(smi: str) -> None:
           f" host clock")
     for arch in dict.fromkeys(c[0] for c in _rank_cases(n)):
         print(f"reduced: {arch} train meshes: {_rank_cfg(arch)[1]}")
-    for arch, _ in SERVES:
-        print(f"reduced: {arch} serve over (1, {n}): {_serve_cfg(arch)[1]}")
+    for arch, B, data in _serve_cases(n):
+        print(f"reduced: {arch} serve at batch {B} over ({data}, "
+              f"{n // data}): {_serve_cfg(arch)[1]}")
     failed = [f for r in res["train"] for f in _ranks_report(r, n, smi)]
     for sv in res["serve"]:
         f32 = sv["own"] is None
-        label = (f"serve over (1, {n}) ({sv['arch']}, "
+        data = sv["data"]
+        label = (f"serve over ({data}, {sv['model']}) ({sv['arch']}, "
                  f"{_serve_cfg(sv['arch'])[1]}, {sv['dtype']})")
+        # (xlstm-350m has no attention cache)
+        held = [h / max(sv["whole_cache"], 1) for h in sv["held"]]
+        share = data * sv["kv_ranks"]     # a rank's share of the cache
         print(f"{label}: batch {sv['batch']}, prompt {SERVE_PROMPT}, "
               f"{SERVE_NEW} eager decode steps, NCCL, no capture, against "
               f"the one-card eager path: logits {sv['shape']}, max|diff| "
@@ -3167,7 +3221,15 @@ def ranks_check(smi: str) -> None:
                  f"{WITNESS_X:g} x it)")
               + f"; prefill {sv['ms'][0]:.2f} ms (one card "
               f"{sv['ref_ms'][0]:.2f}), decode {sv['ms'][1]:.3f} ms a step "
-              f"(one card {sv['ref_ms'][1]:.3f})  [{smi}, {n} cards]")
+              f"(one card {sv['ref_ms'][1]:.3f}); attention cache held a "
+              f"rank {sv['held']} bytes, {[round(h, 5) for h in held]} of "
+              f"one card's {sv['whole_cache']} (1/{share}: the sequence "
+              f"over {data} data ranks, the kv heads over "
+              f"{sv['kv_ranks']})  [{smi}, {n} cards]")
+        if sv["batch"] == 1 and sv["whole_cache"] and any(
+                abs(h * share - 1.0) > 0.01 for h in held):
+            failed.append(f"{label}: attention cache held a rank {held} of "
+                          f"one card's, not 1/{share}")
         if not sv["finite"]:
             failed.append(f"{label}: logits not finite")
         if f32 and max(sv["errs"]) > SERVE_GATE:
@@ -3638,7 +3700,6 @@ def main(argv=None) -> int:
         pick_fused_realization_tile, wide_plan)
     from repro_torch.kernels.fwht import fwht_kernel_call, fwht_plain
     from repro_torch.kernels.ref import fused_masked_gradient_ref
-    from repro_torch.obs import CompileWatch
     from repro_torch.runtime import (ClusterEngine, FastestK, ProblemSpec,
                                      batched_scan_gd, get_strategy,
                                      scan_async, scan_bcd, scan_gd)
@@ -3669,12 +3730,19 @@ def main(argv=None) -> int:
         return 0
 
     # 2. build ---------------------------------------------------------------
+    # nvcc's minutes run beside the serve phase, which launches no kernel
+    # of the port (it checks that its launch counts read zero)
+    whole = args.phase == "all"
     t0 = time.perf_counter()
-    with CompileWatch() as cw:
-        _build.load_library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> "
-          f"{_build.library_path().name}; obs.CompileWatch: compile_s "
-          f"{cw.compile_s:.1f}, compiles {cw.compiles}")
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.load_library)
+        if whole:
+            serve_phase(smi)
+        building.result()
+    print(f"build: {_build.build_seconds:.1f} s host clock in its thread"
+          f"{' beside the serve phase' if whole else ''} -> "
+          f"{_build.library_path().name}; compiles {_build.builds}; "
+          f"{time.perf_counter() - t0:.1f} s until both ended")
     log = _build.library_path().with_suffix(".log")
     if log.exists():      # absent when an earlier process built the library
         text = log.read_text()
@@ -4072,8 +4140,7 @@ def main(argv=None) -> int:
     train_phase(smi, drive, table["coded_combine"])
     # coded-prox at LASSO §5.4's published width ---------------------------
     wide_phase(smi, drive, table)
-    # the model zoo's serve path ----------------------------------------------
-    serve_phase(smi)
+    # (the model zoo's serve path ran beside the build)
     # the launchers: the coded training CLI, grad_specs, the dry run ----------
     launch_phase(smi, drive)
     # the realization axis over cards (placement="sharded") ----------------

@@ -12,7 +12,10 @@ train step's AdamW moments) are ``DTensor`` shards laid out by
 rank 0's shards as ``launch.specs.input_shardings`` lays them, and the
 step is the partitioned program (``build_train_step(grad_specs=)`` and
 the serve steps given shards): the data axes gathered, the model axis
-computed on shards with its collectives recorded (``sharding.tp``).
+computed on shards with its collectives recorded (``sharding.tp``), and
+long_500k's decode on the rank's sequence shard of each attention cache
+with the data group's all-reduces of the merged softmax recorded
+(context-parallel decode).
 Nothing is allocated, so every configuration runs on the CPU.
 ``launch.roofline`` says what each term counts and what it cannot see.
 
@@ -71,7 +74,8 @@ def fake_group() -> None:
 def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
                grad_specs=None, loops: bool = True,
                live: LiveBytes | None = None,
-               collectives: tp.Recorder | None = None) -> tuple[dict, tuple]:
+               collectives: tp.Recorder | None = None,
+               global_batch: int | None = None) -> tuple[dict, tuple]:
     """Run one ``kind`` step ("train", "prefill" or "decode") on meta
     ``params`` and ``inputs`` (``specs.input_specs``' structure; ``opt``
     the AdamW state of a train step) under the flop counters -> (flops by
@@ -84,7 +88,11 @@ def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
     ``False`` traces every block.  ``live``: a ``roofline.LiveBytes`` that
     the step runs under.  ``collectives``: a ``tp.Recorder`` that takes
     the model axis's collectives (under ``"full"`` remat the periods'
-    forward ones twice)."""
+    forward ones twice) and, at a batch the data axes do not take, the
+    data axis's (context-parallel decode).  ``global_batch``: the batch
+    the inputs are rank 0's share of (``specs.input_shardings``), which
+    the serve steps take to place the caches; unset, every cache whole
+    (``build_prefill_step``)."""
     outs: dict = {}
     forward = None
     if kind == "train":
@@ -99,11 +107,13 @@ def trace_step(cfg, kind: str, params, inputs, seq_len: int, *, opt=None,
                 return T.forward(pgrad, cfg, inputs["tokens"],
                                  **batch_extras(cfg, inputs))
     elif kind == "prefill":
-        step = build_prefill_step(cfg, cache_len=seq_len)
+        step = build_prefill_step(cfg, cache_len=seq_len,
+                                  global_batch=global_batch)
         run = lambda: step(params, inputs)  # noqa: E731
     else:  # decode: position seq_len - 1 being generated
         token, caches, _ = inputs
-        step = build_decode_step(cfg)
+        step = build_decode_step(cfg, cache_len=seq_len,
+                                 global_batch=global_batch)
         run = lambda: step(params, token, caches, seq_len - 1)  # noqa: E731
 
     with tp.recording(collectives):
@@ -190,7 +200,8 @@ def dryrun_one(arch: str, shape_name: str, multi_pod: bool,
 
     t0 = time.perf_counter()
     counts, out = trace_step(cfg, kind, params, local, S, opt=opt,
-                             grad_specs=psh, live=live, collectives=rec)
+                             grad_specs=psh, live=live, collectives=rec,
+                             global_batch=B)
     t_lower = time.perf_counter() - t0
     flops = counts.pop("total")
 

@@ -11,10 +11,13 @@ tensors (shape and dtype, no storage) in place of the reference's
 
 ``input_shardings(cfg, shape_name, mesh)`` mirrors that structure with
 ``sharding.NamedSharding`` leaves.  Placements: the batch over the data
-axes (``("pod", "data")``) when their size divides it; for long_500k
-(batch 1) the KV cache's SEQUENCE dim goes over the data axes instead
-(context-parallel decode); `kv` goes on `model` only when ``n_kv``
-divides, and Mamba's ``d_inner`` and the xLSTM heads likewise.
+axes (``("pod", "data")``) when their size divides it
+(``sharding.batch_on_data``); where it does not (long_500k's batch of 1)
+an attention cache's SEQUENCE dim goes over the data axes instead when
+they divide its length (``sharding.seq_on_data``, which the serve steps
+ask too: context-parallel decode, each rank its slots, the softmax merged
+over the data group); `kv` goes on `model` only when ``n_kv`` divides,
+and Mamba's ``d_inner`` and the xLSTM heads likewise.
 
 ``param_structs(cfg)`` gives the parameters as meta tensors, straight
 from ``param_defs`` (the reference's ``jax.eval_shape(init_params)``):
@@ -31,7 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Dtype
 from repro_torch.sharding import (NamedSharding, axis_size, batch_axes,
-                                  placements_for)
+                                  batch_on_data, placements_for,
+                                  seq_on_data)
 
 __all__ = ["shape_config", "input_specs", "input_shardings",
            "output_shardings", "cache_struct", "param_structs"]
@@ -109,9 +113,7 @@ def _named(mesh, spec: tuple) -> NamedSharding:
 
 
 def _batch_spec(mesh, B: int, rest_ndim: int) -> tuple:
-    ba = batch_axes(mesh)
-    size = axis_size(mesh, ba)
-    first = ba if B % size == 0 and B >= size else None
+    first = batch_axes(mesh) if batch_on_data(B, mesh) else None
     return (first,) + (None,) * rest_ndim
 
 
@@ -120,13 +122,12 @@ def _cache_specs(cfg: ArchConfig, B: int, cache_len: int, mesh,
     """Spec tree mirroring ``init_caches``' structure, each spec passed
     through ``place``."""
     ba = batch_axes(mesh)
-    bsz = axis_size(mesh, ba)
     msz = axis_size(mesh, "model")
-    bspec = ba if (B % bsz == 0 and B >= bsz) else None
-    shard_seq = bspec is None  # context-parallel decode for batch-1
+    bspec = ba if batch_on_data(B, mesh) else None
 
     def attn_spec(C):
-        seq = ba if (shard_seq and C % bsz == 0) else None
+        # context-parallel decode for a batch the data axes do not take
+        seq = ba if seq_on_data(B, C, mesh) else None
         kv = "model" if cfg.n_kv % msz == 0 else None
         s = place((None, bspec, seq, kv, None))
         return T.attn.AttnCache(s, s)

@@ -26,6 +26,14 @@ heads than ``cfg.n_heads`` runs on the rank's query heads (``local_kv``)
 and returns its partial output projection, which the caller sums over the
 model group; the mask, the KV chunk loop and ``decode_attend`` run
 unchanged on the local heads.
+
+On a data axis (``tp.data_axis``, which the serve steps enter where the
+data axes do not take the batch) a cache whose sequence
+``sharding.seq_on_data`` puts on the data axes is held as the rank's
+slots (``seq_shard``): context-parallel decode.  ``decode_attend`` then
+writes the new key only on the rank that owns its slot and attends over
+the rank's slots, and ``merged_attention`` merges the ranks' partial
+softmaxes (``partial_attention``) over the data group.
 """
 from __future__ import annotations
 
@@ -36,12 +44,13 @@ import torch
 
 from repro_torch import graphs
 from repro_torch.device import resolve_device
-from repro_torch.sharding import tp
+from repro_torch.sharding import seq_on_data, tp
 
 from .common import pdef, softcap
 
 __all__ = ["attn_defs", "qkv_proj", "out_proj", "kv_heads", "local_kv",
-           "local_cache", "attention", "init_kv_cache",
+           "local_cache", "attention", "partial_attention",
+           "merged_attention", "seq_shard", "own_slots", "init_kv_cache",
            "ring_slot_positions", "decode_attend", "AttnCache"]
 
 _NEG = -0.7 * float(torch.finfo(torch.float32).max)
@@ -153,20 +162,83 @@ def attention(q, k, v, *, causal: bool, window: Optional[int],
                                  scale=scale, chunk=chunk, qpos=qpos,
                                  out_dtype=q.dtype)
 
-    carry = (torch.full((B, K, G, Sq), _NEG, dtype=torch.float32,
-                        device=q.device),
-             torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device),
-             torch.zeros((B, K, G, Sq, hd), dtype=torch.float32,
-                         device=q.device))
+    _, l_run, acc = _chunk_loop(qh, k, v, causal=causal, window=window,
+                                cap=cap, scale=scale, qpos=qpos, kpos=kpos,
+                                kvalid=kvalid, chunk=chunk)
+    o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _empty_carry(qh):
+    """The online softmax's state before any key: (max, denominator,
+    accumulator) of grouped queries ``qh`` (B, K, G, Sq, hd)."""
+    B, K, G, Sq, hd = qh.shape
+    return (torch.full((B, K, G, Sq), _NEG, dtype=torch.float32,
+                       device=qh.device),
+            torch.zeros((B, K, G, Sq), dtype=torch.float32, device=qh.device),
+            torch.zeros((B, K, G, Sq, hd), dtype=torch.float32,
+                        device=qh.device))
+
+
+def _chunk_loop(qh, k, v, *, causal, window, cap, scale, qpos, kpos, kvalid,
+                chunk):
+    """The KV chunk loop (``graphs.scan``, a chunk a block) over grouped
+    queries ``qh`` -> the online softmax's (max, denominator,
+    accumulator)."""
     # the queries in float32 once (the scores' cast), contiguous as a
     # graph's static buffer holds them; key positions and validity with a
     # leading axis, as scan slices dim 1
-    _, (_, l_run, acc) = graphs.scan(
+    _, carry = graphs.scan(
         "attention", functools.partial(_kv_chunk, causal=causal,
                                        window=window, cap=cap, scale=scale),
         (qh.float().contiguous(), qpos), (k, v, kpos[None], kvalid[None]),
-        carry, length=Skv, c=chunk, static=(causal, window, cap, scale))
-    o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+        _empty_carry(qh), length=k.shape[1], c=chunk,
+        static=(causal, window, cap, scale))
+    return carry
+
+
+def partial_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      cap: Optional[float], qpos, kpos, kvalid,
+                      chunk: int = 1024):
+    """The online softmax's unnormalised state over these keys: (max
+    (B, K, G, Sq), denominator (B, K, G, Sq), accumulator (B, K, G, Sq,
+    hd)), float32, the kv head groups' queries ``G = H // K`` apart.
+    ``attention`` is the accumulator over the denominator.  The routes
+    are ``attention``'s but the banded one: the KV chunk loop where the
+    key length is a multiple of ``chunk`` above one chunk, else one chunk
+    of the whole length (``_kv_chunk`` from the empty state), where
+    masked entries are zeroed explicitly: keys that are all masked give
+    (the floor, 0, 0), not uniform weights over them."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    qh = q.reshape(B, Sq, K, H // K, hd).permute(0, 2, 3, 1, 4)
+    kw = dict(causal=causal, window=window, cap=cap, scale=hd ** -0.5)
+    if Skv <= chunk or Skv % chunk:
+        _, carry = _kv_chunk((qh.float(), qpos),
+                             (k, v, kpos[None], kvalid[None]),
+                             _empty_carry(qh), **kw)
+        return carry
+    return _chunk_loop(qh, k, v, qpos=qpos, kpos=kpos, kvalid=kvalid,
+                       chunk=chunk, **kw)
+
+
+def merged_attention(q, k, v, **kw) -> torch.Tensor:
+    """``attention`` over keys whose sequence the current data axis splits
+    (``tp.data_axis``; ``k``, ``v``, ``kpos`` and ``kvalid`` the rank's
+    shard of them): each rank's ``partial_attention``, merged over the
+    data group.  The max by an all-reduce max; each rank's denominator and
+    accumulator rescaled to it and summed by one all-reduce; one division.
+    (B, Sq, H, hd) in q.dtype, the same on every rank of the group.  It
+    equals the one-rank ``attention`` over the whole keys to float32
+    rounding, not bit for bit: the terms sum in another order, and a
+    shard's length may take the direct route where the whole length took
+    the chunk loop."""
+    B, Sq, H, hd = q.shape
+    m, den, acc = partial_attention(q, k, v, **kw)
+    r = torch.exp(m - tp.data_all_reduce_max(m))
+    both = tp.data_all_reduce_sum(torch.cat([(den * r)[..., None],
+                                             acc * r[..., None]], dim=-1))
+    o = both[..., 1:] / torch.clamp(both[..., :1], min=1e-30)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -249,7 +321,8 @@ def init_kv_cache(B: int, cache_len: int, K: int, hd: int, dtype, *,
         torch.zeros((B, cache_len, K, hd), dtype=dtype, device=device))
 
 
-def ring_slot_positions(cache_len: int, index, *, device=None
+def ring_slot_positions(cache_len: int, index, *, device=None, lo: int = 0,
+                        hi: Optional[int] = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Positions and validity of ring-buffer slots given current length.
 
@@ -257,11 +330,13 @@ def ring_slot_positions(cache_len: int, index, *, device=None
     valid iff p >= 0.  For a non-ring (full) cache this reduces to
     pos = s, valid = s < index.  ``index`` is a Python int, and the tensors
     lie on ``device`` (unset: the CUDA card), or an integer tensor of one
-    element, and they lie on its device.
+    element, and they lie on its device.  ``lo``, ``hi``: slots [lo, hi)
+    only (a rank's sequence shard; unset: every slot).
     """
     dev = index.device if isinstance(index, torch.Tensor) else \
         resolve_device(device)
-    s = torch.arange(cache_len, dtype=torch.int32, device=dev)
+    s = torch.arange(lo, cache_len if hi is None else hi, dtype=torch.int32,
+                     device=dev)
     # floor modulo (``%`` on a tensor): idx - 1 - s is negative for most
     # slots, where fmod would keep the sign
     p = index - 1 - torch.remainder(index - 1 - s, cache_len)
@@ -278,8 +353,38 @@ def position(index, device) -> torch.Tensor:
     return torch.arange(index, index + 1, dtype=torch.int32, device=device)
 
 
+def seq_shard(B: int, C: int, held: Optional[int] = None):
+    """(ranks n, rank r) of the current data axis where a cache of ``C``
+    slots (its global length) at a batch of ``B`` holds its sequence there
+    (``sharding.seq_on_data``): rank r holds slots [r C / n, (r + 1) C /
+    n).  ``None``: the cache is whole.  ``held``: the slots the rank
+    holds, which must be its share."""
+    mesh = tp.data_mesh()
+    out = None
+    if mesh is not None and seq_on_data(B, C, mesh):
+        out = tp.data_size(), tp.data_rank()
+    want = C // out[0] if out else C
+    if held is not None and held != want:
+        raise ValueError(f"a cache of {C} slots at batch {B} held as {held}"
+                         f" slots on this rank, not its {want}")
+    return out
+
+
+def own_slots(cache: AttnCache) -> AttnCache:
+    """``cache`` (whole, its sequence dim 1) cut to the rank's slots where
+    ``seq_shard`` splits it, in storage of its own; else as it is."""
+    B, C = cache.k.shape[:2]
+    shard = seq_shard(B, C)
+    if shard is None:
+        return cache
+    n, r = shard
+    return AttnCache(*(t[:, r * C // n:(r + 1) * C // n].contiguous()
+                       for t in cache))
+
+
 def decode_attend(p, x, cache: AttnCache, index, *, cfg, window, cap,
-                  rope_fn, pre: str = "") -> tuple[torch.Tensor, AttnCache]:
+                  rope_fn, pre: str = "", cache_len: Optional[int] = None
+                  ) -> tuple[torch.Tensor, AttnCache]:
     """Single-token decode: write (k, v) at slot index % C, attend over cache.
 
     x: (B, 1, d); index: the current position, a Python int or a
@@ -291,6 +396,15 @@ def decode_attend(p, x, cache: AttnCache, index, *, cfg, window, cap,
     the rank's partial projection and the cache holds the rank's kv heads,
     or every kv head where they fall back to replication (the rank writes
     and reads its own).
+
+    ``cache_len``: the cache's global length C, whose slots the rank
+    holds whole or, where ``seq_shard`` splits them over the data axis,
+    its share (checked); unset: ``cache``'s own length, whole.  On a
+    shard, slot ``index % C`` is written only by the rank that owns it (a
+    masked ``index_copy_`` of the clamped local slot: no position is read
+    back to the host, so the step stays capturable), the keys' positions
+    are the rank's window of ``ring_slot_positions(C, index + 1)``, and the
+    softmax is merged over the data group (``merged_attention``).
     """
     p, kv = local_kv(p, cfg, pre)
     q, k_new, v_new = qkv_proj(p, x, pre)
@@ -298,11 +412,28 @@ def decode_attend(p, x, cache: AttnCache, index, *, cfg, window, cap,
     q = rope_fn(q, pos)
     k_new = rope_fn(k_new, pos)
     ck, cv = local_cache(cache, kv, cfg)
-    C = ck.shape[1]
-    slot = torch.remainder(pos, C).long()
-    ck.index_copy_(1, slot, k_new.to(ck.dtype))
-    cv.index_copy_(1, slot, v_new.to(cv.dtype))
-    kpos, kvalid = ring_slot_positions(C, pos + 1)
-    o = attention(q, ck, cv, causal=True, window=window, cap=cap,
-                  qpos=pos, kpos=kpos, kvalid=kvalid, chunk=cfg.attn_chunk)
+    shard = None if cache_len is None else seq_shard(x.shape[0], cache_len,
+                                                     held=ck.shape[1])
+    kw = dict(causal=True, window=window, cap=cap, qpos=pos,
+              chunk=cfg.attn_chunk)
+    if shard is None:
+        C = ck.shape[1]
+        slot = torch.remainder(pos, C).long()
+        ck.index_copy_(1, slot, k_new.to(ck.dtype))
+        cv.index_copy_(1, slot, v_new.to(cv.dtype))
+        kpos, kvalid = ring_slot_positions(C, pos + 1)
+        o = attention(q, ck, cv, kpos=kpos, kvalid=kvalid, **kw)
+        return out_proj(p, o, pre), cache
+    n, r = shard
+    Cl = cache_len // n
+    lo = r * Cl
+    slot = torch.remainder(pos, cache_len).long()
+    own = (slot >= lo) & (slot < lo + Cl)
+    at = torch.clamp(slot - lo, 0, Cl - 1)
+    for c, new in ((ck, k_new), (cv, v_new)):
+        c.index_copy_(1, at, torch.where(own, new.to(c.dtype),
+                                         c.index_select(1, at)))
+    kpos, kvalid = ring_slot_positions(cache_len, pos + 1, lo=lo,
+                                       hi=lo + Cl)
+    o = merged_attention(q, ck, cv, kpos=kpos, kvalid=kvalid, **kw)
     return out_proj(p, o, pre), cache

@@ -17,8 +17,18 @@ reference's scan layout, so a cache tree also converts one array at a time.
 ``decode_step`` writes into the caches it is given and returns them (no
 cache is copied per token); ``init_caches`` materializes every period's
 own zeros.  ``remat_policy`` only trades memory for recomputation in the
-reference, and the ``seq_parallel_*`` sharding constraints only place data
-on a mesh: neither changes a value, and the port ignores both.
+reference and changes no value; the port ignores it.  The reference's
+``seq_parallel_*`` constraints put the query sequence on ``model``; the
+port ignores them too and computes that attention whole on each rank.
+
+On a data axis (``tp.data_axis``: the serve steps told a global batch
+that the data axes do not take, as long_500k's of 1) the attention caches
+that ``sharding.seq_on_data`` splits are held as each rank's slots
+(context-parallel decode): ``prefill`` computes the whole sequence on
+every rank, as the reference's replicated batch-1 program does, and keeps
+the rank's slots of each such cache; ``decode_step`` (given
+``cache_len``) writes a new key on the rank that owns its slot and merges
+attention over the data group (``attention.decode_attend``).
 
 On a ``model`` axis (``sharding.tp``) the leaves ``model_shards`` names
 come in as the rank's model shard: attention runs on the rank's heads,
@@ -211,7 +221,9 @@ def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
     On a model shard of the heads the queries, keys and values are the
     rank's (column-parallel: every input of a projection through
     ``tp.copy_to``), and the self and cross output projections' partial
-    sum is all-reduced once (row-parallel)."""
+    sum is all-reduced once (row-parallel).  On a data axis the whole
+    sequence is computed and each cache kept as the rank's slots where
+    ``attention.seq_shard`` splits it (``attention.own_slots``)."""
     S = x.shape[1]
     dev = x.device
     sharded = bp["wq"].shape[1] < cfg.n_heads
@@ -242,7 +254,7 @@ def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
             if target > S:
                 pad = (0, 0, 0, 0, 0, target - S)
                 k, v = F.pad(k, pad), F.pad(v, pad)
-        cache = attn.AttnCache(k, v)
+        cache = attn.own_slots(attn.AttnCache(k, v))
     if spec.cross_attn:
         xc = _apply_norm(cfg, bp, "normc", x)
         bp, _ = attn.local_kv(bp, cfg, "c")
@@ -261,7 +273,7 @@ def _attn_full(bp, spec, x, cfg, rope_ctx, causal, want_cache, enc_out,
             chunk=cfg.attn_chunk)
         delta = delta + attn.out_proj(bp, oc, pre="c")
         if want_cache:
-            cache = (cache, attn.AttnCache(ck, cv))
+            cache = (cache, attn.own_slots(attn.AttnCache(ck, cv)))
     if sharded:
         delta = tp.reduce_from(delta)
     return delta, cache
@@ -303,28 +315,39 @@ def _block_full(bp, spec: BlockSpec, x, cfg, rope_ctx, aux, *, causal=True,
     return x, cache, aux
 
 
-def _block_decode(bp, spec: BlockSpec, x, cfg, cache, index, rope_decode):
-    """One block, single-token decode. Returns (x, new_cache)."""
+def _block_decode(bp, spec: BlockSpec, x, cfg, cache, index, rope_decode,
+                  cache_len=None):
+    """One block, single-token decode. Returns (x, new_cache).
+    ``cache_len``: ``decode_step``'s."""
     h = _apply_norm(cfg, bp, "norm1", x)
     if spec.kind == "attn":
         if spec.cross_attn:
             self_cache, cross_cache = cache
         else:
             self_cache = cache
+        C = cache_len
+        if C is not None and spec.window:
+            C = min(C, spec.window)
         delta, new_self = attn.decode_attend(
             bp, h, self_cache, index, cfg=cfg, window=spec.window,
-            cap=cfg.attn_softcap, rope_fn=rope_decode)
+            cap=cfg.attn_softcap, rope_fn=rope_decode, cache_len=C)
         if spec.cross_attn:
             xc = _apply_norm(cfg, bp, "normc", x)
             qc = torch.einsum("bsd,dhk->bshk", xc, bp["cwq"])
             ck, cv = attn.local_cache(cross_cache,
                                       attn.kv_heads(bp, cfg, "c"), cfg)
-            Fr = ck.shape[1]
-            oc = attn.attention(
+            Fr, lo, att = ck.shape[1], 0, attn.attention
+            # the frames' global count, as ``init_caches`` makes them
+            shard = None if cache_len is None else attn.seq_shard(
+                x.shape[0], max(cfg.n_enc_frames, 1), held=Fr)
+            if shard is not None:
+                lo, att = shard[1] * Fr, attn.merged_attention
+            oc = att(
                 qc, ck, cv, causal=False, window=None,
                 cap=None, qpos=torch.zeros((1,), dtype=torch.int32,
                                            device=x.device),
-                kpos=torch.arange(Fr, dtype=torch.int32, device=x.device),
+                kpos=torch.arange(lo, lo + Fr, dtype=torch.int32,
+                                  device=x.device),
                 kvalid=torch.ones((Fr,), dtype=torch.bool, device=x.device),
                 chunk=cfg.attn_chunk)
             delta = delta + attn.out_proj(bp, oc, pre="c")
@@ -506,7 +529,7 @@ def _write_back(dst, src) -> None:
 
 
 def decode_step(params, cfg: ArchConfig, token, caches, index, *,
-                mrope_positions=None):
+                mrope_positions=None, cache_len=None):
     """One decode step. token: (B, 1) int; index: the current position, a
     Python int or a 0-d integer tensor on the model's device (the
     reference's traced scalar: every value that depends on it is computed
@@ -518,7 +541,17 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, *,
     Writes the step's keys, values and states INTO ``caches`` (a tree as
     ``prefill`` or ``init_caches`` returns) and returns (logits (B, 1, V),
     the same caches).
+
+    ``cache_len``: the caches' global length, as ``init_caches`` or
+    ``prefill`` took it (a windowed cache's is min(cache_len, window), a
+    cross-attention cache's the config's frames), required on a data axis
+    (``tp.data_axis``), where each cache that ``attention.seq_shard``
+    splits is the rank's slots of it; unset off one: the caches are whole.
     """
+    if cache_len is None and tp.data_mesh() is not None and any(
+            s.kind == "attn" for s in cfg.period):
+        raise ValueError("decode on a data axis needs the caches' global "
+                         "length (cache_len): their sequence may be split")
     dev = token.device
     pos = attn.position(index, dev)                        # (1,) int32
     x = _embed_inputs(params, cfg, token, None, positions=pos)
@@ -538,7 +571,7 @@ def decode_step(params, cfg: ArchConfig, token, caches, index, *,
                         _per_period(caches, cfg.n_periods)):
         for bp, spec, cache in zip(bps, cfg.period, cps):
             x, new = _block_decode(bp, spec, x, cfg, cache, pos,
-                                   rope_decode)
+                                   rope_decode, cache_len)
             _write_back(cache, new)
     return _whole(cfg, _logits(params, cfg, x)), caches
 

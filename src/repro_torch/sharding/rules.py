@@ -27,7 +27,8 @@ from typing import Any
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 __all__ = ["logical_rules", "make_specs", "make_shardings", "batch_axes",
-           "axis_size", "spec_for_shape", "NamedSharding", "placements_for"]
+           "axis_size", "batch_on_data", "seq_on_data", "spec_for_shape",
+           "NamedSharding", "placements_for"]
 
 
 def _names(mesh) -> tuple:
@@ -61,6 +62,26 @@ def axis_size(mesh, entry) -> int:
     if isinstance(entry, tuple):
         return math.prod(_size(mesh, a) for a in entry)
     return _size(mesh, entry)
+
+
+def batch_on_data(B: int, mesh) -> bool:
+    """Whether the data axes (``batch_axes``) take a global batch of
+    ``B``, each rank its rows: they divide it."""
+    n = axis_size(mesh, batch_axes(mesh))
+    return B % n == 0 and B >= n
+
+
+def seq_on_data(B: int, C: int, mesh) -> bool:
+    """Whether an attention cache of ``C`` slots at a global batch of ``B``
+    holds its sequence on the data axes (context-parallel decode): the
+    reference's rule (``repro.launch.specs._cache_specs``), where the data
+    axes do not take the batch and divide ``C``; otherwise the cache stays
+    whole on every data rank.  The rule reads no field of the config.
+    The placement (``launch.specs``) and the compute
+    (``models.attention.seq_shard`` under ``tp.data_axis``) both ask it,
+    so what is placed and what is computed agree."""
+    return (not batch_on_data(B, mesh)
+            and C % axis_size(mesh, batch_axes(mesh)) == 0)
 
 
 def spec_for_shape(mesh, shape, axes, rules=None,

@@ -37,6 +37,13 @@ given shards); no mesh, or a ``model`` dim of one rank, means no model
 axis, and a layer given whole weights calls none of this.  A layer given
 a shard with no model axis set raises.
 
+``data_axis(mesh)`` likewise makes the group of ``mesh``'s data dims (its
+``batch_axes``, ``("pod", "data")`` flattened into one group in mesh
+order) the current data axis: the serve steps enter it where the data
+axes do not take the batch, and attention merges a softmax over the
+caches' sequence shards through ``data_all_reduce_max`` /
+``data_all_reduce_sum`` (context-parallel decode, ``models.attention``).
+
 Every collective passes ``Recorder``s that the dry run enters
 (``recording``): kind, output bytes and calls, each scaled by the blocks a
 counted loop's block stands for (``scaled``, entered by the counters'
@@ -45,16 +52,23 @@ counted loop's block stands for (``scaled``, entered by the counters'
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
+from .rules import batch_axes
+
 __all__ = ["model_axis", "size", "rank", "copy_to", "reduce_from",
            "exchange_halves", "reduce_scatter", "gather_from",
-           "all_reduce_max", "all_gather", "Recorder", "recording",
-           "record", "scaled"]
+           "all_reduce_max", "all_gather", "data_axis", "data_size",
+           "data_rank", "data_mesh", "data_all_reduce_max",
+           "data_all_reduce_sum", "Recorder", "recording", "record",
+           "scaled"]
 
 # (group, size, rank) of the current model axis, or None
 _AXIS = None
+# (group, size, rank, mesh) of the current data axis, or None
+_DATA = None
 
 
 @contextlib.contextmanager
@@ -92,15 +106,98 @@ def _group():
     return _AXIS[0]
 
 
+@contextlib.contextmanager
+def data_axis(mesh):
+    """Within, the data dims of ``mesh`` (a ``DeviceMesh``; its
+    ``batch_axes``, every dim but ``model``) are the current data axis,
+    their ranks in mesh order (row-major, as a tuple entry of a spec
+    splits a dim); ``None``, or data dims that span one rank: no data
+    axis."""
+    global _DATA
+    axis = None
+    if mesh is not None:
+        dims = batch_axes(mesh)
+        n = math.prod(mesh.size(mesh.mesh_dim_names.index(d)) for d in dims)
+        if n > 1:
+            axis = (*_data_group_of(mesh, dims), mesh)
+    was, _DATA = _DATA, axis
+    try:
+        yield
+    finally:
+        _DATA = was
+
+
+# id(mesh) -> (mesh, (group, size, rank)) of meshes with several data dims
+_FLAT: dict = {}
+
+
+def _data_group_of(mesh, dims: tuple) -> tuple:
+    """(group, size, rank) of ``mesh``'s data dims ``dims``: one dim's own
+    group, or the dims flattened in mesh order, made once a mesh (every
+    rank makes every group, as a new group needs).  Not
+    ``DeviceMesh._flatten``: a flattened dim registered on the mesh would
+    change how DTensor gathers the mesh's FSDP-sharded leaves later on."""
+    if len(dims) == 1:
+        return (mesh.get_group(dims[0]), mesh.size(
+            mesh.mesh_dim_names.index(dims[0])), mesh.get_local_rank(dims[0]))
+    if id(mesh) not in _FLAT:
+        import torch.distributed as dist
+
+        names = mesh.mesh_dim_names
+        at = [names.index(d) for d in dims]
+        rest = [i for i in range(len(names)) if i not in at]
+        n = math.prod(mesh.size(i) for i in at)
+        groups = mesh.mesh.permute(at + rest).reshape(n, -1).t().tolist()
+        group, _ = dist.new_subgroups_by_enumeration(groups)
+        me = dist.get_rank()
+        mine = next(g for g in groups if me in g)
+        _FLAT[id(mesh)] = (mesh, (group, n, mine.index(me)))
+    return _FLAT[id(mesh)][1]
+
+
+def data_size() -> int:
+    """The ranks of the current data axis (1 without one)."""
+    return _DATA[1] if _DATA else 1
+
+
+def data_rank() -> int:
+    """This rank's index on the current data axis (0 without one)."""
+    return _DATA[2] if _DATA else 0
+
+
+def data_mesh():
+    """The mesh whose data dims are the current data axis, or ``None``."""
+    return _DATA[3] if _DATA else None
+
+
+def _data_group():
+    if _DATA is None:
+        raise RuntimeError("a data-axis collective with no data axis set "
+                           "(tp.data_axis)")
+    return _DATA[0]
+
+
 @torch.no_grad()
-def _all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
-    """The collective outside autograd (its own autograd kernel is an
-    old-style Function, which ``torch.func.grad`` refuses in a backward)."""
+def _all_reduce(x: torch.Tensor, op: str, group=None) -> torch.Tensor:
+    """The collective over ``group`` (unset: the model axis's) outside
+    autograd (its own autograd kernel is an old-style Function, which
+    ``torch.func.grad`` refuses in a backward)."""
     import torch.distributed._functional_collectives as funcol
 
-    out = funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op, _group()))
+    out = funcol.wait_tensor(funcol.all_reduce(
+        x.contiguous(), op, _group() if group is None else group))
     record("all-reduce", out)
     return out
+
+
+def data_all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the data axis, outside autograd."""
+    return _all_reduce(x, "max", _data_group())
+
+
+def data_all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the data axis, outside autograd."""
+    return _all_reduce(x, "sum", _data_group())
 
 
 class _CopyTo(torch.autograd.Function):

@@ -15,7 +15,11 @@ Given ``DTensor`` shards, each step runs the rank's program on its mesh:
 it gathers the data (FSDP) axes, keeps each leaf that its layer computes
 on a model shard (``transformer.model_shards``) as the rank's shard, and
 runs the model with the mesh's ``model`` dim as the model axis
-(``sharding.tp``).
+(``sharding.tp``).  The serve steps told a global batch that the mesh's
+data axes do not take (``sharding.batch_on_data``; long_500k's batch of
+1) also set the data axis: the attention caches whose sequence
+``sharding.seq_on_data`` splits are each rank's slots (context-parallel
+decode).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import full_f32_matmul
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw_update
-from repro_torch.sharding import tp
+from repro_torch.sharding import batch_on_data, tp
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["build_train_step", "build_prefill_step", "build_decode_step",
@@ -259,32 +263,57 @@ def build_train_step(cfg: ArchConfig, lr_fn: Callable,
     return step
 
 
-def build_prefill_step(cfg: ArchConfig,
-                       cache_len: Optional[int] = None) -> Callable:
+def _data_axis(params, B: Optional[int]):
+    """``tp.data_axis`` of ``params``' mesh where its data axes do not take
+    a global batch of ``B`` (context-parallel decode), else (``B`` unset
+    too) no data axis."""
+    mesh = mesh_of(params)
+    return tp.data_axis(None if mesh is None or B is None
+                        or batch_on_data(B, mesh) else mesh)
+
+
+def build_prefill_step(cfg: ArchConfig, cache_len: Optional[int] = None, *,
+                       global_batch: Optional[int] = None) -> Callable:
     """(params, batch) -> (last-position logits, caches).  ``params`` may
     be ``DTensor`` shards (``place_params``): the rank's program on their
-    mesh (module docstring), the logits whole, the caches the rank's."""
+    mesh (module docstring), the logits whole, the caches the rank's:
+    its kv heads, Mamba channels or xLSTM heads on ``model`` and, where
+    the data axes do not take the batch, its slots of each attention
+    cache that ``sharding.seq_on_data`` splits (the sequence computed
+    whole on every rank).  ``global_batch``: the batch that the data axes
+    place, of which each rank is given its rows where they take it
+    (``sharding.batch_on_data``) and the whole where they do not (batch
+    1: every rank the same rows); unset, the batch's placement is not
+    known, and every cache stays whole on every rank."""
     shards = T.model_shards(cfg)
 
     @torch.no_grad()
     def step(params, batch):
-        with tp.model_axis(mesh_of(params)):
+        with tp.model_axis(mesh_of(params)), \
+                _data_axis(params, global_batch):
             return T.prefill(gather(params, shards), cfg, batch["tokens"],
                              cache_len=cache_len, **batch_extras(cfg, batch))
 
     return step
 
 
-def build_decode_step(cfg: ArchConfig) -> Callable:
+def build_decode_step(cfg: ArchConfig, cache_len: Optional[int] = None, *,
+                      global_batch: Optional[int] = None) -> Callable:
     """(params, token (B,1), caches, index) -> (logits, caches), ``index``
     a Python int; the caches are written in place and returned.
-    ``params`` as ``build_prefill_step``'s, the caches then the rank's."""
+    ``params`` and ``global_batch`` as ``build_prefill_step``'s, the
+    caches then the rank's, as its prefill step returns them: on a data
+    axis each attention cache that ``sharding.seq_on_data`` splits is the
+    rank's slots, the new key is written by the rank that owns its slot
+    and attention is merged over the data group.  ``cache_len``: the
+    caches' global length (prefill's), required there."""
     shards = T.model_shards(cfg)
 
     @torch.no_grad()
     def step(params, token, caches, index):
-        with tp.model_axis(mesh_of(params)):
+        with tp.model_axis(mesh_of(params)), \
+                _data_axis(params, global_batch):
             return T.decode_step(gather(params, shards), cfg, token, caches,
-                                 index)
+                                 index, cache_len=cache_len)
 
     return step
